@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's self-play path once on an NVIDIA card.
+"""Drive the PyTorch port's self-play paths once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -6,9 +6,11 @@ Phases (any failure raises and the script exits non-zero; there is no CPU
 fallback):
   0 device   needs torch.cuda; prints the card's name and power limit and
              the TF32 switches (both off).
-  1 build    compiles the liberty kernel (csrc/liberties.cu) with nvcc.
+  1 build    compiles the liberty kernel (csrc/liberties.cu) and the trunk
+             kernels (csrc/trunk.cu) with one nvcc each, started together;
+             prints each build's seconds and ptxas' register/spill lines.
   2 kernel   boards from random legal play with the port's `step`; the
-             kernel must equal its plain PyTorch version exactly at
+             liberty kernel must equal its plain PyTorch version exactly at
              B in {1, 7, 64, 192, 1024, 2048, 2880, 8192}; times both at
              B = 1024 and 8192: device time per call (profiler kernel
              records) and wall time per call (CUDA events, median of 5).
@@ -24,6 +26,23 @@ fallback):
              the superko guard, pi_improved is finite and sums to 1, and
              the liberty kernel was launched by this phase. Prints plies/s
              and moves/s (informative, not a benchmark).
+  5 trunk    the fused-trunk kernels, b12c128btl3 and b8c64 with seeded
+             random weights and perturbed BN, at N in {1, 7, 64, 512, 2880}
+             (2880: the widest leaf batch at B=256), on the stem
+             activations of the boards of phase 2: each segment and
+             broadcast kernel call against its plain version on the same
+             bf16 input (max |d| / max |ref| <= KERNEL_TOL), build_trunk_fn
+             and build_trunk_fn_v2 against their plain trunks (TRUNK_TOL), and
+             the model with the fused trunk against the plain bf16 model on
+             512 positions (policy top-1 agreement >= 0.95, every output
+             finite). Times at N = 512 and 2880 (device time and wall time
+             per call): the fused trunk, the plain trunk, ServeNet's trunk
+             and ServeNet's whole forward, and each kernel against its
+             plain version.
+  6 fused    the phase-4 loop with make_eval_fn(use_fused_trunk=True) in
+             place of serve_fold, for 6 plies with one reset; the same
+             checks, and all three kernels (segment, broadcast, liberty)
+             must have been launched by this phase.
 
 Before the last line it prints the kernels JSON line and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
@@ -55,9 +74,12 @@ from p3achygo_tpu_torch.models.blocks import BatchNorm
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
 from p3achygo_tpu_torch.nn.serve import ServeNet
+from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn, trunk_reference
+from p3achygo_tpu_torch.nn.trunk_kernel2 import build_trunk_fn_v2
 from p3achygo_tpu_torch.ops import cuda_build
+from p3achygo_tpu_torch.ops import liberties as lib_ops
+from p3achygo_tpu_torch.ops import trunk as trunk_ops
 from p3achygo_tpu_torch.ops.liberties import (
-    SOURCE,
     point_liberties_batch,
     point_liberties_reference,
 )
@@ -72,9 +94,22 @@ from p3achygo_tpu_torch.selfplay.loop import (
 
 BENCH_B = 256
 PLIES = 10
+FUSED_PLIES = 6
 RESET_EVERY = 5
 CHECK_BATCHES = (1, 7, 64, 192, 1024, 2048, 2880, 8192)
 TIMED_BATCHES = (1024, 8192)
+TRUNK_CONFIGS = ("b12c128btl3", "b8c64")
+TRUNK_BATCHES = (1, 7, 64, 512, 2880)
+TRUNK_TIMED = (512, 2880)
+# max |d| / max |ref| of one kernel call against its plain version, and of
+# a whole trunk (12 blocks) against the plain trunk. Both sides round to
+# bf16 at the same points and differ only in the f32 summation order, so
+# rounding flips of one or two bf16 units in the last place show up at the
+# largest magnitudes (2 units = 0.8-1.6% of max |ref|); the plain float32
+# version is itself that far from a float64-summed reference (PERF.md).
+KERNEL_TOL = 2e-2
+TRUNK_TOL = 4e-2
+KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broadcast)
 
 
 def log(msg: str) -> None:
@@ -165,9 +200,10 @@ def phase_kernel(device, gen):
     return boards, max_err, times
 
 
-def phase_forward(device, boards, gen):
-    cfg = get_config("b12c128btl3")
-    model = build_model(cfg, torch.float32, device)
+def seeded_model(name: str, device, gen: torch.Generator):
+    """float32 model of config `name` with random weights from `gen` (a CPU
+    generator) and BN statistics perturbed so no fold is an identity."""
+    model = build_model(get_config(name), torch.float32, device)
     init_params(model, gen)
     with torch.no_grad():
         for mod in model.modules():
@@ -178,6 +214,11 @@ def phase_forward(device, boards, gen):
                 mod.bias.copy_(0.2 * (r() - 0.5))
                 mod.running_mean.copy_(0.2 * (r() - 0.5))
                 mod.running_var.copy_(0.5 + r())
+    return model
+
+
+def phase_forward(device, boards, gen):
+    model = seeded_model("b12c128btl3", device, gen)
     sub = type(boards)(*[t[:512] for t in boards])
     planes, scalars = batched_features(sub, planes_dtype=torch.float32)
 
@@ -191,22 +232,130 @@ def phase_forward(device, boards, gen):
     model.dtype = torch.bfloat16
     plain = model(planes, scalars)
     served = ServeNet(model)(planes, scalars)
-    for f in ModelOutputs._fields:
-        t = getattr(plain, f)
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"plain bf16 output {f} not finite")
-    for f in ("pi_logits", "outcome_probs", "score_probs", "q6_err", "gamma"):
-        if not bool(torch.isfinite(getattr(served, f)).all()):
-            raise AssertionError(f"served bf16 output {f} not finite")
+    check_finite(plain, ModelOutputs._fields, "plain bf16")
+    check_finite(served, ("pi_logits", "outcome_probs", "score_probs", "q6_err",
+                          "gamma"), "served bf16")
     top1 = float((served.pi_logits.argmax(-1) == plain.pi_logits.argmax(-1)).float().mean())
     value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
     dv = float((value(served) - value(plain)).abs().max())
     log(f"phase 3: bf16 serve vs plain on {planes.shape[0]} positions: top-1 "
         f"agreement {top1:.4f}, max |d value| {dv:.3e}")
-    return model
+    return model, (planes, scalars, plain)
 
 
-def phase_selfplay(device, model, gen):
+def check_finite(out, fields, what):
+    for f in fields:
+        if not bool(torch.isfinite(getattr(out, f)).all()):
+            raise AssertionError(f"{what} output {f} not finite")
+
+
+def rel_err(got, want):
+    d = float((got.float() - want.float()).abs().max())
+    return d, d / float(want.float().abs().max())
+
+
+def stem_activations(model, boards, n: int) -> torch.Tensor:
+    """The trunk input the main path gives the kernels: the bf16 stem output
+    of the first `n` boards, [n, 361, C]."""
+    sub = type(boards)(*[t[:n] for t in boards])
+    planes, scalars = batched_features(sub, planes_dtype=model.dtype)
+    with torch.no_grad():
+        x = model.stem(planes, scalars).permute(0, 2, 3, 1)
+    return x.reshape(n, 361, -1).to(torch.bfloat16).contiguous()
+
+
+def phase_trunk(device, boards, forward_model, forward_batch, gen):
+    """Trunk kernels against their plain versions, the trunks against the
+    plain trunks, the fused model against the plain bf16 model, and times.
+    Inputs are stem activations of the boards of phase 2.
+    Returns ({kernel name: max |d|}, {timed row: (device ms, wall ms)})."""
+    max_err = {"trunk_segment": 0.0, "trunk_broadcast": 0.0}
+    times = {}
+    for name in TRUNK_CONFIGS:
+        model = (forward_model if name == TRUNK_CONFIGS[0]
+                 else seeded_model(name, device, gen))
+        model.dtype = torch.bfloat16
+        cfg = model.config
+        stem = stem_activations(model, boards, max(TRUNK_BATCHES))
+        trunk_fn = build_trunk_fn(cfg, model)
+        trunk_v2 = build_trunk_fn_v2(cfg, model)
+        kernel_rel, trunk_rel = 0.0, [0.0, 0.0]
+        for N in TRUNK_BATCHES:
+            x = x0 = stem[:N]
+            for kern, plain, w in trunk_fn.segments:
+                got, want = kern(x, w), plain(x, w)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != torch.bfloat16:
+                    raise AssertionError(f"{kern.__name__}: {got.shape} {got.dtype}")
+                d, rel = rel_err(got, want)
+                if not (bool(torch.isfinite(got.float()).all()) and rel <= KERNEL_TOL):
+                    raise AssertionError(f"{name} N={N} {kern.__name__} vs plain: "
+                                         f"max |d| {d}, relative {rel}")
+                max_err[kern.__name__] = max(max_err[kern.__name__], d)
+                kernel_rel = max(kernel_rel, rel)
+                if N == max(TRUNK_TIMED) and name == TRUNK_CONFIGS[0] \
+                        and kern.__name__ not in times:
+                    times[kern.__name__] = (device_ms(lambda: kern(x, w), 10),
+                                            wall_ms(lambda: kern(x, w), 3, 5))
+                    times[kern.__name__ + "_plain"] = (
+                        device_ms(lambda: plain(x, w), 10),
+                        wall_ms(lambda: plain(x, w), 3, 5))
+                x = want
+            xs = x0.reshape(N, 19, 19, cfg.channels)
+            for i, fn in enumerate((trunk_fn, trunk_v2)):
+                got, want = fn(xs), trunk_reference(xs, fn.segments)
+                torch.cuda.synchronize()
+                d, rel = rel_err(got, want)
+                if not (bool(torch.isfinite(got.float()).all()) and rel <= TRUNK_TOL):
+                    raise AssertionError(f"{name} N={N} trunk v{i + 1} vs plain: "
+                                         f"max |d| {d}, relative {rel}")
+                trunk_rel[i] = max(trunk_rel[i], rel)
+        log(f"phase 5: {name}: kernel vs plain per call max relative {kernel_rel:.3e} "
+            f"(bound {KERNEL_TOL}); trunk v1 {trunk_rel[0]:.3e}, v2 {trunk_rel[1]:.3e} "
+            f"(bound {TRUNK_TOL}) at N in {list(TRUNK_BATCHES)}")
+
+    # The bench model: fused trunk vs the plain bf16 model, then times.
+    model = forward_model
+    cfg = model.config
+    planes, scalars, plain_out = forward_batch
+    trunk_fn = build_trunk_fn(cfg, model)
+    fused = model(planes, scalars, trunk_fn=trunk_fn)
+    check_finite(fused, ModelOutputs._fields, "fused bf16")
+    top1 = float((fused.pi_logits.argmax(-1) == plain_out.pi_logits.argmax(-1)
+                  ).float().mean())
+    value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
+    dv = float((value(fused) - value(plain_out)).abs().max())
+    log(f"phase 5: fused-trunk model vs plain bf16 model on {planes.shape[0]} "
+        f"positions: top-1 agreement {top1:.4f}, max |d value| {dv:.3e}")
+    if top1 < 0.95:
+        raise AssertionError(f"fused-trunk top-1 agreement {top1} < 0.95")
+    net = ServeNet(model)
+    for N in TRUNK_TIMED:
+        p_n, s_n = batched_features(type(boards)(*[t[:N] for t in boards]),
+                                    planes_dtype=model.dtype)
+        xs = stem_activations(model, boards, N).reshape(N, 19, 19, cfg.channels)
+        x_nchw = xs.permute(0, 3, 1, 2).contiguous()
+        rows = {
+            "fused_trunk": lambda: trunk_fn(xs),
+            "plain_trunk": lambda: trunk_reference(xs, trunk_fn.segments),
+            "servenet_trunk": lambda: net.trunk(x_nchw),
+            "servenet_forward": lambda: net(p_n, s_n),
+            "fused_forward": lambda: model(p_n, s_n, trunk_fn=trunk_fn),
+        }
+        for row, fn in rows.items():
+            times[f"{row}@{N}"] = (device_ms(fn, 10), wall_ms(fn, 3, 5))
+            log(f"phase 5: {TRUNK_CONFIGS[0]} N={N} {row}: device {times[f'{row}@{N}'][0]:.3f} ms, "
+                f"wall {times[f'{row}@{N}'][1]:.3f} ms per call")
+    for k in ("trunk_segment", "trunk_broadcast"):
+        log(f"phase 5: N={max(TRUNK_TIMED)} {k}: device {times[k][0]:.4f} ms vs plain "
+            f"{times[k + '_plain'][0]:.4f} ms; wall {times[k][1]:.4f} vs "
+            f"{times[k + '_plain'][1]:.4f} ms")
+    return max_err, times
+
+
+def phase_selfplay(device, model, gen, eval_fn, plies, phase):
+    """`plies` plies of the tiered self-play step with resets; returns
+    (launches of each kernel in KERNELS during the run, plies/s, moves/s)."""
     B = BENCH_B
     cfg = SelfplayConfig(batch_size=B)
     params_sel = SearchParams(n=128, k=8, noise_scale=1.0, max_depth=24,
@@ -214,7 +363,6 @@ def phase_selfplay(device, model, gen):
     params_fast = SearchParams(n=32, k=5, noise_scale=1.0, max_depth=24,
                                visit_group=4)
     reuse_capacity = 64
-    eval_fn = make_eval_fn(model, serve_fold=True)
     states = new_state(B, cfg.komi, device=device)
     buf = make_game_buffer(B, cfg.max_game_len, device)
     aux = make_aux(B, gen, device=device)
@@ -222,13 +370,14 @@ def phase_selfplay(device, model, gen):
     tree = make_tree(B, reuse_capacity, device)
     b = torch.arange(B, device=device)
 
-    point_liberties_batch.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     moves_played = 0
     resets = 0
     checks = []
-    for ply in range(PLIES):
+    for ply in range(plies):
         prev = states
         active = ~finished_mask(prev, cfg)
         states, buf, aux, tree = selfplay_step_tiered(
@@ -246,7 +395,7 @@ def phase_selfplay(device, model, gen):
             resets += 1
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = point_liberties_batch.launches
+    launches = {k.__name__: k.launches for k in KERNELS}
 
     for ply, (prev, active, move, pi, after) in enumerate(checks):
         libs = point_liberties_reference(prev.stones, prev.chain_id)
@@ -257,20 +406,18 @@ def phase_selfplay(device, model, gen):
         placed = after.stones[b, move.clamp(max=PASS_MOVE - 1)] == prev.to_move
         bad = active & ~(ok_legal & ok_superko & (~on_board | placed))
         if bool(bad.any()):
-            raise AssertionError(f"ply {ply}: illegal move on boards "
+            raise AssertionError(f"phase {phase} ply {ply}: illegal move on boards "
                                  f"{b[bad].tolist()[:8]}")
         pis = pi[active]
         if not bool(torch.isfinite(pis).all()):
-            raise AssertionError(f"ply {ply}: pi_improved not finite")
+            raise AssertionError(f"phase {phase} ply {ply}: pi_improved not finite")
         err = float((pis.sum(-1) - 1.0).abs().max())
         if err > 1e-4 or pis.shape[1] != NUM_MOVES:
-            raise AssertionError(f"ply {ply}: pi_improved sums off by {err}")
-    if launches <= 0:
-        raise AssertionError("the liberty kernel was not launched by the main path")
-    log(f"phase 4: {PLIES} plies at B={B}, {resets} resets, {moves_played} moves "
+            raise AssertionError(f"phase {phase} ply {ply}: pi_improved sums off by {err}")
+    log(f"phase {phase}: {plies} plies at B={B}, {resets} resets, {moves_played} moves "
         f"in {dt:.2f} s; every move legal and superko-clean, pi_improved sums to 1; "
-        f"liberty kernel launches {launches}")
-    return launches, PLIES / dt, moves_played / dt
+        f"launches {launches}")
+    return launches, plies / dt, moves_played / dt
 
 
 def main() -> int:
@@ -287,28 +434,49 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    sources = (lib_ops.SOURCE, trunk_ops.SOURCE)
     t0 = time.perf_counter()
-    cuda_build.load_library(SOURCE)
-    log(f"phase 1: built {SOURCE} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {cuda_build.build_seconds(SOURCE):.2f} s)")
+    cuda_build.build_libraries(sources)
+    log(f"phase 1: built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc, started together: " + ", ".join(
+            f"{s} {cuda_build.build_seconds(s):.2f} s" for s in sources) + ")")
+    for line in cuda_build.build_log(trunk_ops.SOURCE).splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"phase 1: {line.strip()}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     boards, max_err, times = phase_kernel(device, gen)
     cpu_gen = torch.Generator().manual_seed(1)
-    model = phase_forward(device, boards, cpu_gen)
-    launches, plies_s, moves_s = phase_selfplay(device, model, gen)
+    model, forward_batch = phase_forward(device, boards, cpu_gen)
+    launches, plies_s, moves_s = phase_selfplay(
+        device, model, gen, make_eval_fn(model, serve_fold=True), PLIES, 4)
+    if launches["point_liberties_batch"] <= 0:
+        raise AssertionError("the liberty kernel was not launched by phase 4")
     log(f"phase 4: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
         f"(informative; {smi})")
+
+    trunk_err, trunk_times = phase_trunk(device, boards, model, forward_batch, cpu_gen)
+    fused_launches, f_plies_s, f_moves_s = phase_selfplay(
+        device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6)
+    for k, n in fused_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched by the fused self-play path")
+    log(f"phase 6: {f_plies_s:.3f} plies/s, {f_moves_s:.1f} moves/s at B={BENCH_B} "
+        f"with the fused trunk (informative; {smi})")
 
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
-    print(json.dumps({"kernels": [{
+    n_big = max(TRUNK_TIMED)
+    trunk_by_n = {k: {"ms": v[0], "wall_ms": v[1]}
+                  for k, v in trunk_times.items() if "@" in k}
+    kernels = [{
         "name": "point_liberties_batch",
         "route": "cuda",
-        "source": f"p3achygo_tpu_torch/csrc/{SOURCE}",
+        "source": f"p3achygo_tpu_torch/csrc/{lib_ops.SOURCE}",
         "replaces": "p3achygo_tpu/ops/liberties.py:46",
-        "launches": launches,
+        "launches": launches["point_liberties_batch"],
+        "launches_from": "phase 4 (serve_fold self-play)",
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],
@@ -316,7 +484,29 @@ def main() -> int:
         "timing": "device time per call from profiler kernel records",
         "by_batch": {str(k): {"ms": v[0], "plain_ms": v[1], "wall_ms": v[2],
                               "plain_wall_ms": v[3]} for k, v in times.items()},
-    }]}), flush=True)
+    }]
+    for name, replaces in (
+            ("trunk_segment", "p3achygo_tpu/nn/trunk_kernel2.py:89"),
+            ("trunk_broadcast", "p3achygo_tpu/nn/trunk_kernel.py:146")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"p3achygo_tpu_torch/csrc/{trunk_ops.SOURCE}",
+            "replaces": replaces,
+            "launches": fused_launches[name],
+            "launches_from": "phase 6 (fused-trunk self-play)",
+            "max_abs_err": trunk_err[name],
+            "ms": trunk_times[name][0],
+            "plain_ms": trunk_times[name + "_plain"][0],
+            "wall_ms": trunk_times[name][1],
+            "plain_wall_ms": trunk_times[name + "_plain"][1],
+            "timed_batch": n_big,
+            "timing": "device time per call from profiler kernel records, "
+                      "b12c128btl3, first call of the trunk",
+        })
+    kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
+    kernels[1]["trunk_b12c128btl3"] = trunk_by_n
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

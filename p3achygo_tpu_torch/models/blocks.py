@@ -21,11 +21,24 @@ BN_EPS = 1e-3
 def mish(x: torch.Tensor) -> torch.Tensor:
     """mish(x) = x * tanh(softplus(x)) as one rational in u = e^x:
     tanh(log(1 + u)) = (u^2 + 2u) / (u^2 + 2u + 2). The exponent input is
-    clamped at 20 (exact: mish(x) rounds to x there). Same formula as the
-    JAX package's blocks.py:20 and trunk_kernel.py:55-60."""
+    clamped at 20 (exact: mish(x) rounds to x there). The formula of the
+    JAX package's models/blocks.py:20, which the flax model and the folded
+    serving forward use. The fused trunk uses `mish_f32` instead."""
     u = torch.exp(torch.clamp(x, max=20.0))
     n = u * u + 2.0 * u
     return x * n / (n + 2.0)
+
+
+def mish_f32(x: torch.Tensor) -> torch.Tensor:
+    """mish as the fused trunk computes it (the JAX package's
+    nn/trunk_kernel.py:55-60 `_mish_f32`): two rationals in t = e^-|x|,
+    x * (1 + 2t) / (1 + 2t + 2t^2) for x >= 0 and
+    x * (t^2 + 2t) / (t^2 + 2t + 2) below. Equal to `mish` in exact
+    arithmetic; the two differ in the last float32 bits."""
+    t = torch.exp(-torch.abs(x))
+    pos = (1.0 + 2.0 * t) / (1.0 + 2.0 * t + 2.0 * t * t)
+    neg = (t * t + 2.0 * t) / (t * t + 2.0 * t + 2.0)
+    return x * torch.where(x >= 0, pos, neg)
 
 
 class BatchNorm(nn.Module):

@@ -115,11 +115,18 @@ class P3achyGoModel(nn.Module):
         return x + self.init_game_layer(game_state.to(self.dtype))[:, :, None, None]
 
     @torch.no_grad()
-    def forward(self, board_state: torch.Tensor, game_state: torch.Tensor
-                ) -> ModelOutputs:
+    def forward(self, board_state: torch.Tensor, game_state: torch.Tensor,
+                trunk_fn=None) -> ModelOutputs:
+        """`trunk_fn` (NHWC [N, 19, 19, C] -> same, e.g.
+        nn/trunk_kernel.py `build_trunk_fn`) replaces the residual trunk; the
+        stem and all heads stay this module (JAX model.py:72, 88-89)."""
         x = self.stem(board_state, game_state)
-        for i in range(self.config.blocks):
-            x = getattr(self, block_name(self.config, i))(x)
+        if trunk_fn is not None:
+            x = trunk_fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            x = x.to(self.dtype).contiguous()
+        else:
+            for i in range(self.config.blocks):
+                x = getattr(self, block_name(self.config, i))(x)
         pi, pi_aux, pi_soft, pi_opt = (t.float() for t in self.policy_head(x))
         vh = self.value_head(x)
         return ModelOutputs(

@@ -8,8 +8,8 @@ the TRT-engine analogue of reference cc/nn/engine/trt_engine.cc:177-215).
   residual stream and stays an explicit affine.
 * Head pruning. Search reads pi, outcome, the score distribution and
   q6_err; the other heads are not computed and their `ModelOutputs` fields
-  are None. (The JAX version can also keep the optimistic policy head; no
-  caller of the port asks for it yet.)
+  are None. With `want_optimistic` the optimistic policy head is kept too
+  (JAX serve.py:206-208), for `make_eval_fn(p_opt_weight > 0)`.
 
 Unlike the JAX version, which refolds inside every traced call, `ServeNet`
 folds once at construction (in float32, then cast to the model's compute
@@ -43,8 +43,9 @@ class ServeNet:
     """Folded, head-pruned forward of a `P3achyGoModel`."""
 
     @torch.no_grad()
-    def __init__(self, model: P3achyGoModel):
+    def __init__(self, model: P3achyGoModel, want_optimistic: bool = False):
         cfg = model.config
+        self.want_optimistic = want_optimistic
         self.dtype = dt = model.dtype
         cast = lambda t: t.detach().float().to(dt)
         self._cast = cast
@@ -81,6 +82,8 @@ class ServeNet:
         self.gpool_dense = self._dense(ph.gpool.Dense_0)
         self.moves_w = cast(ph.output_moves.weight[0:1])
         self.pass_dense = self._dense(ph.output_pass)
+        self.opt_moves_w = cast(ph.optimistic_moves.weight)
+        self.opt_pass_dense = self._dense(ph.optimistic_pass)
         self.v_conv = cast(vh.conv.weight)
         self.q_embed = self._dense(vh.outcome_q_embed)
         self.q_output = self._dense(vh.outcome_q_output)
@@ -126,6 +129,11 @@ class ServeNet:
         x = F.conv2d(board_state.to(dt).permute(0, 3, 1, 2), self.stem_w,
                      padding=self.stem_pad)
         x = x + F.linear(game_state.to(dt), *self.game)[:, :, None, None]
+        return self._heads(self.trunk(x))
+
+    @torch.no_grad()
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The folded residual trunk on NCHW x in the compute dtype."""
         for kind, p in self.blocks:
             if kind == "chain":
                 x = x + self._run_chain(x, p)
@@ -141,7 +149,7 @@ class ServeNet:
                 for r in res:
                     h_ = h_ + self._run_chain(h_, r)
                 x = x + self._run_chain(h_, expand)
-        return self._heads(x)
+        return x
 
     def _heads(self, x: torch.Tensor) -> ModelOutputs:
         n = x.shape[0]
@@ -153,6 +161,11 @@ class ServeNet:
         pi_board = F.conv2d(pco, self.moves_w).reshape(n, -1)
         pass_logit = F.linear(g_pooled, *self.pass_dense)[:, 0:1] - 3.0
         pi = torch.cat([pi_board, pass_logit], dim=1).float()
+        pi_opt = None
+        if self.want_optimistic:
+            opt_board = F.conv2d(pco, self.opt_moves_w).reshape(n, -1)
+            opt_pass = F.linear(g_pooled, *self.opt_pass_dense) - 3.0
+            pi_opt = torch.cat([opt_board, opt_pass], dim=1).float()
 
         # ---- value head (ownership / mcts-dist pruned) ----
         v_pooled = global_pool(F.conv2d(x, self.v_conv))
@@ -180,7 +193,7 @@ class ServeNet:
             q6_err=q6_err, q16_err=None, q50_err=None,
             q6_score=None, q16_score=None, q50_score=None,
             q6_score_err=None, q16_score_err=None, q50_score_err=None,
-            pi_logits_soft=None, pi_logits_optimistic=None,
+            pi_logits_soft=None, pi_logits_optimistic=pi_opt,
             mcts_dist_logits=None, mcts_dist_probs=None,
         )
 

@@ -1,4 +1,4 @@
-"""The PyTorch port's CUDA kernel against its plain version, on a card.
+"""The PyTorch port's CUDA kernels against their plain versions, on a card.
 
 Every test here is marked `cuda` and skips where there is no card. The
 file imports no JAX, so it also runs on a machine that has a card and nvcc
@@ -9,10 +9,13 @@ but no JAX (the repo's conftest imports JAX, hence `--noconftest`):
 import pytest
 import torch
 
-from chip_smoke import random_boards
+from chip_smoke import KERNEL_TOL, random_boards, rel_err, seeded_model
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import legal_mask_batch, map_state
+from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
+from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
 from p3achygo_tpu_torch.ops import liberties as tl
+from p3achygo_tpu_torch.ops import trunk as tk
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +70,82 @@ def test_callers_on_card_agree_with_cpu(boards):
     planes_cpu, scalars_cpu = batched_features(cpu)
     assert torch.equal(planes.cpu(), planes_cpu)
     assert torch.equal(scalars.cpu(), scalars_cpu)
+
+
+@pytest.fixture(scope="module")
+def trunks(device):
+    """{config: trunk_fn} with seeded random weights and perturbed BN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    return {name: build_trunk_fn(m.config, m) for name in ("b8c64", "b12c128btl3")
+            for m in [seeded_model(name, device, gen)]}
+
+
+@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
+@pytest.mark.parametrize("N", [1, 7, 64])
+def test_trunk_kernels_equal_plain(trunks, device, name, N):
+    """Each kernel call against its plain version on the same input; only
+    the f32 summation order differs (chip_smoke.KERNEL_TOL says how far
+    that carries)."""
+    fn = trunks[name]
+    channels = fn.segments[0].weights.wr.shape[1]
+    gen = torch.Generator(device=device).manual_seed(N)
+    x = torch.randn((N, 361, channels), generator=gen, device=device).to(torch.bfloat16)
+    for kern, plain, w in fn.segments:
+        before = kern.launches
+        got = kern(x, w)
+        want = plain(x, w)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert rel_err(got, want)[1] <= KERNEL_TOL, (kern.__name__, rel_err(got, want))
+        x = want
+
+
+def test_trunk_empty_batch_launches_nothing(trunks, device):
+    fn = trunks["b8c64"]
+    before = (tk.trunk_segment.launches, tk.trunk_broadcast.launches)
+    out = fn(torch.zeros((0, 19, 19, 64), device=device))
+    assert out.shape == (0, 19, 19, 64) and out.dtype == torch.bfloat16
+    assert (tk.trunk_segment.launches, tk.trunk_broadcast.launches) == before
+
+
+def test_trunk_rejects_non_contiguous(trunks, device):
+    seg, bc = (s.weights for s in trunks["b8c64"].segments[:2])
+    x = torch.zeros((4, 361, 128), dtype=torch.bfloat16, device=device)[:, :, ::2]
+    with pytest.raises(ValueError):
+        tk.trunk_segment(x, seg)
+    with pytest.raises(ValueError):
+        tk.trunk_broadcast(x, bc)
+
+
+def test_trunk_unsupported_width_raises(device):
+    """`tiny` (C=16, Cb=8) is a btl trunk the kernels do not take: the
+    wrappers raise and nothing falls back to the plain version."""
+    m = seeded_model("tiny", device, torch.Generator().manual_seed(0))
+    fn = build_trunk_fn(m.config, m)
+    before = (tk.trunk_segment.launches, tk.trunk_broadcast.launches)
+    with pytest.raises(ValueError):
+        fn(torch.zeros((2, 19, 19, 16), device=device))
+    with pytest.raises(ValueError):
+        tk.trunk_broadcast(torch.zeros((2, 361, 16), dtype=torch.bfloat16,
+                                       device=device), fn.segments[1].weights)
+    assert (tk.trunk_segment.launches, tk.trunk_broadcast.launches) == before
+
+
+def test_fused_eval_on_card_agrees_with_cpu(device, boards):
+    """make_eval_fn(use_fused_trunk=True) on the card (kernels) against the
+    same on the CPU (plain versions), on the policy's top-1."""
+    m = seeded_model("b8c64", device, torch.Generator().manual_seed(6))
+    m_cpu = seeded_model("b8c64", "cpu", torch.Generator().manual_seed(6))
+    sub = map_state(lambda t: t[:64], boards)
+    before = tk.trunk_segment.launches
+    card = make_eval_fn(m, use_fused_trunk=True)(sub)
+    torch.cuda.synchronize()
+    assert tk.trunk_segment.launches > before
+    cpu = make_eval_fn(m_cpu, use_fused_trunk=True)(map_state(lambda t: t.cpu(), sub))
+    top1 = (card.log_priors.argmax(-1).cpu() == cpu.log_priors.argmax(-1)).float().mean()
+    assert float(top1) >= 0.95, float(top1)
+    assert float((card.outcome_value.cpu() - cpu.outcome_value).abs().max()) < 0.05

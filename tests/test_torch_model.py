@@ -17,6 +17,7 @@ from p3achygo_tpu_torch.bridge import flax_to_state_dict, load_flax_variables
 from p3achygo_tpu_torch.models.config import _CONFIGS, get_config
 from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
 from p3achygo_tpu_torch.nn.serve import serve_forward
+from torch_parity import numpy_vars as _numpy_vars
 
 torch.set_num_threads(2)
 
@@ -24,26 +25,6 @@ GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "results", "curve-r4", "model_0016")
 SERVED = ("pi_logits", "outcome_logits", "outcome_probs", "score_logits",
           "score_probs", "gamma", "q6_err")
-
-
-def _numpy_vars(variables, rng=None):
-    """flax variables -> numpy; with `rng`, BN statistics and affine
-    parameters are perturbed so the BN fold is not an identity."""
-    def conv(tree):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = conv(v)
-                continue
-            a = np.asarray(v, np.float32)
-            if rng is not None and k in ("mean", "bias", "scale"):
-                a = a + rng.normal(0, 0.1, a.shape).astype(np.float32)
-            elif rng is not None and k == "var":
-                a = a * rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-            out[k] = a
-        return out
-    return {"params": conv(variables["params"]),
-            "batch_stats": conv(variables["batch_stats"])}
 
 
 def _jax_init(jm, seed):

@@ -34,6 +34,26 @@ def to_np(x) -> np.ndarray:
     return a
 
 
+def numpy_vars(variables, rng=None):
+    """flax variables -> numpy; with `rng`, BN statistics and affine
+    parameters are perturbed so the BN fold is not an identity."""
+    def conv(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = conv(v)
+                continue
+            a = np.asarray(v, np.float32)
+            if rng is not None and k in ("mean", "bias", "scale"):
+                a = a + rng.normal(0, 0.1, a.shape).astype(np.float32)
+            elif rng is not None and k == "var":
+                a = a * rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+            out[k] = a
+        return out
+    return {"params": conv(variables["params"]),
+            "batch_stats": conv(variables["batch_stats"])}
+
+
 def state_to_torch(js) -> GoState:
     """Batched JAX GoState -> port GoState (CPU tensors)."""
     return GoState(**{f: torch.tensor(to_np(getattr(js, f))).to(_STATE_DTYPES[f])
