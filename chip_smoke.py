@@ -6,9 +6,13 @@ Phases (any failure raises and the script exits non-zero; there is no CPU
 fallback):
   0 device   needs torch.cuda; prints the card's name and power limit and
              the TF32 switches (both off).
-  1 build    compiles the liberty kernel (csrc/liberties.cu) and the trunk
-             kernels (csrc/trunk.cu) with one nvcc each, started together;
-             prints each build's seconds and ptxas' register/spill lines.
+  1 build    compiles the liberty kernel (csrc/liberties.cu), the broadcast
+             kernel (csrc/trunk.cu) and the segment kernel
+             (csrc/trunk_segment.cu) with one nvcc each, started together;
+             prints each build's seconds, ptxas' register/spill lines and
+             each trunk kernel's count of HGMMA (wgmma) instructions from
+             `cuobjdump -sass` (the segment kernel's must be > 0; where
+             cuobjdump is missing the line says so).
   2 kernel   boards from random legal play with the port's `step`; the
              liberty kernel must equal its plain PyTorch version exactly at
              B in {1, 7, 64, 192, 1024, 2048, 2880, 8192}; times both at
@@ -38,24 +42,35 @@ fallback):
              finite). Times at N = 512 and 2880 (device time and wall time
              per call): the fused trunk, the plain trunk, ServeNet's trunk
              and ServeNet's whole forward, and each kernel against its
-             plain version.
+             plain version; for the segment kernel at both N also its FLOP
+             count, TFLOP/s, bound and share of it, and
+             library_products_ms: the same products alone (bf16 F.conv2d
+             for the 3x3s, bf16 torch.matmul for the 1x1s), a yardstick the
+             port never calls, since no single PyTorch call computes the
+             segment.
   6 fused    the phase-4 loop with make_eval_fn(use_fused_trunk=True) in
              place of serve_fold, for 6 plies with one reset; the same
              checks, and all three kernels (segment, broadcast, liberty)
              must have been launched by this phase.
 
-Before the last line it prints the kernels JSON line and the nvidia-smi
-line; the last line is {"ok": true, "device": {...}}.
+Before the last line it prints the kernels JSON line (every kernel with
+its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
+each input read once and each output written once, over 3.35 TB/s) and the
+nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -110,6 +125,9 @@ TRUNK_TIMED = (512, 2880)
 KERNEL_TOL = 2e-2
 TRUNK_TOL = 4e-2
 KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broadcast)
+# Published peaks of one H100 SXM (dense bf16 tensor rate, HBM3), for bounds.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -254,6 +272,76 @@ def rel_err(got, want):
     return d, d / float(want.float().abs().max())
 
 
+def bound_ms(flops: float, nbytes: float):
+    """(least time on the card in ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def segment_work(w, n: int):
+    """(FLOP, bytes) of one segment call on n boards: every product of every
+    block; x read once and written once, the packed weights and affines
+    read once."""
+    n_blocks, layers = w.aff.shape[:2]
+    C, cb = w.wr.shape[1:]
+    flops = n_blocks * n * 2 * 361 * (2 * C * cb + 9 * (layers - 2) * cb * cb)
+    return flops, 2 * n * 361 * C * 2 + tensor_bytes((w.aff, w.packed))
+
+
+def broadcast_work(w, n: int):
+    """(FLOP, bytes) of one broadcast call on n boards: conv_first, the
+    361 x 361 position mix, conv_last; x in and out, weights once."""
+    C = w.wf.shape[0]
+    flops = n * 2 * (2 * 361 * C * C + 361 * 361 * C)
+    return flops, 2 * n * 361 * C * 2 + tensor_bytes(w)
+
+
+def library_products(w, x):
+    """-> fn running the segment's products alone on x's shapes: bf16
+    torch.matmul for each 1x1 and bf16 F.conv2d (channels-last) for each
+    3x3, without the elementwise chain. A yardstick only: no single PyTorch
+    call computes the segment, and the port never calls this."""
+    n, _, C = x.shape
+    cb = w.wr.shape[2]
+    w9 = w.w9.reshape(*w.w9.shape[:2], 3, 3, cb, cb).permute(0, 1, 5, 4, 2, 3)
+    w9 = w9.contiguous(memory_format=torch.contiguous_format)
+    a = x.reshape(n * 361, C)
+
+    def run():
+        for blk in range(w.wr.shape[0]):
+            t = (a @ w.wr[blk]).reshape(n, 19, 19, cb).permute(0, 3, 1, 2)
+            for j in range(w9.shape[1]):
+                t = F.conv2d(t, w9[blk, j], padding=1)
+            t.permute(0, 2, 3, 1).reshape(n * 361, cb) @ w.we[blk]
+    return run
+
+
+def hgmma_counts(source: str):
+    """{kernel<widths>: HGMMA instructions} in the built library of
+    `source`, from `cuobjdump -sass`; None where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", cuda_build.built_path(source)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(trunk_(?:segment|broadcast)_kernel)I((?:Li\d+E)+)", line)
+            widths = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            name = (f"{m.group(1)}<{widths}>" if m
+                    else line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def stem_activations(model, boards, n: int) -> torch.Tensor:
     """The trunk input the main path gives the kernels: the bf16 stem output
     of the first `n` boards, [n, 361, C]."""
@@ -268,9 +356,10 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
     """Trunk kernels against their plain versions, the trunks against the
     plain trunks, the fused model against the plain bf16 model, and times.
     Inputs are stem activations of the boards of phase 2.
-    Returns ({kernel name: max |d|}, {timed row: (device ms, wall ms)})."""
+    Returns ({kernel name: max |d|}, {timed row: (device ms, wall ms)},
+    {"trunk_segment@N": the segment kernel's row at each timed N})."""
     max_err = {"trunk_segment": 0.0, "trunk_broadcast": 0.0}
-    times = {}
+    times, seg_rows = {}, {}
     for name in TRUNK_CONFIGS:
         model = (forward_model if name == TRUNK_CONFIGS[0]
                  else seeded_model(name, device, gen))
@@ -293,6 +382,9 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
                                          f"max |d| {d}, relative {rel}")
                 max_err[kern.__name__] = max(max_err[kern.__name__], d)
                 kernel_rel = max(kernel_rel, rel)
+                if (kern is trunk_ops.trunk_segment and name == TRUNK_CONFIGS[0]
+                        and N in TRUNK_TIMED and f"trunk_segment@{N}" not in seg_rows):
+                    seg_rows[f"trunk_segment@{N}"] = segment_row(w, x)
                 if N == max(TRUNK_TIMED) and name == TRUNK_CONFIGS[0] \
                         and kern.__name__ not in times:
                     times[kern.__name__] = (device_ms(lambda: kern(x, w), 10),
@@ -300,6 +392,9 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
                     times[kern.__name__ + "_plain"] = (
                         device_ms(lambda: plain(x, w), 10),
                         wall_ms(lambda: plain(x, w), 3, 5))
+                    work = (segment_work if kern is trunk_ops.trunk_segment
+                            else broadcast_work)(w, N)
+                    times[kern.__name__ + "_bound"] = bound_ms(*work)
                 x = want
             xs = x0.reshape(N, 19, 19, cfg.channels)
             for i, fn in enumerate((trunk_fn, trunk_v2)):
@@ -349,8 +444,28 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
     for k in ("trunk_segment", "trunk_broadcast"):
         log(f"phase 5: N={max(TRUNK_TIMED)} {k}: device {times[k][0]:.4f} ms vs plain "
             f"{times[k + '_plain'][0]:.4f} ms; wall {times[k][1]:.4f} vs "
-            f"{times[k + '_plain'][1]:.4f} ms")
-    return max_err, times
+            f"{times[k + '_plain'][1]:.4f} ms; bound {times[k + '_bound'][0]:.4f} ms "
+            f"({times[k + '_bound'][1]})")
+    return max_err, times, seg_rows
+
+
+def segment_row(w, x):
+    """The segment kernel on x: device time per call, its work, bound and
+    share of it, and the products alone in PyTorch (library_products_ms)."""
+    n = x.shape[0]
+    ms = device_ms(lambda: trunk_ops.trunk_segment(x, w), 10)
+    flops, nbytes = segment_work(w, n)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    lib_ms = device_ms(library_products(w, x), 10)
+    row = {"ms": ms, "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+           "library_products_ms": lib_ms, "n_blocks": int(w.aff.shape[0])}
+    log(f"phase 5: trunk_segment N={n} ({row['n_blocks']} blocks): device {ms:.4f} ms, "
+        f"{row['gflop']:.1f} GFLOP, {row['tflops']:.1f} TFLOP/s; bound {b_ms:.4f} ms "
+        f"({b_by}), {100 * row['share_of_bound']:.1f}% of it; library_products_ms "
+        f"{lib_ms:.4f} (the same products alone, bf16 F.conv2d + torch.matmul; "
+        f"no single PyTorch call computes the segment)")
+    return row
 
 
 def phase_selfplay(device, model, gen, eval_fn, plies, phase):
@@ -434,15 +549,26 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    sources = (lib_ops.SOURCE, trunk_ops.SOURCE)
+    sources = (lib_ops.SOURCE, trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE)
     t0 = time.perf_counter()
     cuda_build.build_libraries(sources)
     log(f"phase 1: built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc, started together: " + ", ".join(
             f"{s} {cuda_build.build_seconds(s):.2f} s" for s in sources) + ")")
-    for line in cuda_build.build_log(trunk_ops.SOURCE).splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log(f"phase 1: {line.strip()}")
+    hgmma = {}
+    for src in (trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE):
+        for line in cuda_build.build_log(src).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"phase 1: {line.strip()}")
+        counts = hgmma_counts(src)
+        if counts is None:
+            log(f"phase 1: {src}: cuobjdump not found, HGMMA instructions not counted")
+            continue
+        hgmma.update(counts)
+        log(f"phase 1: {src}: HGMMA (wgmma) instructions per kernel: {counts}")
+    seg_hgmma = [v for k, v in hgmma.items() if k.startswith("trunk_segment_kernel")]
+    if counts is not None and (not seg_hgmma or min(seg_hgmma) <= 0):
+        raise AssertionError(f"the segment kernel has no wgmma: {hgmma}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     boards, max_err, times = phase_kernel(device, gen)
@@ -455,7 +581,8 @@ def main() -> int:
     log(f"phase 4: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
         f"(informative; {smi})")
 
-    trunk_err, trunk_times = phase_trunk(device, boards, model, forward_batch, cpu_gen)
+    trunk_err, trunk_times, seg_rows = phase_trunk(device, boards, model, forward_batch,
+                                                   cpu_gen)
     fused_launches, f_plies_s, f_moves_s = phase_selfplay(
         device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6)
     for k, n in fused_launches.items():
@@ -480,18 +607,21 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],
+        # stones int8 + chain ids int32 in, liberties int32 out, per board
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(0, t_big * 361 * (1 + 4 + 4)))),
+        "library_ms": None,
         "timed_batch": t_big,
         "timing": "device time per call from profiler kernel records",
         "by_batch": {str(k): {"ms": v[0], "plain_ms": v[1], "wall_ms": v[2],
                               "plain_wall_ms": v[3]} for k, v in times.items()},
     }]
-    for name, replaces in (
-            ("trunk_segment", "p3achygo_tpu/nn/trunk_kernel2.py:89"),
-            ("trunk_broadcast", "p3achygo_tpu/nn/trunk_kernel.py:146")):
+    for name, source, replaces in (
+            ("trunk_segment", trunk_ops.SEGMENT_SOURCE, "p3achygo_tpu/nn/trunk_kernel2.py:89"),
+            ("trunk_broadcast", trunk_ops.SOURCE, "p3achygo_tpu/nn/trunk_kernel.py:146")):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"p3achygo_tpu_torch/csrc/{trunk_ops.SOURCE}",
+            "source": f"p3achygo_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": fused_launches[name],
             "launches_from": "phase 6 (fused-trunk self-play)",
@@ -500,12 +630,19 @@ def main() -> int:
             "plain_ms": trunk_times[name + "_plain"][0],
             "wall_ms": trunk_times[name][1],
             "plain_wall_ms": trunk_times[name + "_plain"][1],
+            "bound_ms": trunk_times[name + "_bound"][0],
+            "bound_by": trunk_times[name + "_bound"][1],
+            "library_ms": None,
+            "hgmma": {k: v for k, v in hgmma.items() if k.startswith(name)},
             "timed_batch": n_big,
             "timing": "device time per call from profiler kernel records, "
                       "b12c128btl3, first call of the trunk",
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
     kernels[1]["trunk_b12c128btl3"] = trunk_by_n
+    kernels[1]["library_products_ms"] = seg_rows[f"trunk_segment@{n_big}"][
+        "library_products_ms"]
+    kernels[1]["by_batch"] = seg_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -188,7 +188,7 @@ def compute_chains(stones: torch.Tensor) -> torch.Tensor:
 
 
 def new_state(batch_size: int, komi: Union[float, torch.Tensor] = DEFAULT_KOMI,
-              device="cpu", history: int = MAX_HISTORY) -> GoState:
+              device="cuda", history: int = MAX_HISTORY) -> GoState:
     """B empty boards with black to move."""
     B = batch_size
     dev = torch.device(device)

@@ -74,7 +74,7 @@ class Tree(NamedTuple):
     s_legal: torch.Tensor  # bool[B, N, 362]
 
 
-def make_tree(batch_size: int, max_nodes: int, device="cpu") -> Tree:
+def make_tree(batch_size: int, max_nodes: int, device="cuda") -> Tree:
     B, N = batch_size, max_nodes
     if max_nodes >= 2**15:
         raise ValueError(f"max_nodes={max_nodes} >= 2**15 would overflow "

@@ -12,7 +12,7 @@ from p3achygo_tpu_torch.constants import NUM_LOCS, NUM_SCORE_LOGITS, NUM_V_BUCKE
 from p3achygo_tpu_torch.models.blocks import Conv, Dense, GlobalPoolBias, global_pool, mish
 
 
-def score_bins(dtype=torch.float32, device="cpu") -> torch.Tensor:
+def score_bins(dtype=torch.float32, device="cuda") -> torch.Tensor:
     """Score-bin centres the score head conditions on: 0.05*i + 0.025."""
     half = NUM_SCORE_LOGITS // 2
     return (0.05 * torch.arange(-half, half, dtype=torch.float32, device=device)

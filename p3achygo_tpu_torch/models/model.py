@@ -153,7 +153,7 @@ class P3achyGoModel(nn.Module):
 
 
 def build_model(config: ModelConfig, dtype: torch.dtype = torch.float32,
-                device="cpu") -> P3achyGoModel:
+                device="cuda") -> P3achyGoModel:
     return P3achyGoModel(config, dtype).to(device).eval()
 
 

@@ -25,9 +25,12 @@ from p3achygo_tpu_torch.constants import NUM_LOCS
 from p3achygo_tpu_torch.models.blocks import ConvBlock
 from p3achygo_tpu_torch.models.model import P3achyGoModel, block_name, is_broadcast_block
 from p3achygo_tpu_torch.ops.trunk import (
+    MAX_INNER,
     MIX_PAD,
+    SEGMENT_WIDTHS,
     BroadcastWeights,
     SegmentWeights,
+    pack_segment,
     trunk_broadcast,
     trunk_broadcast_reference,
     trunk_segment,
@@ -120,7 +123,9 @@ def build_trunk_weights(config, model: P3achyGoModel
 
 def _pack_segment(blocks: List[List[torch.Tensor]], channels: int
                   ) -> SegmentWeights:
-    """Per-block flat arrays -> the segment kernel's stacked weights."""
+    """Per-block flat arrays -> the segment kernel's stacked weights, with
+    the kernel's weight stream (`pack_segment`, once, here) for the widths
+    it takes."""
     affs, wr, w9, we = [], [], [], []
     for arrs in blocks:
         layers = [arrs[k:k + 3] for k in range(0, len(arrs), 3)]
@@ -135,10 +140,13 @@ def _pack_segment(blocks: List[List[torch.Tensor]], channels: int
         w9.append(torch.stack([w for _, _, w in layers[1:-1]]) if len(layers) > 2
                   else layers[0][2].new_zeros((0, 9 * cb, cb)))
         we.append(layers[-1][2])
-    return SegmentWeights(torch.stack(affs).contiguous(),
-                          torch.stack(wr).contiguous(),
-                          torch.stack(w9).contiguous(),
-                          torch.stack(we).contiguous())
+    w = SegmentWeights(torch.stack(affs).contiguous(),
+                       torch.stack(wr).contiguous(),
+                       torch.stack(w9).contiguous(),
+                       torch.stack(we).contiguous())
+    if tuple(w.wr.shape[1:]) in SEGMENT_WIDTHS and w.w9.shape[1] <= MAX_INNER:
+        w = w._replace(packed=pack_segment(w))
+    return w
 
 
 def _pack_broadcast(arrs: List[torch.Tensor]) -> BroadcastWeights:

@@ -2,10 +2,11 @@
 
 `nvcc` compiles each `.cu` file with a plain C interface for Hopper
 (`sm_90a`) into `p3achygo_tpu_torch/_build/`, at first use; a library is
-named after a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is loaded as it is. `build_libraries` starts one `nvcc` per
-source, all at once, and waits for them together. Nothing here runs at
-import time and nothing needs CUDA until a library is asked for.
+named after a hash of its source, the headers of `csrc/` and the flags, so
+an edited source or header rebuilds and an unchanged one is loaded as it
+is. `build_libraries` starts one `nvcc` per source, all at once, and waits
+for them together. Nothing here runs at import time and nothing needs CUDA
+until a library is asked for.
 """
 from __future__ import annotations
 
@@ -46,9 +47,15 @@ def nvcc_path() -> str:
                        "are built at first use and need the CUDA toolkit")
 
 
-def _so_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def built_path(source: str) -> str:
+    """The library of `csrc/<source>`, named after a hash of the source,
+    every header of `csrc/` (so an edited header rebuilds its includers)
+    and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
 
@@ -61,7 +68,7 @@ def build_libraries(sources: Sequence[str]) -> List[ctypes.CDLL]:
     t0 = time.perf_counter()
     try:
         for source in todo:
-            so_path = _so_path(source)
+            so_path = built_path(source)
             if os.path.exists(so_path):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -88,7 +95,7 @@ def build_libraries(sources: Sequence[str]) -> List[ctypes.CDLL]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     for source in todo:
-        _LOADED[source] = _Built(ctypes.CDLL(_so_path(source)),
+        _LOADED[source] = _Built(ctypes.CDLL(built_path(source)),
                                  seconds.get(source, 0.0), logs.get(source, ""))
     return [_LOADED[s].lib for s in sources]
 

@@ -7,8 +7,10 @@ Two calls make a trunk of bottleneck and broadcast blocks, on activations
 x [N, 361, C] bf16 (channels last, one row per board position):
 
 * `trunk_segment` runs a run of consecutive bottleneck blocks in one
-  launch of `csrc/trunk.cu` `p3_trunk_segment`;
-* `trunk_broadcast` runs one broadcast block (`p3_trunk_broadcast`).
+  launch of `csrc/trunk_segment.cu` `p3_trunk_segment` (wgmma, weights
+  staged by bulk-async copies, persistent blocks);
+* `trunk_broadcast` runs one broadcast block (`csrc/trunk.cu`
+  `p3_trunk_broadcast`).
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs its plain version (`trunk_segment_reference`,
@@ -17,12 +19,21 @@ points and does every product as a float32 product of bf16-rounded
 operands (what the Pallas kernels' `preferred_element_type=f32` computes).
 On the card the plain versions need TF32 off (`torch.backends.cudnn.
 allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`) to be float32.
+The kernels' mish divides with `__fdividef` (csrc/trunk_common.cuh), ~2
+f32 ulp from the plain version's IEEE division, which moves a rare bf16
+rounding by one unit.
 Each wrapper counts its launches in `.launches`.
+
+The segment kernel reads its weights as `pack_segment` lays them out: a
+stream of Cb x Cb chunks in the shared-memory layout of the wgmma B operand,
+packed once on the host. `unpack_segment` inverts it, and
+`segment_tile_positions` / `TAP_SHIFTS` spell out the kernel's M tiling of
+the zero-haloed 21x21 grid; the CPU tests hold all three.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,12 +42,25 @@ from p3achygo_tpu_torch.constants import NUM_LOCS
 from p3achygo_tpu_torch.models.blocks import mish_f32
 from p3achygo_tpu_torch.ops.cuda_build import load_library
 
-SOURCE = "trunk.cu"
+SOURCE = "trunk.cu"  # the broadcast kernel
+SEGMENT_SOURCE = "trunk_segment.cu"
 MIX_PAD = 368  # the broadcast kernel's position tiles: 23 x 16 rows
 # Widths the kernels take: (channels, bottleneck) for a segment, channels
-# for a broadcast block.
+# for a broadcast block; the segment kernel takes up to MAX_INNER 3x3
+# layers a block.
 SEGMENT_WIDTHS = ((64, 32), (128, 64))
 BROADCAST_WIDTHS = (64, 128)
+MAX_INNER = 3
+
+# The segment kernel's geometry: the activated bottleneck tensor of a board
+# lives in a zero-haloed 21x21 grid (position (i, j) at row (i+1)*21 + j+1);
+# an M tile is 64 interior positions, 6 tiles cover the 361; tap
+# o = (di+1)*3 + (dj+1) reads row halo_row(p) + TAP_SHIFTS[o].
+HALO_W = 21
+HALO_ROWS = HALO_W * HALO_W
+TILE_ROWS = 64
+SEGMENT_TILES = 6
+TAP_SHIFTS = tuple((o // 3 - 1) * HALO_W + (o % 3 - 1) for o in range(9))
 
 
 class SegmentWeights(NamedTuple):
@@ -47,6 +71,9 @@ class SegmentWeights(NamedTuple):
     wr: torch.Tensor  # bf16 [n_blocks, C, Cb] 1x1 reduce, [Cin, Cout]
     w9: torch.Tensor  # bf16 [n_blocks, inner, 9 * Cb, Cb] 3x3 in OFFSETS order
     we: torch.Tensor  # bf16 [n_blocks, Cb, C] 1x1 expand
+    packed: Optional[torch.Tensor] = None  # bf16 [n_blocks, chunks, Cb * Cb]:
+    #                    `pack_segment` of the above, what the kernel reads
+    #                    (needed on the card only)
 
 
 class BroadcastWeights(NamedTuple):
@@ -106,6 +133,81 @@ def trunk_broadcast_reference(x: torch.Tensor, w: BroadcastWeights) -> torch.Ten
     return (x.float() + y).to(torch.bfloat16)
 
 
+def halo_row(p: torch.Tensor) -> torch.Tensor:
+    """Row of position p in the zero-haloed 21x21 grid."""
+    return (p // 19 + 1) * HALO_W + p % 19 + 1
+
+
+def segment_tile_positions() -> torch.Tensor:
+    """int64 [6, 64]: the position each row of each M tile computes, -1 for
+    the 23 pad rows (which read position 360 and are dropped)."""
+    p = torch.arange(SEGMENT_TILES * TILE_ROWS)
+    return torch.where(p < NUM_LOCS, p, -1).reshape(SEGMENT_TILES, TILE_ROWS)
+
+
+def reduce_k_order(channels: int) -> torch.Tensor:
+    """int64 [C]: the channel at each K index of the reduce product, and at
+    each N index (output column) of the expand. In every 32-channel group,
+    lane t4 of a quad loads channels 8*t4 .. +7, which feed logical k (2 t4,
+    2 t4 + 1, 2 t4 + 8, 2 t4 + 9) of the group's first k16 step and the same
+    of its second; in the expand the same lane holds those channels'
+    accumulators, so the next block's reduce reads them from registers."""
+    k = torch.arange(channels)
+    ks, l = k // 16, k % 16
+    return 32 * (ks // 2) + 8 * ((l % 8) // 2) + 4 * (ks % 2) + 2 * (l // 8) + l % 2
+
+
+def _chunks_per_block(channels: int, cb: int, inner: int) -> int:
+    return 2 * (channels // cb) + 9 * inner
+
+
+def pack_segment(w: SegmentWeights) -> torch.Tensor:
+    """The segment kernel's weight stream: bf16 [n_blocks, 2 C/Cb + 9 inner,
+    Cb * Cb]. Per block, in the order the kernel consumes them: the reduce
+    split along K into C/Cb chunks, one chunk per 3x3 tap, the expand split
+    along N into C/Cb chunks (the reduce's K and the expand's N both in
+    `reduce_k_order`). A chunk is B^T [n][k] (Cb x Cb) in 8x8 core matrices
+    of 128 contiguous bytes, core (n//8, k//8) at element
+    ((n//8) * (Cb//8) + k//8) * 64, row n%8 of it at (n%8) * 8: the
+    no-swizzle K-major layout of a wgmma B descriptor, so one bulk copy
+    lands it ready to use."""
+    n_blocks, layers = w.aff.shape[:2]
+    C, cb = w.wr.shape[1:]
+    if cb % 32 or C % cb:
+        raise ValueError(f"pack_segment needs Cb % 32 == 0 and C % Cb == 0, got {(C, cb)}")
+    split, inner = C // cb, layers - 2
+    order = reduce_k_order(C).to(w.wr.device)
+    wr, we = w.wr[:, order, :], w.we[:, :, order]  # [nb, K, Cb], [nb, Cb, N]
+    mats = [wr[:, kc * cb:(kc + 1) * cb, :] for kc in range(split)]
+    mats += [w.w9[:, j, o * cb:(o + 1) * cb, :] for j in range(inner) for o in range(9)]
+    mats += [we[:, :, nc * cb:(nc + 1) * cb] for nc in range(split)]
+    bt = torch.stack(mats, dim=1).transpose(2, 3)  # [nb, chunks, n, k]
+    m = cb // 8
+    return (bt.reshape(n_blocks, -1, m, 8, m, 8).permute(0, 1, 2, 4, 3, 5)
+            .reshape(n_blocks, -1, cb * cb).contiguous())
+
+
+def unpack_segment(packed: torch.Tensor, channels: int, inner: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse of `pack_segment`: -> (wr, w9, we) as in SegmentWeights."""
+    n_blocks, n_chunks, cc = packed.shape
+    cb = int(round(cc ** 0.5))
+    split = channels // cb
+    if cb * cb != cc or n_chunks != _chunks_per_block(channels, cb, inner):
+        raise ValueError(f"packed {tuple(packed.shape)} is not a segment of "
+                         f"C={channels}, inner={inner}")
+    m = cb // 8
+    b = (packed.reshape(n_blocks, n_chunks, m, m, 8, 8).permute(0, 1, 2, 4, 3, 5)
+         .reshape(n_blocks, n_chunks, cb, cb).transpose(2, 3))  # [nb, chunks, k, n]
+    order = reduce_k_order(channels).to(packed.device)
+    wr = torch.empty((n_blocks, channels, cb), dtype=packed.dtype, device=packed.device)
+    wr[:, order, :] = torch.cat([b[:, kc] for kc in range(split)], dim=1)
+    w9 = b[:, split:split + 9 * inner].reshape(n_blocks, inner, 9 * cb, cb)
+    we = torch.empty((n_blocks, cb, channels), dtype=packed.dtype, device=packed.device)
+    we[:, :, order] = torch.cat([b[:, split + 9 * inner + nc] for nc in range(split)], dim=2)
+    return wr, w9.contiguous(), we
+
+
 def _check_x(x: torch.Tensor, channels: int) -> None:
     if x.dim() != 3 or x.shape[1] != NUM_LOCS or x.shape[2] != channels:
         raise ValueError(f"x must be [N, {NUM_LOCS}, {channels}], got {tuple(x.shape)}")
@@ -117,6 +219,8 @@ def _check_x(x: torch.Tensor, channels: int) -> None:
 
 def _check_weights(x: torch.Tensor, weights: NamedTuple) -> None:
     for name, t in zip(type(weights)._fields, weights):
+        if t is None:
+            continue
         if t.device != x.device:
             raise ValueError(f"weight {name} on {t.device}, x on {x.device}")
         want = torch.float32 if name in ("aff", "f_aff", "l_aff", "bd") else torch.bfloat16
@@ -136,8 +240,8 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _segment_kernel():
-    fn = load_library(SOURCE).p3_trunk_segment
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = load_library(SEGMENT_SOURCE).p3_trunk_segment
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -157,6 +261,8 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
     inner = layers - 2
     shapes = {"aff": (n_blocks, layers, 2, C), "wr": (n_blocks, C, cb),
               "w9": (n_blocks, inner, 9 * cb, cb), "we": (n_blocks, cb, C)}
+    if w.packed is not None:
+        shapes["packed"] = (n_blocks, _chunks_per_block(C, cb, inner), cb * cb)
     for name, want in shapes.items():
         if tuple(getattr(w, name).shape) != want:
             raise ValueError(f"weight {name} is {tuple(getattr(w, name).shape)}, want {want}")
@@ -166,18 +272,21 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
     _check_weights(x, w)
     if x.device.type == "cpu":
         return trunk_segment_reference(x, w)
-    if (C, cb) not in SEGMENT_WIDTHS:
+    if (C, cb) not in SEGMENT_WIDTHS or inner > MAX_INNER:
         raise ValueError(f"the segment kernel takes (channels, bottleneck) in "
-                         f"{SEGMENT_WIDTHS}, not {(C, cb)}")
+                         f"{SEGMENT_WIDTHS} and at most {MAX_INNER} inner layers, "
+                         f"not {(C, cb)} with {inner}")
+    if w.packed is None:
+        raise ValueError("the segment kernel reads the packed weights: "
+                         "SegmentWeights(..., packed=pack_segment(w))")
     _check_launchable(x)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
     fn = _segment_kernel()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), w.aff.data_ptr(), w.wr.data_ptr(),
-                w.w9.data_ptr(), w.we.data_ptr(), x.shape[0], n_blocks, inner,
-                C, cb, _stream(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), w.aff.data_ptr(), w.packed.data_ptr(),
+                x.shape[0], n_blocks, inner, C, cb, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk segment kernel launch failed: cudaError {rc}")
     trunk_segment.launches += 1

@@ -99,7 +99,7 @@ class GameBuffer(NamedTuple):
     visit_count_pre: torch.Tensor  # f32[B, T]
 
 
-def make_game_buffer(B: int, T: int, device="cpu") -> GameBuffer:
+def make_game_buffer(B: int, T: int, device="cuda") -> GameBuffer:
     dev = torch.device(device)
     z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype,
                                                         device=dev)
@@ -129,7 +129,7 @@ class SelfplayAux(NamedTuple):
 
 
 def make_aux(B: int, generator: Optional[torch.Generator] = None,
-             max_raw_moves: int = 30, device="cpu",
+             max_raw_moves: int = 30, device="cuda",
              raw_until: Optional[torch.Tensor] = None) -> SelfplayAux:
     """Fresh-game aux: raw-policy opening length ~ U{0..max_raw_moves}
     (self_play_thread.cc:362-368), drawn from `generator` unless given."""

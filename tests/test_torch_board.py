@@ -52,7 +52,7 @@ def test_tables_match_jax_package():
 
 def test_new_state_matches():
     js = jax.vmap(lambda _: jb.new_state(6.5))(jnp.arange(3))
-    assert_states_equal(js, tb.new_state(3, 6.5))
+    assert_states_equal(js, tb.new_state(3, 6.5, device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -62,7 +62,7 @@ def test_lockstep_random_play(seed):
     B = 8
     rng = np.random.default_rng(seed)
     js = jax.vmap(lambda _: jb.new_state())(jnp.arange(B))
-    ts = tb.new_state(B)
+    ts = tb.new_state(B, device="cpu")
     for ply in range(60):
         jm = np.asarray(_jlegal(js))
         tm = tb.legal_mask_batch(ts).numpy()
@@ -89,7 +89,7 @@ def test_positional_superko_after_ko_and_passes():
     seq = [P(1, 0), P(0, 2), P(0, 1), P(2, 2), P(2, 1), P(1, 3), P(10, 10),
            P(1, 1), P(1, 2), 361, 361]
     js = jax.vmap(lambda _: jb.new_state())(jnp.arange(1))
-    ts = tb.new_state(1)
+    ts = tb.new_state(1, device="cpu")
     for m in seq:
         a = np.array([m], np.int32)
         js, _ = _jstep(js, jnp.asarray(a))
@@ -107,7 +107,7 @@ def test_simple_ko_point_and_prisoners():
     seq = [P(1, 0), P(0, 2), P(0, 1), P(2, 2), P(2, 1), P(1, 3), P(10, 10),
            P(1, 1), P(1, 2)]
     js = jax.vmap(lambda _: jb.new_state())(jnp.arange(1))
-    ts = tb.new_state(1)
+    ts = tb.new_state(1, device="cpu")
     for m in seq:
         a = np.array([m], np.int32)
         js, _ = _jstep(js, jnp.asarray(a))

@@ -83,11 +83,12 @@ def trunks(device):
 
 
 @pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
-@pytest.mark.parametrize("N", [1, 7, 64])
+@pytest.mark.parametrize("N", [1, 7, 64, 133, 2880])
 def test_trunk_kernels_equal_plain(trunks, device, name, N):
     """Each kernel call against its plain version on the same input; only
     the f32 summation order differs (chip_smoke.KERNEL_TOL says how far
-    that carries)."""
+    that carries). N = 133 is more boards than the card has SMs and not a
+    multiple of the persistent grid; 2880 is the widest leaf batch."""
     fn = trunks[name]
     channels = fn.segments[0].weights.wr.shape[1]
     gen = torch.Generator(device=device).manual_seed(N)
@@ -102,6 +103,29 @@ def test_trunk_kernels_equal_plain(trunks, device, name, N):
         assert bool(torch.isfinite(got.float()).all())
         assert rel_err(got, want)[1] <= KERNEL_TOL, (kern.__name__, rel_err(got, want))
         x = want
+
+
+@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
+def test_segment_kernel_is_deterministic(trunks, device, name):
+    """No atomics: two calls on the same input give identical bits."""
+    seg = trunks[name].segments[0]
+    channels = seg.weights.wr.shape[1]
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((300, 361, channels), generator=gen, device=device).to(torch.bfloat16)
+    first = tk.trunk_segment(x, seg.weights)
+    second = tk.trunk_segment(x, seg.weights)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_segment_launches_count_one_per_call(trunks, device):
+    w = trunks["b12c128btl3"].segments[0].weights
+    x = torch.zeros((5, 361, 128), dtype=torch.bfloat16, device=device)
+    before = tk.trunk_segment.launches
+    for i in range(1, 4):
+        tk.trunk_segment(x, w)
+        assert tk.trunk_segment.launches == before + i
+    torch.cuda.synchronize()
 
 
 def test_trunk_empty_batch_launches_nothing(trunks, device):

@@ -57,7 +57,7 @@ def _close(got, want, tol, name):
 def tiny():
     jm = jax_build(jax_get_config("tiny"))
     v = _numpy_vars(_jax_init(jm, 3), np.random.default_rng(0))
-    tm = load_flax_variables(build_model(get_config("tiny")), v)
+    tm = load_flax_variables(build_model(get_config("tiny"), device="cpu"), v)
     return jm, v, tm
 
 
@@ -107,7 +107,7 @@ def test_other_trunks_serve_forward(trunk):
               head_channels=4, c_val=8, trunk_block_type=trunk)
     jm = jax_build(JaxConfig(**kw))
     v = _numpy_vars(_jax_init(jm, 1), np.random.default_rng(2))
-    tm = load_flax_variables(build_model(ModelConfig(**kw)), v)
+    tm = load_flax_variables(build_model(ModelConfig(**kw), device="cpu"), v)
     planes, scalars = _inputs(2, 3)
     jo = _jax_apply(jm, v, planes, scalars)
     to = tm(torch.from_numpy(planes), torch.from_numpy(scalars))
@@ -126,7 +126,7 @@ def test_golden_b8c64():
                                            "batch_stats": tmpl["batch_stats"],
                                            "step": jnp.int32(0)})
     v = _numpy_vars(restored)
-    tm = load_flax_variables(build_model(get_config("b8c64")), v)
+    tm = load_flax_variables(build_model(get_config("b8c64"), device="cpu"), v)
     planes, scalars = _inputs(4, 11)
     jo = _jax_apply(jm, v, planes, scalars)
     to = tm(torch.from_numpy(planes), torch.from_numpy(scalars))
@@ -141,8 +141,8 @@ def test_golden_b8c64():
 
 
 def test_random_init_is_seeded_and_finite():
-    a = build_model(get_config("tiny"))
-    b = build_model(get_config("tiny"))
+    a = build_model(get_config("tiny"), device="cpu")
+    b = build_model(get_config("tiny"), device="cpu")
     init_params(a, torch.Generator().manual_seed(5))
     init_params(b, torch.Generator().manual_seed(5))
     for (ka, ta), (kb, tb) in zip(a.state_dict().items(), b.state_dict().items()):

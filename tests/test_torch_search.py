@@ -104,7 +104,7 @@ def test_search_reuse_compact_parity(eval_name, g):
     js = random_jax_states(B=B, moves=30, seed=seed, pass_prob=0.05)
     ts = state_to_torch(js)
     jtree = jt.make_tree(B, CAP)
-    ttree = tt.make_tree(B, CAP)
+    ttree = tt.make_tree(B, CAP, device="cpu")
     tau = np.array([0.8, 0.0, 0.3], np.float32)
     key = jax.random.PRNGKey(seed)
     for move_no in range(2):
@@ -145,7 +145,7 @@ def test_fresh_search_without_tree_and_pre_stats():
     assert isinstance(tr, tg.GumbelResult)
     _compare_result(jr, tr)
     _, twork = tg.search_root(ts, _torch_eval("table", seed), tparams,
-                              init_tree=tt.make_tree(B, CAP), reuse_capacity=CAP,
+                              init_tree=tt.make_tree(B, CAP, device="cpu"), reuse_capacity=CAP,
                               gumbel_noise=torch.from_numpy(noise))
     jp = jg.root_pre_stats(jwork)
     tp = tg.root_pre_stats(twork)
@@ -166,7 +166,7 @@ def test_compact_root_parity():
     twork = tt.compact_root(
         tg.search_root(state_to_torch(js), tg.uniform_eval_fn,
                        tg.SearchParams(n=8, k=2, max_depth=6),
-                       init_tree=tt.make_tree(B, CAP), reuse_capacity=CAP,
+                       init_tree=tt.make_tree(B, CAP, device="cpu"), reuse_capacity=CAP,
                        gumbel_noise=torch.from_numpy(noise))[1], 12)
     assert_tree_equal(jax.jit(jt.compact_root, static_argnums=1)(jwork, 12), twork)
 

@@ -97,7 +97,7 @@ def test_selfplay_slice_parity():
     np_vars["params"]["policy_head"]["output_moves"]["kernel"] *= 30.0
     np_vars["params"]["value_head"]["outcome_q_output"]["kernel"] *= 10.0
     np_vars["params"]["value_head"]["score_pre_s"] *= 0.02
-    tm = load_flax_variables(build_model(get_config("tiny")), np_vars)
+    tm = load_flax_variables(build_model(get_config("tiny"), device="cpu"), np_vars)
     j_eval = jg.make_eval_fn(jm, jax.tree_util.tree_map(jnp.asarray, np_vars),
                              serve_fold=True)
     t_eval = tg.make_eval_fn(tm, serve_fold=True)
@@ -112,12 +112,13 @@ def test_selfplay_slice_parity():
     js = random_jax_states(B=B, moves=20, seed=6, pass_prob=0.05)
     ts = state_to_torch(js)
     jbuf = jl.make_game_buffer(B, cfg_j.max_game_len)
-    tbuf = tl.make_game_buffer(B, cfg_t.max_game_len)
+    tbuf = tl.make_game_buffer(B, cfg_t.max_game_len, device="cpu")
     jaux = jl.make_aux(jax.random.PRNGKey(9), B)
-    taux = tl.make_aux(B, raw_until=torch.tensor(np.array(jaux.raw_until)))
+    taux = tl.make_aux(B, raw_until=torch.tensor(np.array(jaux.raw_until)),
+                       device="cpu")
     assert bool((taux.raw_until > 20).any()) and bool((taux.raw_until <= 20).any())
     jtree = jt.make_tree(B, CAP)
-    ttree = tt.make_tree(B, CAP)
+    ttree = tt.make_tree(B, CAP, device="cpu")
     key = jax.random.PRNGKey(11)
 
     skipped = set()

@@ -54,7 +54,7 @@ def _bridged(name):
     """(JAX model, numpy variables with perturbed BN, port model), float32."""
     jm = jax_build(jax_get_config(name))
     v = numpy_vars(_jax_init(jm, 3), np.random.default_rng(0))
-    return jm, v, load_flax_variables(build_model(get_config(name)), v)
+    return jm, v, load_flax_variables(build_model(get_config(name), device="cpu"), v)
 
 
 def _trunk_input(n, channels, seed):
@@ -163,7 +163,7 @@ def test_plain_trunk_v1_equals_reference_and_v2_segments():
     broadcast block they are the same function."""
     cfg = ModelConfig(blocks=3, broadcast_interval=8, inner_bottleneck_layers=2,
                       channels=16, bottleneck_channels=16, head_channels=8, c_val=8)
-    tm = build_model(cfg)
+    tm = build_model(cfg, device="cpu")
     init_params(tm, torch.Generator().manual_seed(2))
     x = torch.from_numpy(_trunk_input(2, 16, seed=1))
     fn = build_trunk_fn(cfg, tm)
@@ -242,7 +242,7 @@ def test_golden_b12c128btl3_fused_top1():
                                                "batch_stats": tmpl["batch_stats"],
                                                "step": jnp.int32(0)})
     cfg = get_config("b12c128btl3")
-    tm = load_flax_variables(build_model(cfg), numpy_vars(restored))
+    tm = load_flax_variables(build_model(cfg, device="cpu"), numpy_vars(restored))
     assert trunk_supported(cfg)
     states = state_to_torch(random_jax_states(B=8, moves=40, seed=7, pass_prob=0.02))
     planes, scalars = batched_features(states)
@@ -262,10 +262,10 @@ def test_selfplay_two_plies_on_fused_eval():
     fast = tg.SearchParams(n=4, k=2, max_depth=6, visit_group=2)
     gen = torch.Generator().manual_seed(4)
     eval_fn = tg.make_eval_fn(tm, use_fused_trunk=True)
-    states = new_state(B, cfg.komi)
-    buf = tl.make_game_buffer(B, cfg.max_game_len)
-    aux = tl.make_aux(B, gen)
-    tree = make_tree(B, cap)
+    states = new_state(B, cfg.komi, device="cpu")
+    buf = tl.make_game_buffer(B, cfg.max_game_len, device="cpu")
+    aux = tl.make_aux(B, gen, device="cpu")
+    tree = make_tree(B, cap, device="cpu")
     b = torch.arange(B)
     for _ in range(2):
         prev = states
