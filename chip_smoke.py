@@ -7,12 +7,13 @@ fallback):
   0 device   needs torch.cuda; prints the card's name and power limit and
              the TF32 switches (both off).
   1 build    compiles the liberty kernel (csrc/liberties.cu), the broadcast
-             kernel (csrc/trunk.cu) and the segment kernel
+             kernel (csrc/trunk_broadcast.cu) and the segment kernel
              (csrc/trunk_segment.cu) with one nvcc each, started together;
              prints each build's seconds, ptxas' register/spill lines and
-             each trunk kernel's count of HGMMA (wgmma) instructions from
-             `cuobjdump -sass` (the segment kernel's must be > 0; where
-             cuobjdump is missing the line says so).
+             each trunk kernel's count of HGMMA (wgmma) and of all SASS
+             instructions from `cuobjdump -sass`: every width of both trunk kernels must be
+             there with a count > 0, each source held to its own counts
+             (where cuobjdump is missing the line says so).
   2 kernel   boards from random legal play with the port's `step`; the
              liberty kernel must equal its plain PyTorch version exactly at
              B in {1, 7, 64, 192, 1024, 2048, 2880, 8192}; times both at
@@ -42,12 +43,13 @@ fallback):
              finite). Times at N = 512 and 2880 (device time and wall time
              per call): the fused trunk, the plain trunk, ServeNet's trunk
              and ServeNet's whole forward, and each kernel against its
-             plain version; for the segment kernel at both N also its FLOP
-             count, TFLOP/s, bound and share of it, and
-             library_products_ms: the same products alone (bf16 F.conv2d
-             for the 3x3s, bf16 torch.matmul for the 1x1s), a yardstick the
-             port never calls, since no single PyTorch call computes the
-             segment.
+             plain version; for the segment and broadcast kernels at both N
+             also their FLOP count, TFLOP/s, bound and share of it, and
+             library_products_ms: the same products alone (segment: bf16
+             F.conv2d for the 3x3s, bf16 torch.matmul for the 1x1s;
+             broadcast: bf16 torch.matmul for x.Wf, the batched WdT.m and
+             z.Wl), a yardstick the port never calls, since no single
+             PyTorch call computes a segment or a broadcast block.
   6 fused    the phase-4 loop with make_eval_fn(use_fused_trunk=True) in
              place of serve_fold, for 6 plies with one reset; the same
              checks, and all three kernels (segment, broadcast, liberty)
@@ -294,13 +296,29 @@ def segment_work(w, n: int):
 
 def broadcast_work(w, n: int):
     """(FLOP, bytes) of one broadcast call on n boards: conv_first, the
-    361 x 361 position mix, conv_last; x in and out, weights once."""
+    361 x 361 position mix, conv_last; x in and out, the packed weights,
+    affines and bias read once."""
     C = w.wf.shape[0]
     flops = n * 2 * (2 * 361 * C * C + 361 * 361 * C)
-    return flops, 2 * n * 361 * C * 2 + tensor_bytes(w)
+    return flops, 2 * n * 361 * C * 2 + tensor_bytes((w.f_aff, w.bd, w.l_aff, w.packed))
 
 
-def library_products(w, x):
+def broadcast_library_products(w, x):
+    """-> fn running the broadcast block's three products alone on x's
+    shapes in bf16 torch.matmul (x.Wf, the batched WdT.m, z.Wl), without
+    the elementwise chain. A yardstick only: no single PyTorch call
+    computes the broadcast block, and the port never calls this."""
+    n, _, C = x.shape
+    a = x.reshape(n * 361, C)
+    wdt = w.wdt[:361, :361].contiguous()
+
+    def run():
+        m = (a @ w.wf).reshape(n, 361, C)
+        torch.matmul(wdt, m).reshape(n * 361, C) @ w.wl
+    return run
+
+
+def segment_library_products(w, x):
     """-> fn running the segment's products alone on x's shapes: bf16
     torch.matmul for each 1x1 and bf16 F.conv2d (channels-last) for each
     3x3, without the elementwise chain. A yardstick only: no single PyTorch
@@ -320,26 +338,29 @@ def library_products(w, x):
     return run
 
 
-def hgmma_counts(source: str):
-    """{kernel<widths>: HGMMA instructions} in the built library of
-    `source`, from `cuobjdump -sass`; None where cuobjdump is missing."""
+def sass_counts(source: str):
+    """({kernel<widths>: HGMMA instructions}, {kernel<widths>: SASS
+    instructions}) in the built library of `source`, from `cuobjdump
+    -sass`; None where cuobjdump is missing. The second says how much code
+    a kernel streams through the instruction cache."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", cuda_build.built_path(source)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    counts, name = {}, None
+    hgmma, size, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(trunk_(?:segment|broadcast)_kernel)I((?:Li\d+E)+)", line)
             widths = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
             name = (f"{m.group(1)}<{widths}>" if m
                     else line.split("Function :")[1].strip())
-            counts[name] = 0
-        elif name is not None and "HGMMA" in line:
-            counts[name] += 1
-    return counts
+            hgmma[name] = size[name] = 0
+        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", line):
+            size[name] += 1
+            hgmma[name] += "HGMMA" in line
+    return hgmma, size
 
 
 def stem_activations(model, boards, n: int) -> torch.Tensor:
@@ -357,9 +378,9 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
     plain trunks, the fused model against the plain bf16 model, and times.
     Inputs are stem activations of the boards of phase 2.
     Returns ({kernel name: max |d|}, {timed row: (device ms, wall ms)},
-    {"trunk_segment@N": the segment kernel's row at each timed N})."""
+    {"<kernel>@N": each trunk kernel's row at each timed N})."""
     max_err = {"trunk_segment": 0.0, "trunk_broadcast": 0.0}
-    times, seg_rows = {}, {}
+    times, kernel_rows = {}, {}
     for name in TRUNK_CONFIGS:
         model = (forward_model if name == TRUNK_CONFIGS[0]
                  else seeded_model(name, device, gen))
@@ -382,9 +403,9 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
                                          f"max |d| {d}, relative {rel}")
                 max_err[kern.__name__] = max(max_err[kern.__name__], d)
                 kernel_rel = max(kernel_rel, rel)
-                if (kern is trunk_ops.trunk_segment and name == TRUNK_CONFIGS[0]
-                        and N in TRUNK_TIMED and f"trunk_segment@{N}" not in seg_rows):
-                    seg_rows[f"trunk_segment@{N}"] = segment_row(w, x)
+                row_key = f"{kern.__name__}@{N}"
+                if name == TRUNK_CONFIGS[0] and N in TRUNK_TIMED and row_key not in kernel_rows:
+                    kernel_rows[row_key] = kernel_row(kern, w, x)
                 if N == max(TRUNK_TIMED) and name == TRUNK_CONFIGS[0] \
                         and kern.__name__ not in times:
                     times[kern.__name__] = (device_ms(lambda: kern(x, w), 10),
@@ -446,25 +467,34 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
             f"{times[k + '_plain'][0]:.4f} ms; wall {times[k][1]:.4f} vs "
             f"{times[k + '_plain'][1]:.4f} ms; bound {times[k + '_bound'][0]:.4f} ms "
             f"({times[k + '_bound'][1]})")
-    return max_err, times, seg_rows
+    return max_err, times, kernel_rows
 
 
-def segment_row(w, x):
-    """The segment kernel on x: device time per call, its work, bound and
-    share of it, and the products alone in PyTorch (library_products_ms)."""
+def kernel_row(kern, w, x):
+    """A trunk kernel (segment or broadcast) on x: device time per call,
+    its work, bound and share of it, and its products alone in PyTorch
+    (library_products_ms)."""
     n = x.shape[0]
-    ms = device_ms(lambda: trunk_ops.trunk_segment(x, w), 10)
-    flops, nbytes = segment_work(w, n)
+    segment = kern is trunk_ops.trunk_segment
+    ms = device_ms(lambda: kern(x, w), 10)
+    flops, nbytes = (segment_work if segment else broadcast_work)(w, n)
     b_ms, b_by = bound_ms(flops, nbytes)
-    lib_ms = device_ms(library_products(w, x), 10)
+    products = segment_library_products if segment else broadcast_library_products
+    lib_ms = device_ms(products(w, x), 10)
     row = {"ms": ms, "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
-           "library_products_ms": lib_ms, "n_blocks": int(w.aff.shape[0])}
-    log(f"phase 5: trunk_segment N={n} ({row['n_blocks']} blocks): device {ms:.4f} ms, "
-        f"{row['gflop']:.1f} GFLOP, {row['tflops']:.1f} TFLOP/s; bound {b_ms:.4f} ms "
-        f"({b_by}), {100 * row['share_of_bound']:.1f}% of it; library_products_ms "
-        f"{lib_ms:.4f} (the same products alone, bf16 F.conv2d + torch.matmul; "
-        f"no single PyTorch call computes the segment)")
+           "library_products_ms": lib_ms}
+    if segment:
+        row["n_blocks"] = int(w.aff.shape[0])
+        what = (f"trunk_segment N={n} ({row['n_blocks']} blocks)",
+                "bf16 F.conv2d + torch.matmul; no single PyTorch call computes the segment")
+    else:
+        what = (f"trunk_broadcast N={n}", "bf16 torch.matmul x.Wf, WdT.m, z.Wl; no single "
+                "PyTorch call computes the broadcast block")
+    log(f"phase 5: {what[0]}: device {ms:.4f} ms, {row['gflop']:.1f} GFLOP, "
+        f"{row['tflops']:.1f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * row['share_of_bound']:.1f}% of it; library_products_ms {lib_ms:.4f} "
+        f"(the same products alone, {what[1]})")
     return row
 
 
@@ -556,19 +586,24 @@ def main() -> int:
         f"(nvcc, started together: " + ", ".join(
             f"{s} {cuda_build.build_seconds(s):.2f} s" for s in sources) + ")")
     hgmma = {}
-    for src in (trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE):
+    for src, kernel_widths in (
+            (trunk_ops.SOURCE, [f"trunk_broadcast_kernel<{c}>"
+                                for c in trunk_ops.BROADCAST_WIDTHS]),
+            (trunk_ops.SEGMENT_SOURCE, [f"trunk_segment_kernel<{c},{cb}>"
+                                        for c, cb in trunk_ops.SEGMENT_WIDTHS])):
         for line in cuda_build.build_log(src).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"phase 1: {line.strip()}")
-        counts = hgmma_counts(src)
-        if counts is None:
+        found = sass_counts(src)
+        if found is None:
             log(f"phase 1: {src}: cuobjdump not found, HGMMA instructions not counted")
             continue
+        counts, size = found
         hgmma.update(counts)
-        log(f"phase 1: {src}: HGMMA (wgmma) instructions per kernel: {counts}")
-    seg_hgmma = [v for k, v in hgmma.items() if k.startswith("trunk_segment_kernel")]
-    if counts is not None and (not seg_hgmma or min(seg_hgmma) <= 0):
-        raise AssertionError(f"the segment kernel has no wgmma: {hgmma}")
+        log(f"phase 1: {src}: HGMMA (wgmma) instructions per kernel: {counts}; "
+            f"SASS instructions per kernel: {size}")
+        if any(counts.get(k, 0) <= 0 for k in kernel_widths):
+            raise AssertionError(f"{src}: a kernel of {kernel_widths} has no wgmma: {counts}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     boards, max_err, times = phase_kernel(device, gen)
@@ -581,8 +616,8 @@ def main() -> int:
     log(f"phase 4: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
         f"(informative; {smi})")
 
-    trunk_err, trunk_times, seg_rows = phase_trunk(device, boards, model, forward_batch,
-                                                   cpu_gen)
+    trunk_err, trunk_times, kernel_rows = phase_trunk(device, boards, model, forward_batch,
+                                                      cpu_gen)
     fused_launches, f_plies_s, f_moves_s = phase_selfplay(
         device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6)
     for k, n in fused_launches.items():
@@ -637,12 +672,11 @@ def main() -> int:
             "timed_batch": n_big,
             "timing": "device time per call from profiler kernel records, "
                       "b12c128btl3, first call of the trunk",
+            "library_products_ms": kernel_rows[f"{name}@{n_big}"]["library_products_ms"],
+            "by_batch": {k: v for k, v in kernel_rows.items() if k.startswith(name + "@")},
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
     kernels[1]["trunk_b12c128btl3"] = trunk_by_n
-    kernels[1]["library_products_ms"] = seg_rows[f"trunk_segment@{n_big}"][
-        "library_products_ms"]
-    kernels[1]["by_batch"] = seg_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

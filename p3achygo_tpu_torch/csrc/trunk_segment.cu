@@ -62,7 +62,7 @@
 //    there is no f32 staging tile. In the 3x3, tap o + 1's A fragments load
 //    into a second register buffer while tap o's products run (wait_group 1).
 //    The two-branch mish is computed without a branch and with one
-//    __fdividef in place of two IEEE divisions (trunk_common.cuh). Three
+//    approximate division in place of two IEEE divisions (trunk_common.cuh). Three
 //    consumer warpgroups work alternate M tiles (tiles g and g+3), so one
 //    group's elementwise work overlaps another's wgmma, and within a group
 //    the second tile's A is built while the first tile's products run.
@@ -89,6 +89,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "trunk_common.cuh"
 
 namespace {
@@ -147,140 +148,6 @@ __device__ unsigned long long g_phase_cycles[5];
   } while (0)
 #endif
 
-// ---- PTX wrappers -------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of `bar` with parity `parity` to complete. A wait that
-// polls 2^26 times (seconds; a healthy wait takes microseconds) traps, so
-// that a broken pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (++polls == (1u << 26)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// 1-D bulk copy global -> shared, completion on `bar` (complete_tx).
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Barrier of the consumer warps only (the producer warp never joins).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup's wgmma are
-// still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
-
-// Keeps the compiler from moving reads or writes of wgmma operands across
-// the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(a[i][k])::"memory");
-  }
-}
-template <int T, int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[T][N][4]) {
-#pragma unroll
-  for (int t = 0; t < T; ++t) fence_regs(a[t]);
-}
-
-// d[64 x N] += A[64 x 16] . B[16 x N]: A from registers (each warp of the
-// group its 16 rows, the mma.m16n8k16 A fragment), B by descriptor.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 // Descriptor of k-step `ks` of a weight chunk: B^T [CB n][CB k] in 8x8 core
 // matrices of 128 contiguous bytes (row n%8, 16 bytes of k), core (n/8, k/8)
 // at ((n/8) * (CB/8) + k/8) * 128 bytes. No swizzle: the leading byte offset
@@ -288,80 +155,10 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4
 // adjacent in n) CB/8 * 128.
 template <int CB>
 __device__ __forceinline__ uint64_t b_desc(uint32_t chunk, int ks) {
-  const uint32_t start = chunk + ks * 256;
-  return static_cast<uint64_t>((start & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>((CB / 8 * 128) >> 4) << 32);
+  return smem_desc(chunk + ks * 256, 128, CB / 8 * 128);
 }
 
 // ---- elementwise --------------------------------------------------------
-
-// bf16(lo) | bf16(hi) << 16, one cvt.rn.bf16x2.f32.
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float lo_f(uint32_t v) {
-  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(v & 0xFFFFu)));
-}
-__device__ __forceinline__ float hi_f(uint32_t v) {
-  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(v >> 16)));
-}
-__device__ __forceinline__ uint32_t act2(uint32_t v, float a0, float b0, float a1,
-                                         float b1) {
-  return pack2(act_f32(lo_f(v), a0, b0), act_f32(hi_f(v), a1, b1));
-}
-
-// The reduce's A fragments for chunk kc of one tile, in two steps so that
-// the loads of several tiles are in flight together: `load_x` fetches x over
-// the chunk's CB channels of rows p0 and p0 + 8 (zero past the board),
-// `act_x` applies act(., layer 0) in place. The K order is permuted
-// (ops/trunk.py `reduce_k_order`): in each 32-channel group q the lane with
-// t4 = lane % 4 loads the 8 channels 32q + 8 t4 .. +7, which are logical k
-// (2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9) of k-step 2q and the same of k-step
-// 2q + 1, exactly its fragment registers.
-template <int C, int CB>
-__device__ __forceinline__ void load_x(uint32_t (&a)[CB / 16][4], const bf16* xb,
-                                       int p0, int kc, int t4) {
-#pragma unroll
-  for (int q = 0; q < CB / 32; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = p0 + 8 * h;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (p < kPos) {
-        v = *reinterpret_cast<const uint4*>(xb + static_cast<size_t>(p) * C + kc * CB +
-                                            32 * q + 8 * t4);
-      }
-      a[2 * q][h] = v.x;
-      a[2 * q][2 + h] = v.y;
-      a[2 * q + 1][h] = v.z;
-      a[2 * q + 1][2 + h] = v.w;
-    }
-  }
-}
-
-template <int C, int CB>
-__device__ __forceinline__ void act_x(uint32_t (&a)[CB / 16][4], int p0, int kc,
-                                      const float* af, int t4) {
-#pragma unroll
-  for (int q = 0; q < CB / 32; ++q) {
-    const int c0 = kc * CB + 32 * q + 8 * t4;
-    const float4 alo = *reinterpret_cast<const float4*>(af + c0);
-    const float4 ahi = *reinterpret_cast<const float4*>(af + c0 + 4);
-    const float4 blo = *reinterpret_cast<const float4*>(af + C + c0);
-    const float4 bhi = *reinterpret_cast<const float4*>(af + C + c0 + 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (p0 + 8 * h < kPos) {
-        a[2 * q][h] = act2(a[2 * q][h], alo.x, blo.x, alo.y, blo.y);
-        a[2 * q][2 + h] = act2(a[2 * q][2 + h], alo.z, blo.z, alo.w, blo.w);
-        a[2 * q + 1][h] = act2(a[2 * q + 1][h], ahi.x, bhi.x, ahi.y, bhi.y);
-        a[2 * q + 1][2 + h] = act2(a[2 * q + 1][2 + h], ahi.z, bhi.z, ahi.w, bhi.w);
-      }
-    }
-  }
-}
 
 // Accumulator element d[4j + 2h + e] is row p0 + 8h, column 8j + 2 t4 + e.
 // act(bf16(d), next layer) into the haloed buffer `dst`.
@@ -385,74 +182,6 @@ __device__ __forceinline__ void store_act(const float (&d)[CB / 2], bf16* dst,
       }
     }
   }
-}
-
-// The residual of the tile's rows for the expand's N chunk at channel c0:
-// in each 32-channel group q the lane loads channels c0 + 32q + 8 t4 .. +7,
-// which, with the expand's output channels in `reduce_k_order`, are its
-// accumulator columns 8j + 2 t4 + e for j = 4q .. 4q + 3. `cur` may be `out`
-// (in place); loading before any store lets the loads be in flight together.
-template <int C, int CB>
-__device__ __forceinline__ void load_residual(uint4 (&r)[2][CB / 32], const bf16* cur,
-                                              int p0, int c0, int t4) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = p0 + 8 * h;
-#pragma unroll
-    for (int q = 0; q < CB / 32; ++q) {
-      r[h][q] = p < kPos ? *reinterpret_cast<const uint4*>(
-                               cur + static_cast<size_t>(p) * C + c0 + 32 * q + 8 * t4)
-                         : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// out = bf16(f32(residual) + d) for the tile's rows (16-byte stores). With
-// `afn` (the next block's affines), also the next reduce's A fragments for
-// the K chunk of the same channels: act(out, afn layer 0), zero past the
-// board. Pair j = 4q + jj of row h is k-step 2q + jj / 2, register
-// h + 2 (jj % 2) of the fragment.
-template <int C, int CB>
-__device__ __forceinline__ void store_residual(const float (&d)[CB / 2],
-                                               const uint4 (&r)[2][CB / 32], bf16* xo,
-                                               int p0, int c0, int t4, const float* afn,
-                                               uint32_t (&ar)[CB / 16][4]) {
-#pragma unroll
-  for (int q = 0; q < CB / 32; ++q) {
-    const int ch = c0 + 32 * q + 8 * t4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = p0 + 8 * h;
-      const uint32_t rv[4] = {r[h][q].x, r[h][q].y, r[h][q].z, r[h][q].w};
-      uint32_t o[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int e = 4 * (4 * q + jj) + 2 * h;
-        o[jj] = pack2(__fadd_rn(lo_f(rv[jj]), d[e]), __fadd_rn(hi_f(rv[jj]), d[e + 1]));
-      }
-      if (p < kPos) {
-        *reinterpret_cast<uint4*>(xo + static_cast<size_t>(p) * C + ch) =
-            make_uint4(o[0], o[1], o[2], o[3]);
-      }
-      if (afn != nullptr) {
-        const float4 alo = *reinterpret_cast<const float4*>(afn + ch);
-        const float4 ahi = *reinterpret_cast<const float4*>(afn + ch + 4);
-        const float4 blo = *reinterpret_cast<const float4*>(afn + C + ch);
-        const float4 bhi = *reinterpret_cast<const float4*>(afn + C + ch + 4);
-        const bool in = p < kPos;
-        ar[2 * q][h] = in ? act2(o[0], alo.x, blo.x, alo.y, blo.y) : 0u;
-        ar[2 * q][2 + h] = in ? act2(o[1], alo.z, blo.z, alo.w, blo.w) : 0u;
-        ar[2 * q + 1][h] = in ? act2(o[2], ahi.x, bhi.x, ahi.y, bhi.y) : 0u;
-        ar[2 * q + 1][2 + h] = in ? act2(o[3], ahi.z, bhi.z, ahi.w, bhi.w) : 0u;
-      }
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.0f;
 }
 
 // ---- the kernel ---------------------------------------------------------
@@ -624,7 +353,7 @@ trunk_segment_kernel(const bf16* x, bf16* out, const float* __restrict__ aff,
           store_act<C, CB>(acc[i], tbuf[0], p0[i], af + 2 * C, t4);
         }
       }
-      consumer_sync();
+      consumer_sync<kConsumerThreads>();
       P3_PHASE(0);
 
       for (int blk = 0; blk < n_blocks; ++blk) {
@@ -684,7 +413,7 @@ trunk_segment_kernel(const bf16* x, bf16* out, const float* __restrict__ aff,
           for (int i = 0; i < kTilesPerGroup; ++i) {
             store_act<C, CB>(acc[i], tbuf[(j + 1) & 1], p0[i], af + (2 + j) * 2 * C, t4);
           }
-          consumer_sync();
+          consumer_sync<kConsumerThreads>();
           P3_PHASE(2);
         }
         // This block's affines are done with (the expand takes none).
@@ -750,7 +479,7 @@ trunk_segment_kernel(const bf16* x, bf16* out, const float* __restrict__ aff,
         for (uint32_t k = 0; k < n_chunks; ++k) release_chunk(ci + k);
         ci += n_chunks;
         af = afn;
-        consumer_sync();
+        consumer_sync<kConsumerThreads>();
         P3_PHASE(3);
 #ifdef P3_SEGMENT_PROFILE
         ++phase_cycles[4];
@@ -778,18 +507,8 @@ int launch_segment(const void* x, void* out, const void* aff, const void* chunks
   // Resident blocks on this card, once per process (one card per process).
   static int resident = 0;
   if (resident == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    const cudaError_t err = resident_blocks(kernel, kThreads, S::kSmem, &resident);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                        S::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    resident = sms * per_sm;
   }
   const int grid = num_boards < resident ? num_boards : resident;
   kernel<<<grid, kThreads, S::kSmem, stream>>>(

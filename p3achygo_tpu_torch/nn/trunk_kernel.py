@@ -3,7 +3,8 @@
 The residual trunk of a btl network runs in hand-written kernels: each run
 of consecutive bottleneck blocks is one launch of the segment kernel and
 each broadcast block one launch of the broadcast kernel
-(`ops/trunk.py`, `csrc/trunk.cu`), alternating on `_plan_segments`' plan.
+(`ops/trunk.py`, `csrc/trunk_broadcast.cu`), alternating on
+`_plan_segments`' plan.
 Every BatchNorm is folded to a per-channel affine (a, b) followed by the
 two-branch `mish_f32`; 1x1 convolutions are [Cin, Cout] matrices and each
 3x3 one [9*Cb, Cb] matrix in OFFSETS order. The stem and the heads stay
@@ -11,9 +12,10 @@ the plain model (`P3achyGoModel.forward(..., trunk_fn=...)`).
 
 Rounding follows the JAX kernel: bf16 activations between layers, f32
 accumulation, the residual added in f32 and rounded to bf16, the broadcast
-mix rounded to bf16 before conv_last's affine. The TPU layout (361
-positions padded to 384 rows, batch tiles of `n_tile`) is not carried
-over: a board is [361, C] channels-last and the batch is not padded.
+mix rounded to bf16 before conv_last's affine. The TPU's batch tiles of
+`n_tile` are not carried over: a board is [361, C] channels-last and the
+batch is not padded; only the mix's WdT keeps JAX's 384-row padding, which
+is the broadcast kernel's six 64-row M tiles.
 """
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ from p3achygo_tpu_torch.ops.trunk import (
     MAX_INNER,
     MIX_PAD,
     SEGMENT_WIDTHS,
+    BROADCAST_WIDTHS,
     BroadcastWeights,
     SegmentWeights,
+    pack_broadcast,
     pack_segment,
     trunk_broadcast,
     trunk_broadcast_reference,
@@ -96,7 +100,7 @@ def build_trunk_weights(config, model: P3achyGoModel
     """The trunk's folded weights as (block kinds, flat arrays), in the JAX
     order (trunk_kernel.py:84-120). Per btl block: r_a, r_b, Wr,
     [i_a, i_b, W9] * inner, e_a, e_b, We. Per broadcast block: f_a, f_b,
-    Wf, WdT [368, 368] bf16 (WdT[q, p] = Dense kernel[p, q], zero-padded to
+    Wf, WdT [384, 384] bf16 (WdT[q, p] = Dense kernel[p, q], zero-padded to
     the kernel's tiles), bd [361] f32, l_a, l_b, Wl."""
     kinds: List[str] = []
     arrs: List[torch.Tensor] = []
@@ -150,10 +154,16 @@ def _pack_segment(blocks: List[List[torch.Tensor]], channels: int
 
 
 def _pack_broadcast(arrs: List[torch.Tensor]) -> BroadcastWeights:
+    """One broadcast block's flat arrays -> BroadcastWeights, with the
+    kernel's packed weights (`pack_broadcast`, once, here) for the widths
+    it takes."""
     f_a, f_b, wf, wdt, bd, l_a, l_b, wl = arrs
-    return BroadcastWeights(torch.stack([f_a, f_b]).contiguous(), wf.contiguous(),
-                            wdt.contiguous(), bd.contiguous(),
-                            torch.stack([l_a, l_b]).contiguous(), wl.contiguous())
+    w = BroadcastWeights(torch.stack([f_a, f_b]).contiguous(), wf.contiguous(),
+                         wdt.contiguous(), bd.contiguous(),
+                         torch.stack([l_a, l_b]).contiguous(), wl.contiguous())
+    if wf.shape[0] in BROADCAST_WIDTHS:
+        w = w._replace(packed=pack_broadcast(w))
+    return w
 
 
 def block_arrays(config, kinds, arrs) -> List[List[torch.Tensor]]:

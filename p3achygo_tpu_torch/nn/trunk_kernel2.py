@@ -31,7 +31,7 @@ __all__ = ["_plan_segments", "build_trunk_weights_v2", "build_trunk_fn_v2",
 
 
 def _v2_mix(arrs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """A broadcast block's v1 arrays with WdT [368, 368] replaced by Wd
+    """A broadcast block's v1 arrays with WdT [384, 384] replaced by Wd
     [361, 361] un-transposed (Wd[p, q]: source position p -> destination
     q, the Dense kernel), unpadded, for the plain einsum."""
     return arrs[:3] + [arrs[3][:NUM_LOCS, :NUM_LOCS].t().contiguous()] + arrs[4:]
@@ -41,7 +41,7 @@ def _v2_mix(arrs: List[torch.Tensor]) -> List[torch.Tensor]:
 def build_trunk_weights_v2(config, model: P3achyGoModel
                            ) -> Tuple[Tuple[str, ...], List[torch.Tensor]]:
     """Like `build_trunk_weights`, with each broadcast block's mix as
-    `_v2_mix` gives it (trunk_kernel2.py:194-226 without its 368 padding)."""
+    `_v2_mix` gives it (trunk_kernel2.py:194-226 without its padding)."""
     kinds, arrs = build_trunk_weights(config, model)
     out: List[torch.Tensor] = []
     for kind, blk in zip(kinds, block_arrays(config, kinds, arrs)):

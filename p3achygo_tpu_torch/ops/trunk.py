@@ -9,8 +9,10 @@ x [N, 361, C] bf16 (channels last, one row per board position):
 * `trunk_segment` runs a run of consecutive bottleneck blocks in one
   launch of `csrc/trunk_segment.cu` `p3_trunk_segment` (wgmma, weights
   staged by bulk-async copies, persistent blocks);
-* `trunk_broadcast` runs one broadcast block (`csrc/trunk.cu`
-  `p3_trunk_broadcast`).
+* `trunk_broadcast` runs one broadcast block in one launch of
+  `csrc/trunk_broadcast.cu` `p3_trunk_broadcast` (wgmma for all three
+  products, the position mix streamed by bulk-async copies, persistent
+  blocks).
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs its plain version (`trunk_segment_reference`,
@@ -19,7 +21,7 @@ points and does every product as a float32 product of bf16-rounded
 operands (what the Pallas kernels' `preferred_element_type=f32` computes).
 On the card the plain versions need TF32 off (`torch.backends.cudnn.
 allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`) to be float32.
-The kernels' mish divides with `__fdividef` (csrc/trunk_common.cuh), ~2
+The kernels' mish divides approximately (csrc/trunk_common.cuh), ~2
 f32 ulp from the plain version's IEEE division, which moves a rare bf16
 rounding by one unit.
 Each wrapper counts its launches in `.launches`.
@@ -28,7 +30,9 @@ The segment kernel reads its weights as `pack_segment` lays them out: a
 stream of Cb x Cb chunks in the shared-memory layout of the wgmma B operand,
 packed once on the host. `unpack_segment` inverts it, and
 `segment_tile_positions` / `TAP_SHIFTS` spell out the kernel's M tiling of
-the zero-haloed 21x21 grid; the CPU tests hold all three.
+the zero-haloed 21x21 grid. The broadcast kernel reads `pack_broadcast`'s
+layout (Wf and Wl as B operands, WdT as a stream of A-operand chunks),
+inverted by `unpack_broadcast`. The CPU tests hold all of them.
 """
 from __future__ import annotations
 
@@ -42,9 +46,12 @@ from p3achygo_tpu_torch.constants import NUM_LOCS
 from p3achygo_tpu_torch.models.blocks import mish_f32
 from p3achygo_tpu_torch.ops.cuda_build import load_library
 
-SOURCE = "trunk.cu"  # the broadcast kernel
+SOURCE = "trunk_broadcast.cu"  # the broadcast kernel
 SEGMENT_SOURCE = "trunk_segment.cu"
-MIX_PAD = 368  # the broadcast kernel's position tiles: 23 x 16 rows
+MIX_PAD = 384  # the broadcast kernel's position tiles: 6 x 64 rows
+# The broadcast kernel's WdT stream: per M tile of 64 destination positions
+# q, chunks of MIX_CHUNK_COLS source positions p (4 KB each).
+MIX_CHUNK_COLS = 32
 # Widths the kernels take: (channels, bottleneck) for a segment, channels
 # for a broadcast block; the segment kernel takes up to MAX_INNER 3x3
 # layers a block.
@@ -81,10 +88,13 @@ class BroadcastWeights(NamedTuple):
 
     f_aff: torch.Tensor  # f32 [2, C]
     wf: torch.Tensor  # bf16 [C, C]
-    wdt: torch.Tensor  # bf16 [368, 368]: wdt[q, p] = Dense kernel[p, q], 0-padded
+    wdt: torch.Tensor  # bf16 [384, 384]: wdt[q, p] = Dense kernel[p, q], 0-padded
     bd: torch.Tensor  # f32 [361]
     l_aff: torch.Tensor  # f32 [2, C]
     wl: torch.Tensor  # bf16 [C, C]
+    packed: Optional[torch.Tensor] = None  # bf16 [2 C^2 + 384^2]:
+    #                    `pack_broadcast` of the above, what the kernel reads
+    #                    (needed on the card only)
 
 
 def _round(t: torch.Tensor) -> torch.Tensor:
@@ -161,6 +171,24 @@ def _chunks_per_block(channels: int, cb: int, inner: int) -> int:
     return 2 * (channels // cb) + 9 * inner
 
 
+def _to_cores(t: torch.Tensor) -> torch.Tensor:
+    """[..., R, K] (R, K multiples of 8) -> [..., R * K] in 8x8 core
+    matrices of 128 contiguous bytes: core (r//8, k//8) at element
+    ((r//8) * (K//8) + k//8) * 64, row r%8 of it at (r%8) * 8. The
+    no-swizzle K-major layout of a wgmma operand whose descriptor has
+    leading byte offset 128 (cores adjacent in K) and stride byte offset
+    K/8 * 128 (cores adjacent in R)."""
+    *lead, r, k = t.shape
+    return (t.reshape(*lead, r // 8, 8, k // 8, 8).transpose(-3, -2)
+            .reshape(*lead, r * k))
+
+
+def _from_cores(t: torch.Tensor, r: int, k: int) -> torch.Tensor:
+    """Inverse of `_to_cores`: [..., R * K] -> [..., R, K]."""
+    lead = t.shape[:-1]
+    return t.reshape(*lead, r // 8, k // 8, 8, 8).transpose(-3, -2).reshape(*lead, r, k)
+
+
 def pack_segment(w: SegmentWeights) -> torch.Tensor:
     """The segment kernel's weight stream: bf16 [n_blocks, 2 C/Cb + 9 inner,
     Cb * Cb]. Per block, in the order the kernel consumes them: the reduce
@@ -182,9 +210,7 @@ def pack_segment(w: SegmentWeights) -> torch.Tensor:
     mats += [w.w9[:, j, o * cb:(o + 1) * cb, :] for j in range(inner) for o in range(9)]
     mats += [we[:, :, nc * cb:(nc + 1) * cb] for nc in range(split)]
     bt = torch.stack(mats, dim=1).transpose(2, 3)  # [nb, chunks, n, k]
-    m = cb // 8
-    return (bt.reshape(n_blocks, -1, m, 8, m, 8).permute(0, 1, 2, 4, 3, 5)
-            .reshape(n_blocks, -1, cb * cb).contiguous())
+    return _to_cores(bt).contiguous()
 
 
 def unpack_segment(packed: torch.Tensor, channels: int, inner: int
@@ -196,9 +222,7 @@ def unpack_segment(packed: torch.Tensor, channels: int, inner: int
     if cb * cb != cc or n_chunks != _chunks_per_block(channels, cb, inner):
         raise ValueError(f"packed {tuple(packed.shape)} is not a segment of "
                          f"C={channels}, inner={inner}")
-    m = cb // 8
-    b = (packed.reshape(n_blocks, n_chunks, m, m, 8, 8).permute(0, 1, 2, 4, 3, 5)
-         .reshape(n_blocks, n_chunks, cb, cb).transpose(2, 3))  # [nb, chunks, k, n]
+    b = _from_cores(packed, cb, cb).transpose(2, 3)  # [nb, chunks, k, n]
     order = reduce_k_order(channels).to(packed.device)
     wr = torch.empty((n_blocks, channels, cb), dtype=packed.dtype, device=packed.device)
     wr[:, order, :] = torch.cat([b[:, kc] for kc in range(split)], dim=1)
@@ -206,6 +230,45 @@ def unpack_segment(packed: torch.Tensor, channels: int, inner: int
     we = torch.empty((n_blocks, cb, channels), dtype=packed.dtype, device=packed.device)
     we[:, :, order] = torch.cat([b[:, split + 9 * inner + nc] for nc in range(split)], dim=2)
     return wr, w9.contiguous(), we
+
+
+def broadcast_packed_size(channels: int) -> int:
+    return 2 * channels * channels + MIX_PAD * MIX_PAD
+
+
+def pack_broadcast(w: BroadcastWeights) -> torch.Tensor:
+    """The broadcast kernel's weights, bf16 [2 C^2 + 384^2], in the layouts
+    its wgmma descriptors read (`_to_cores`), packed once on the host:
+    * Wf as B^T [n][k] (C x C), K (input channels) in `reduce_k_order`, so a
+      lane's 16-byte load of x is its conv_first A fragments;
+    * Wl as B^T [n][k], N (output channels) in `reduce_k_order`, so a lane's
+      conv_last accumulators are 8 contiguous channels of the residual;
+    * WdT [384, 384] as the mix's A stream: for each M tile t of 64
+      destination rows q and each chunk c of MIX_CHUNK_COLS source columns
+      p, the chunk WdT[64 t:, 32 c:] (64 x 32) at (t * 12 + c) * 2048."""
+    C = w.wf.shape[0]
+    order = reduce_k_order(C).to(w.wf.device)
+    ct = MIX_PAD // MIX_CHUNK_COLS
+    wdt = w.wdt.reshape(MIX_PAD // 64, 64, ct, MIX_CHUNK_COLS).transpose(1, 2)
+    return torch.cat([_to_cores(w.wf[order].t()), _to_cores(w.wl[:, order].t()),
+                      _to_cores(wdt).flatten()]).contiguous()
+
+
+def unpack_broadcast(packed: torch.Tensor, channels: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse of `pack_broadcast`: -> (wf, wdt, wl) as in BroadcastWeights."""
+    C = channels
+    if tuple(packed.shape) != (broadcast_packed_size(C),):
+        raise ValueError(f"packed {tuple(packed.shape)} is not a broadcast block of C={C}")
+    order = reduce_k_order(C).to(packed.device)
+    wf = torch.empty((C, C), dtype=packed.dtype, device=packed.device)
+    wf[order] = _from_cores(packed[:C * C], C, C).t()
+    wl = torch.empty_like(wf)
+    wl[:, order] = _from_cores(packed[C * C:2 * C * C], C, C).t()
+    ct = MIX_PAD // MIX_CHUNK_COLS
+    wdt = (_from_cores(packed[2 * C * C:].reshape(MIX_PAD // 64, ct, -1), 64, MIX_CHUNK_COLS)
+           .transpose(1, 2).reshape(MIX_PAD, MIX_PAD))
+    return wf, wdt.contiguous(), wl
 
 
 def _check_x(x: torch.Tensor, channels: int) -> None:
@@ -248,7 +311,7 @@ def _segment_kernel():
 
 def _broadcast_kernel():
     fn = load_library(SOURCE).p3_trunk_broadcast
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -299,6 +362,8 @@ def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     C = w.wf.shape[0]
     shapes = {"f_aff": (2, C), "wf": (C, C), "wdt": (MIX_PAD, MIX_PAD),
               "bd": (NUM_LOCS,), "l_aff": (2, C), "wl": (C, C)}
+    if w.packed is not None:
+        shapes["packed"] = (broadcast_packed_size(C),)
     for name, want in shapes.items():
         if tuple(getattr(w, name).shape) != want:
             raise ValueError(f"weight {name} is {tuple(getattr(w, name).shape)}, want {want}")
@@ -309,15 +374,17 @@ def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     if C not in BROADCAST_WIDTHS:
         raise ValueError(f"the broadcast kernel takes channels in "
                          f"{BROADCAST_WIDTHS}, not {C}")
+    if w.packed is None:
+        raise ValueError("the broadcast kernel reads the packed weights: "
+                         "BroadcastWeights(..., packed=pack_broadcast(w))")
     _check_launchable(x)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
     fn = _broadcast_kernel()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), w.f_aff.data_ptr(), w.wf.data_ptr(),
-                w.wdt.data_ptr(), w.bd.data_ptr(), w.l_aff.data_ptr(),
-                w.wl.data_ptr(), x.shape[0], C, _stream(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), w.f_aff.data_ptr(), w.packed.data_ptr(),
+                w.bd.data_ptr(), w.l_aff.data_ptr(), x.shape[0], C, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk broadcast kernel launch failed: cudaError {rc}")
     trunk_broadcast.launches += 1

@@ -1,6 +1,7 @@
 """Measure the fused trunk on an NVIDIA card, beyond what chip_smoke.py prints.
 
     python3 probe_trunk.py segment [--baseline PATH]
+    python3 probe_trunk.py broadcast [--baseline PATH]
     python3 probe_trunk.py ply
 
 segment: the segment kernel at the b12c128btl3 widths (C=128, Cb=64, a run
@@ -15,6 +16,19 @@ n_blocks, inner, C, Cb, stream)), is timed in turns with this one:
 baseline, kernel, kernel, baseline. Then a build of csrc/trunk_segment.cu
 with -DP3_SEGMENT_PROFILE gives the clock cycles per board-block of each
 phase (consumer warpgroup 0, warp 0) at the b12c128btl3 widths.
+
+broadcast: the broadcast kernel at the b12c128btl3 (C=128) and b8c64
+(C=64) widths, seeded Gaussian inputs and weights, N in {512, 2880}: max
+|d| / max |ref| against the plain version and device time per call (CUDA
+events, median of 5 runs of 10 calls). With --baseline, the broadcast
+kernel of that source file, which must have the C interface of the earlier
+wmma broadcast kernel (csrc/trunk.cu before the redesign:
+p3_trunk_broadcast(x, out, f_aff, wf, wdt [368, 368], bd, l_aff, wl, N, C,
+stream)), is timed in turns with this one: baseline, kernel, kernel,
+baseline. Then a build of csrc/trunk_broadcast.cu with
+-DP3_BROADCAST_PROFILE gives the clock cycles per board of each phase
+(consumer warpgroup 0, warp 0) at C=128, among them the wait for the
+previous board's mix to free the single-buffered m.
 
 ply: chip_smoke.py's self-play step (the bench mix, b12c128btl3 bf16 with
 seeded weights, B=256 fresh games) with the fused trunk and with
@@ -55,8 +69,11 @@ from p3achygo_tpu_torch.selfplay.loop import (
 )
 
 WIDTHS = ((128, 64, 3), (64, 32, 2))  # (C, Cb, inner), 3 blocks each
+BROADCAST_WIDTHS = (128, 64)
 N_TIMED = (512, 2880)
 PHASES = ("block-0 reduce", "3x3 products", "3x3 epilogues", "expand (+ next reduce)")
+BROADCAST_PHASES = ("conv_first", "wait for m free", "barrier after conv_first",
+                    "mix products", "mix epilogue + conv_last + store")
 # Kernel classes of a ply, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
@@ -80,9 +97,9 @@ def build(source: str, out_dir: str, *defines: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
-def segment_fn(lib: ctypes.CDLL, n_pointers: int):
-    fn = lib.p3_trunk_segment
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def kernel_fn(lib: ctypes.CDLL, name: str, n_pointers: int, n_ints: int):
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -96,6 +113,18 @@ def seeded_segment(C: int, cb: int, inner: int, gen: torch.Generator):
                            (n(3, inner, 9 * cb, cb) / (9 * cb) ** 0.5).bfloat16(),
                            (n(3, cb, C) / cb ** 0.5).bfloat16())
     return w._replace(packed=ops.pack_segment(w))
+
+
+def seeded_broadcast(C: int, gen: torch.Generator):
+    dev = torch.device("cuda")
+    r = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    n = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    aff = lambda: torch.stack([0.7 + 0.6 * r(C), 0.2 * (r(C) - 0.5)]).contiguous()
+    wdt = torch.zeros((ops.MIX_PAD, ops.MIX_PAD), device=dev)
+    wdt[:361, :361] = n(361, 361) / 19.0
+    w = ops.BroadcastWeights(aff(), (n(C, C) / C ** 0.5).bfloat16(), wdt.bfloat16(),
+                             0.1 * n(361), aff(), (n(C, C) / C ** 0.5).bfloat16())
+    return w._replace(packed=ops.pack_broadcast(w))
 
 
 def event_ms(fn, reps: int = 5, inner: int = 10) -> float:
@@ -116,19 +145,39 @@ def event_ms(fn, reps: int = 5, inner: int = 10) -> float:
 def call(fn, x, out, args) -> None:
     rc = fn(x.data_ptr(), out.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"segment kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+
+
+def phase_cycles(lib: ctypes.CDLL, name: str, fn, x, out, args, n: int):
+    """Per-unit clock cycles of each of the n - 1 phases of a profile build
+    (counter n - 1 counts the units), over 10 calls after a warm-up."""
+    read = getattr(lib, name)
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    call(fn, x, out, args)
+    torch.cuda.synchronize()
+    read(None, 1)
+    for _ in range(10):
+        call(fn, x, out, args)
+    torch.cuda.synchronize()
+    cycles = (ctypes.c_ulonglong * n)()
+    if read(cycles, 0) != 0:
+        raise RuntimeError("reading the phase clocks failed")
+    return [c / cycles[n - 1] for c in cycles[:n - 1]]
+
+
+def phase_line(names, per) -> str:
+    return ", ".join(f"{name} {p:.0f} ({100 * p / sum(per):.0f}%)"
+                     for name, p in zip(names, per)) + f"; total {sum(per):.0f}"
 
 
 def probe_segment(baseline: str | None, smi: str) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
-        base = segment_fn(build(baseline, tmp), 6) if baseline else None
+        base = kernel_fn(build(baseline, tmp), "p3_trunk_segment", 6, 5) if baseline else None
         prof_lib = build(os.path.join(cuda_build.CSRC_DIR, ops.SEGMENT_SOURCE), tmp,
                          "-DP3_SEGMENT_PROFILE")
-        prof_fn = segment_fn(prof_lib, 4)
-        read = prof_lib.p3_trunk_segment_phase_cycles
-        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        read.restype = ctypes.c_int
+        prof_fn = kernel_fn(prof_lib, "p3_trunk_segment", 4, 5)
         for C, cb, inner in WIDTHS:
             w = seeded_segment(C, cb, inner, gen)
             for N in N_TIMED:
@@ -152,19 +201,50 @@ def probe_segment(baseline: str | None, smi: str) -> None:
                 if C != WIDTHS[0][0]:
                     continue
                 args = (w.aff.data_ptr(), w.packed.data_ptr(), N, 3, inner, C, cb)
-                call(prof_fn, x, out, args)
-                torch.cuda.synchronize()
-                read(None, 1)
-                for _ in range(10):
-                    call(prof_fn, x, out, args)
-                torch.cuda.synchronize()
-                cycles = (ctypes.c_ulonglong * 5)()
-                if read(cycles, 0) != 0:
-                    raise RuntimeError("reading the phase clocks failed")
-                per = [c / cycles[4] for c in cycles[:4]]
-                log(f"segment phases C={C} N={N}, clock cycles per board-block: " + ", ".join(
-                    f"{name} {p:.0f} ({100 * p / sum(per):.0f}%)" for name, p in zip(PHASES, per))
-                    + f"; total {sum(per):.0f} [{smi}]")
+                per = phase_cycles(prof_lib, "p3_trunk_segment_phase_cycles", prof_fn, x, out,
+                                   args, 5)
+                log(f"segment phases C={C} N={N}, clock cycles per board-block: "
+                    f"{phase_line(PHASES, per)} [{smi}]")
+
+
+def probe_broadcast(baseline: str | None, smi: str) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = (kernel_fn(build(baseline, tmp), "p3_trunk_broadcast", 8, 2)
+                if baseline else None)
+        prof_lib = build(os.path.join(cuda_build.CSRC_DIR, ops.SOURCE), tmp,
+                         "-DP3_BROADCAST_PROFILE")
+        prof_fn = kernel_fn(prof_lib, "p3_trunk_broadcast", 6, 2)
+        for C in BROADCAST_WIDTHS:
+            w = seeded_broadcast(C, gen)
+            wdt368 = w.wdt[:368, :368].contiguous()  # the wmma kernel's padding
+            for N in N_TIMED:
+                x = torch.randn(N, 361, C, generator=gen, device="cuda").bfloat16()
+                out = torch.empty_like(x)
+                kernel = lambda: ops.trunk_broadcast(x, w)
+                _, rel = chip_smoke.rel_err(kernel(), ops.trunk_broadcast_reference(x, w))
+                gflop = chip_smoke.broadcast_work(w, N)[0] / 1e9
+                row = f"C={C} N={N} ({gflop:.1f} GFLOP): max rel {rel:.3e}"
+                if base is not None:
+                    old = lambda: call(base, x, out, (w.f_aff.data_ptr(), w.wf.data_ptr(),
+                                                      wdt368.data_ptr(), w.bd.data_ptr(),
+                                                      w.l_aff.data_ptr(), w.wl.data_ptr(),
+                                                      N, C))
+                    t = [event_ms(old), event_ms(kernel), event_ms(kernel), event_ms(old)]
+                    row += (f"; baseline {t[0]:.4f}/{t[3]:.4f} ms, kernel {t[1]:.4f}/{t[2]:.4f}"
+                            f" ms ({gflop / min(t[1], t[2]):.1f} TFLOP/s)")
+                else:
+                    t = event_ms(kernel)
+                    row += f"; kernel {t:.4f} ms ({gflop / t:.1f} TFLOP/s)"
+                log(f"broadcast: {row} [{smi}]")
+                if C != BROADCAST_WIDTHS[0]:
+                    continue
+                args = (w.f_aff.data_ptr(), w.packed.data_ptr(), w.bd.data_ptr(),
+                        w.l_aff.data_ptr(), N, C)
+                per = phase_cycles(prof_lib, "p3_trunk_broadcast_phase_cycles", prof_fn, x,
+                                   out, args, 6)
+                log(f"broadcast phases C={C} N={N}, clock cycles per board: "
+                    f"{phase_line(BROADCAST_PHASES, per)} [{smi}]")
 
 
 def ply_run(eval_fn, seed: int):
@@ -232,9 +312,10 @@ def probe_ply(smi: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("segment", "ply"))
+    parser.add_argument("what", choices=("segment", "broadcast", "ply"))
     parser.add_argument("--baseline",
-                        help="an earlier segment kernel source with the wr/w9/we C interface")
+                        help="an earlier kernel source: for segment, one with the wr/w9/we "
+                             "C interface; for broadcast, one with the wf/wdt/wl C interface")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_trunk: needs an NVIDIA card (torch.cuda.is_available() is False)")
@@ -243,6 +324,8 @@ def main() -> int:
     smi = chip_smoke.smi_line()
     if args.what == "segment":
         probe_segment(args.baseline, smi)
+    elif args.what == "broadcast":
+        probe_broadcast(args.baseline, smi)
     else:
         probe_ply(smi)
     return 0

@@ -128,6 +128,40 @@ def test_segment_launches_count_one_per_call(trunks, device):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
+def test_broadcast_kernel_is_deterministic(trunks, device, name):
+    """No atomics: two calls on the same input give identical bits."""
+    bc = next(s for s in trunks[name].segments if s.kernel is tk.trunk_broadcast)
+    channels = bc.weights.wf.shape[0]
+    gen = torch.Generator(device=device).manual_seed(12)
+    x = torch.randn((300, 361, channels), generator=gen, device=device).to(torch.bfloat16)
+    first = tk.trunk_broadcast(x, bc.weights)
+    second = tk.trunk_broadcast(x, bc.weights)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_broadcast_launches_count_one_per_call(trunks, device):
+    bc = next(s for s in trunks["b12c128btl3"].segments if s.kernel is tk.trunk_broadcast)
+    x = torch.zeros((5, 361, 128), dtype=torch.bfloat16, device=device)
+    before = tk.trunk_broadcast.launches
+    for i in range(1, 4):
+        tk.trunk_broadcast(x, bc.weights)
+        assert tk.trunk_broadcast.launches == before + i
+    torch.cuda.synchronize()
+
+
+def test_broadcast_kernel_needs_the_packed_weights(trunks, device):
+    """On the card the wrapper raises without `packed`; it never falls back
+    to the plain version."""
+    bc = next(s for s in trunks["b8c64"].segments if s.kernel is tk.trunk_broadcast)
+    x = torch.zeros((2, 361, 64), dtype=torch.bfloat16, device=device)
+    before = tk.trunk_broadcast.launches
+    with pytest.raises(ValueError):
+        tk.trunk_broadcast(x, bc.weights._replace(packed=None))
+    assert tk.trunk_broadcast.launches == before
+
+
 def test_trunk_empty_batch_launches_nothing(trunks, device):
     fn = trunks["b8c64"]
     before = (tk.trunk_segment.launches, tk.trunk_broadcast.launches)
