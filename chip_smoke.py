@@ -54,14 +54,32 @@ fallback):
              place of serve_fold, for 6 plies with one reset; the same
              checks, and all three kernels (segment, broadcast, liberty)
              must have been launched by this phase.
+  7 learn    the learning loop through rl/slice.py RLSlice: b12c128btl3
+             bf16 with seeded weights, B=128 boards, SearchParams(n=16, k=4),
+             max_game_len 24, train batch 256. Plays until B games are
+             harvested (every harvested board's Benson scores and ownership,
+             computed on the card, equal to the CPU's); one replay batch
+             through prepare_batch on the card and on the CPU with the same
+             symmetries (equal; the liberty kernel launched); 8 sgd_nesterov
+             steps (finite losses, grad_norm > 0), 10 more on one fixed
+             batch (its loss falls; the last 8 timed, with the split into
+             forward, backward and optimizer and a profile of 2 steps), 2
+             conv_muon steps on a copy; an SWA snapshot, a 4-pass BN
+             refresh, validation on 2 batches, a checkpoint save -> restore
+             into a fresh model (bitwise equal); then 2 plies with the new
+             weights (every move legal and superko-clean, pi_improved
+             finite and summing to 1). The liberty kernel must have been
+             launched by this phase; the trunk kernels are not on its path.
 
-Before the last line it prints the kernels JSON line (every kernel with
+Phase 7 prints a {"learn": ...} JSON line of its measurements. Before the
+last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
 each input read once and each output written once, over 3.35 TB/s) and the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -69,6 +87,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -77,18 +96,23 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from p3achygo_tpu_torch.constants import NUM_MOVES, PASS_MOVE
+from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import (
     legal_mask_batch,
     legal_mask_from_libs,
+    map_state,
+    min_labels,
     new_state,
     step,
     superko_violation,
 )
+from p3achygo_tpu_torch.game.scoring import pass_alive_for_color
 from p3achygo_tpu_torch.mcts.gumbel import SearchParams, make_eval_fn
 from p3achygo_tpu_torch.mcts.tree import make_tree
 from p3achygo_tpu_torch.models.blocks import BatchNorm
 from p3achygo_tpu_torch.models.config import get_config
+from p3achygo_tpu_torch.models.losses import LossCoeffs, compute_losses
 from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
 from p3achygo_tpu_torch.nn.serve import ServeNet
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn, trunk_reference
@@ -100,14 +124,22 @@ from p3achygo_tpu_torch.ops.liberties import (
     point_liberties_batch,
     point_liberties_reference,
 )
+from p3achygo_tpu_torch.rl import slice as rl_slice
+from p3achygo_tpu_torch.rl.slice import RLSlice, SliceConfig
 from p3achygo_tpu_torch.selfplay.loop import (
     SelfplayConfig,
+    final_scores,
     finished_mask,
     make_aux,
     make_game_buffer,
     reset_finished,
     selfplay_step_tiered,
 )
+from p3achygo_tpu_torch.train import checkpoint
+from p3achygo_tpu_torch.train.optimizer import apply_updates, conv_muon, global_norm
+from p3achygo_tpu_torch.train.step import create_train_state, make_train_step
+from p3achygo_tpu_torch.train.swa import SnapshotManager, recompute_batch_stats
+from p3achygo_tpu_torch.train.val import validate
 
 BENCH_B = 256
 PLIES = 10
@@ -130,6 +162,22 @@ KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broad
 # Published peaks of one H100 SXM (dense bf16 tensor rate, HBM3), for bounds.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# Phase 7: the learning loop.
+LEARN_MODEL = "b12c128btl3"
+LEARN_B = 128
+LEARN_TRAIN_B = 256
+LEARN_MAX_GAME_LEN = 24
+LEARN_STEPS = 8
+# Kernel classes of a profile, by substrings of the kernel's name (first match).
+CLASSES = (
+    ("segment kernel", ("trunk_segment_kernel",)),
+    ("broadcast kernel", ("trunk_broadcast_kernel",)),
+    ("liberty kernel", ("point_liberties_kernel",)),
+    ("cuDNN/cuBLAS convs and GEMMs", ("gemm", "conv", "cutlass", "xmma", "cudnn", "sm90_")),
+    ("index/gather/scatter", ("index", "gather", "scatter")),
+    ("reductions, sorts, softmax", ("reduce", "sort", "softmax", "scan", "radix")),
+    ("elementwise", ("elementwise",)),
+)
 
 
 def log(msg: str) -> None:
@@ -190,6 +238,31 @@ def device_ms(fn, calls: int = 50) -> float:
     if us <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return us / calls / 1000.0
+
+
+def event_ms(fn) -> float:
+    """Time of one call of `fn` on the card (CUDA events around it)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def kernel_classes(prof, calls: int):
+    """({class: device ms per call}, kernels per call) of a profile that
+    covered `calls` calls."""
+    by_class, kernels = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        kernels += e.count
+        name = e.key.lower()
+        cls = next((c for c, keys in CLASSES if any(k in name for k in keys)), "other, copies")
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3 / calls
+    return by_class, kernels / calls
 
 
 def phase_kernel(device, gen):
@@ -498,6 +571,26 @@ def kernel_row(kern, w, x):
     return row
 
 
+def check_ply(prev, active, move, pi, after, what: str) -> None:
+    """Every active board's move was legal and superko-clean (and placed its
+    stone), its pi_improved finite and summing to 1."""
+    b = torch.arange(prev.stones.shape[0], device=prev.stones.device)
+    libs = point_liberties_reference(prev.stones, prev.chain_id)
+    ok_legal = legal_mask_from_libs(prev, libs)[b, move]
+    ok_superko = ~superko_violation(prev, move)
+    on_board = move < PASS_MOVE
+    placed = after.stones[b, move.clamp(max=PASS_MOVE - 1)] == prev.to_move
+    bad = active & ~(ok_legal & ok_superko & (~on_board | placed))
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: illegal move on boards {b[bad].tolist()[:8]}")
+    pis = pi[active]
+    if not bool(torch.isfinite(pis).all()):
+        raise AssertionError(f"{what}: pi_improved not finite")
+    err = float((pis.sum(-1) - 1.0).abs().max())
+    if err > 1e-4 or pis.shape[1] != NUM_MOVES:
+        raise AssertionError(f"{what}: pi_improved sums off by {err}")
+
+
 def phase_selfplay(device, model, gen, eval_fn, plies, phase):
     """`plies` plies of the tiered self-play step with resets; returns
     (launches of each kernel in KERNELS during the run, plies/s, moves/s)."""
@@ -542,27 +635,267 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase):
     dt = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in KERNELS}
 
-    for ply, (prev, active, move, pi, after) in enumerate(checks):
-        libs = point_liberties_reference(prev.stones, prev.chain_id)
-        legal = legal_mask_from_libs(prev, libs)
-        ok_legal = legal[b, move]
-        ok_superko = ~superko_violation(prev, move)
-        on_board = move < PASS_MOVE
-        placed = after.stones[b, move.clamp(max=PASS_MOVE - 1)] == prev.to_move
-        bad = active & ~(ok_legal & ok_superko & (~on_board | placed))
-        if bool(bad.any()):
-            raise AssertionError(f"phase {phase} ply {ply}: illegal move on boards "
-                                 f"{b[bad].tolist()[:8]}")
-        pis = pi[active]
-        if not bool(torch.isfinite(pis).all()):
-            raise AssertionError(f"phase {phase} ply {ply}: pi_improved not finite")
-        err = float((pis.sum(-1) - 1.0).abs().max())
-        if err > 1e-4 or pis.shape[1] != NUM_MOVES:
-            raise AssertionError(f"phase {phase} ply {ply}: pi_improved sums off by {err}")
+    for ply, check in enumerate(checks):
+        check_ply(*check, f"phase {phase} ply {ply}")
     log(f"phase {phase}: {plies} plies at B={B}, {resets} resets, {moves_played} moves "
         f"in {dt:.2f} s; every move legal and superko-clean, pi_improved sums to 1; "
         f"launches {launches}")
     return launches, plies / dt, moves_played / dt
+
+
+def play_learn(sl: RLSlice, device):
+    """Step 1 of phase 7: plies of `sl.play_moves` until LEARN_B games are
+    harvested. Harvests are timed and every scored batch is recorded (the
+    slice itself calls the real functions). Returns (plies, seconds,
+    [(harvest ms, games)], [(finished states, (black, white, ownership))],
+    (label sweeps, Benson sweeps))."""
+    scored, harvests = [], []
+    real_scores, real_harvest = rl_slice.final_scores, sl._harvest
+
+    def spy_scores(states):
+        out = real_scores(states)
+        scored.append((states, out))
+        return out
+
+    def timed_harvest(done):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = real_harvest(done)
+        torch.cuda.synchronize()
+        harvests.append((1e3 * (time.perf_counter() - t0), n))
+        return n
+
+    sweeps0 = (min_labels.sweeps, pass_alive_for_color.sweeps)
+    rl_slice.final_scores, sl._harvest = spy_scores, timed_harvest
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        harvested = plies = 0
+        while harvested < LEARN_B:
+            if plies >= LEARN_MAX_GAME_LEN + 2:
+                raise AssertionError(f"phase 7: {harvested} games harvested in {plies} plies")
+            harvested += sl.play_moves(1)
+            plies += 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        rl_slice.final_scores = real_scores
+        del sl._harvest
+    sweeps = (min_labels.sweeps - sweeps0[0], pass_alive_for_color.sweeps - sweeps0[1])
+    return plies, seconds, harvests, scored, sweeps
+
+
+def check_scores(scored) -> int:
+    """Each recorded scoring on the card equals the same function on the
+    CPU, exactly. Returns the number of boards checked."""
+    n = 0
+    for states, out in scored:
+        want = final_scores(map_state(lambda t: t.cpu(), states))
+        for name, got, w in zip(("black", "white", "ownership"), out, want):
+            if got.dtype != w.dtype or not torch.equal(got.cpu(), w):
+                raise AssertionError(f"phase 7: {name} scores on the card != CPU")
+        n += states.stones.shape[0]
+    return n
+
+
+def check_prepare(rows, device):
+    """prepare_batch on the card against the CPU with the same symmetries:
+    planes, scalars and targets equal. Returns the card's batch and the
+    liberty launches it made."""
+    syms = torch.randint(0, 8, (LEARN_TRAIN_B,), generator=torch.Generator().manual_seed(5))
+    before = point_liberties_batch.launches
+    card = prepare_batch(rows, syms=syms.to(device), device=device)
+    launched = point_liberties_batch.launches - before
+    cpu = prepare_batch(rows, syms=syms, device="cpu")
+    pairs = [("planes", card[0], cpu[0]), ("scalars", card[1], cpu[1])]
+    pairs += [(f, getattr(card[2], f), getattr(cpu[2], f)) for f in card[2]._fields]
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"phase 7: prepare_batch {name} on the card != CPU")
+    if launched <= 0:
+        raise AssertionError("phase 7: prepare_batch on the card launched no liberty kernel")
+    return card, launched
+
+
+def train_split(model, tx, coeffs, planes, scalars, targets, reps: int = 5):
+    """Medians over `reps` of: the train-mode forward + losses, forward +
+    backward, and the optimizer update + apply, each timed by CUDA events
+    (ms). Each run updates the model, as a step does."""
+    params = dict(model.named_parameters())
+    opt_state = tx.init(params)
+    fwd, fwd_bwd, opt = [], [], []
+    for _ in range(reps):
+        fwd.append(event_ms(lambda: compute_losses(model(planes, scalars, train=True),
+                                                   targets, coeffs)["loss"]))
+        grads = {}
+
+        def fb():
+            loss = compute_losses(model(planes, scalars, train=True), targets, coeffs)["loss"]
+            grads.update(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        fwd_bwd.append(event_ms(fb))
+
+        def step_opt():
+            nonlocal opt_state
+            updates, opt_state = tx.update(grads, opt_state, params)
+            apply_updates(params, updates)
+        opt.append(event_ms(step_opt))
+    f, fb_, o = (statistics.median(x) for x in (fwd, fwd_bwd, opt))
+    return {"forward_ms": f, "backward_ms": fb_ - f, "optimizer_ms": o}
+
+
+def phase_learn(device, smi):
+    """Phase 7 (see the module docstring). Returns (liberty launches of the
+    phase, the {"learn": ...} measurements)."""
+    t_phase = time.perf_counter()
+    cfg = SliceConfig(model=LEARN_MODEL, batch_size=LEARN_B, train_batch_size=LEARN_TRAIN_B,
+                      selfplay=SelfplayConfig(batch_size=LEARN_B,
+                                              max_game_len=LEARN_MAX_GAME_LEN),
+                      dtype="bfloat16", seed=0)
+    sl = RLSlice(cfg, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in KERNELS:
+        k.launches = 0
+
+    # 1. self-play until B games are harvested.
+    plies, play_s, harvests, scored, sweeps = play_learn(sl, device)
+    games = sum(n for _, n in harvests)
+    harvest_ms = sum(ms for ms, _ in harvests)
+    log(f"phase 7: {plies} plies of B={LEARN_B} ({play_s:.2f} s), {games} games harvested "
+        f"in {len(harvests)} harvests, {len(sl.replay)} replay rows; harvest "
+        f"{harvest_ms:.1f} ms in all, {harvest_ms / games:.3f} ms per game; scoring sweeps: "
+        f"{sweeps[0]} labelling, {sweeps[1]} Benson ({smi})")
+
+    # 2. one replay batch through prepare_batch, card against CPU.
+    rows = sl.replay.sample(LEARN_TRAIN_B)
+    (planes, scalars, targets), prep_launches = check_prepare(rows, device)
+    prep_ms = statistics.median(
+        event_ms(lambda: prepare_batch(rows, generator=sl.generator, device=device))
+        for _ in range(5))
+    log(f"phase 7: prepare_batch card == CPU (planes, scalars, {len(targets)} targets) "
+        f"at N={LEARN_TRAIN_B}, {prep_launches} liberty launch(es); {prep_ms:.3f} ms per call")
+
+    # 3. training steps from the replay buffer, then on one fixed batch.
+    step_losses = [sl.train_steps(1) for _ in range(LEARN_STEPS)]
+    for i, losses in enumerate(step_losses):
+        bad = [k for k, v in losses.items() if not torch.isfinite(torch.tensor(v))]
+        if bad or not losses["grad_norm"] > 0:
+            raise AssertionError(f"phase 7: train step {i}: non-finite {bad} or grad_norm "
+                                 f"{losses['grad_norm']}")
+    series = lambda key, fmt: ", ".join(fmt.format(x[key]) for x in step_losses)
+    log(f"phase 7: {LEARN_STEPS} sgd_nesterov steps (lr {cfg.lr}): loss "
+        f"{series('loss', '{:.4f}')}; grad_norm {series('grad_norm', '{:.3f}')}")
+    state, train_step = sl.train_state, sl._train_step
+    fixed, times = [], []
+    for i in range(LEARN_STEPS + 2):
+        out = {}
+
+        def one():
+            nonlocal state
+            state, out["losses"] = train_step(state, planes, scalars, targets)
+        ms = event_ms(one)
+        fixed.append(float(out["losses"]["loss"]))
+        if i >= 2:
+            times.append(ms)
+    sl.train_state = state
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError(f"phase 7: loss on one fixed batch did not fall: {fixed}")
+    step_ms = statistics.median(times)
+    log(f"phase 7: {LEARN_STEPS + 2} steps on one fixed batch: loss {fixed[0]:.4f} -> "
+        f"{fixed[-1]:.4f}; {step_ms:.3f} ms per step (median of {LEARN_STEPS} after 2 "
+        f"warm-up), {LEARN_TRAIN_B / step_ms * 1e3:.0f} examples/s ({smi})")
+    split = train_split(sl.model, sl.tx, LossCoeffs.rl(), planes, scalars, targets)
+    log(f"phase 7: step split (CUDA events, medians of 5): forward + losses "
+        f"{split['forward_ms']:.3f} ms, backward {split['backward_ms']:.3f} ms, optimizer "
+        f"{split['optimizer_ms']:.3f} ms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, _ = train_step(state, planes, scalars, targets)
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0) / 2
+    sl.train_state = state
+    by_class, kernels_per_step = kernel_classes(prof, 2)
+    busy = sum(by_class.values())
+    if busy <= 0 and device.type == "cuda":
+        raise RuntimeError("the profiler recorded no device time for the train step")
+    log(f"phase 7: profiled step: device busy {busy:.3f} of {prof_wall:.3f} ms wall "
+        f"(idle {100 * (1 - busy / prof_wall):.0f}%), {kernels_per_step:.0f} kernels per step")
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log(f"phase 7:   {cls}: {ms:.3f} ms per step ({100 * ms / busy:.1f}%)")
+    muon_model = copy.deepcopy(sl.model)
+    muon_tx = conv_muon(cfg.lr)
+    muon_state = create_train_state(muon_model, muon_tx)
+    muon_step = make_train_step(muon_model, muon_tx, LossCoeffs.rl())
+    for i in range(2):
+        muon_state, ml = muon_step(muon_state, planes, scalars, targets)
+        if not (all(bool(torch.isfinite(v)) for v in ml.values()) and float(ml["grad_norm"]) > 0):
+            raise AssertionError(f"phase 7: conv_muon step {i}: {ml}")
+    log(f"phase 7: 2 conv_muon steps on a copy: loss {float(ml['loss']):.4f}, "
+        f"grad_norm {float(ml['grad_norm']):.3f}")
+    del muon_model, muon_state
+
+    # 4. SWA, BN refresh, validation, checkpoint round trip.
+    snaps = SnapshotManager(interval=1)
+    snaps.maybe_snapshot(state.step, state.params)
+    avg = snaps.final(state.params)
+    sl.model.load_state_dict(avg, strict=False)
+    batches = [prepare_batch(sl.replay.sample(LEARN_TRAIN_B), generator=sl.generator,
+                             device=device) for _ in range(4)]
+    passes = recompute_batch_stats(sl.model, [(p, s) for p, s, _ in batches], num_passes=4)
+    val = validate(sl.model, batches[:2], LossCoeffs.rl())
+    if passes != 4 or not all(torch.isfinite(torch.tensor(v)) for v in val.values()):
+        raise AssertionError(f"phase 7: BN refresh passes {passes}, validation {val}")
+    with tempfile.TemporaryDirectory() as root:
+        tree = {"model": sl.model.state_dict(), "opt_state": state.opt_state,
+                "step": state.step}
+        path = checkpoint.save_checkpoint(root, 1, tree)
+        back = checkpoint.restore_checkpoint(path)
+        fresh = build_model(get_config(LEARN_MODEL), torch.bfloat16, device)
+        fresh.load_state_dict(back["model"])
+        same = all(torch.equal(fresh.state_dict()[k], v) for k, v in sl.model.state_dict().items())
+        same &= all(torch.equal(back["opt_state"]["trace"][k], v)
+                    for k, v in state.opt_state["trace"].items())
+        if not same or back["step"] != state.step or checkpoint.latest_generation(root) != 1:
+            raise AssertionError("phase 7: checkpoint round trip is not bitwise equal")
+    log(f"phase 7: SWA snapshot + {passes}-pass BN refresh; validation on 2 batches: loss "
+        f"{val['loss']:.4f}, policy_acc {val['policy_acc']:.4f}; checkpoint save -> restore "
+        f"into a fresh model bitwise equal")
+
+    # 5. two plies with the trained weights.
+    sl.refresh_weights()
+    for ply in range(2):
+        prev = sl.states
+        active = ~finished_mask(prev, cfg.selfplay)
+        sl.play_moves(1)
+        b = torch.arange(LEARN_B, device=device)
+        t = prev.move_count.long().clamp(max=LEARN_MAX_GAME_LEN - 1)
+        kept = active & (sl.states.move_count > 0)  # a board harvested this ply was reset
+        check_ply(prev, kept, sl.buf.move[b, t].long(), sl.buf.pi[b, t], sl.states,
+                  f"phase 7 trained ply {ply}")
+    torch.cuda.synchronize()
+    launches = point_liberties_batch.launches
+    if launches <= 0:
+        raise AssertionError("the liberty kernel was not launched by phase 7")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    boards = check_scores(scored)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 7: 2 plies with the trained weights: every move legal and superko-clean, "
+        f"pi_improved sums to 1; harvested scores card == CPU on {boards} boards; liberty "
+        f"launches {launches}; peak memory {peak_gb:.2f} GB; phase wall {wall:.1f} s")
+    learn = {
+        "model": LEARN_MODEL, "boards": LEARN_B, "train_batch": LEARN_TRAIN_B,
+        "plies": plies, "play_s": play_s, "games": games, "harvests": len(harvests),
+        "harvest_ms": harvest_ms, "harvest_ms_per_game": harvest_ms / games,
+        "label_sweeps": sweeps[0], "benson_sweeps": sweeps[1],
+        "prepare_batch_ms": prep_ms, "step_ms": step_ms,
+        "examples_per_s": LEARN_TRAIN_B / step_ms * 1e3, **split,
+        "profiled_step_busy_ms": busy, "profiled_step_wall_ms": prof_wall,
+        "kernels_per_step": kernels_per_step, "device_ms_by_class": by_class,
+        "fixed_batch_loss": fixed, "peak_memory_gb": peak_gb,
+        "liberty_launches": launches, "phase_wall_s": wall, "card": smi,
+    }
+    return launches, learn
 
 
 def main() -> int:
@@ -626,6 +959,9 @@ def main() -> int:
     log(f"phase 6: {f_plies_s:.3f} plies/s, {f_moves_s:.1f} moves/s at B={BENCH_B} "
         f"with the fused trunk (informative; {smi})")
 
+    learn_launches, learn = phase_learn(device, smi)
+    print(json.dumps({"learn": learn}), flush=True)
+
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
@@ -639,6 +975,7 @@ def main() -> int:
         "replaces": "p3achygo_tpu/ops/liberties.py:46",
         "launches": launches["point_liberties_batch"],
         "launches_from": "phase 4 (serve_fold self-play)",
+        "launches_phase7": learn_launches,
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],

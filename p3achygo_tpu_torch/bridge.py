@@ -1,4 +1,4 @@
-"""flax variables -> the port's state dict.
+"""flax variables <-> the port's state dict.
 
 Takes the JAX package's `variables` (`{"params": ..., "batch_stats": ...}`)
 as plain nested dicts of numpy arrays, so this module imports no JAX
@@ -13,6 +13,11 @@ the flax tree); the leaves map as:
   params  .../scale   BatchNorm             -> .../weight
   params  value_head/score_pre_s            -> value_head.score_pre_s
   batch_stats .../mean, .../var             -> .../running_mean, running_var
+
+`state_dict_to_flax` is the inverse (tests compare parameters and BN
+statistics after a training step under the flax names), and
+`to_flax_layout` / `from_flax_layout` give one tensor in the flax layout,
+which the Muon optimizer's flattening and leaf test assume.
 """
 from __future__ import annotations
 
@@ -37,24 +42,66 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(variables["params"]):
         *mod, leaf = path
-        arr = np.asarray(arr, np.float32)
-        if leaf == "kernel" and arr.ndim == 4:
-            name, arr = "weight", arr.transpose(3, 2, 0, 1)
-        elif leaf == "kernel" and arr.ndim == 2:
-            name, arr = "weight", arr.T
-        elif leaf == "scale":
-            name = "weight"
-        elif leaf in ("bias", "score_pre_s"):
-            name = leaf
+        t = torch.tensor(np.asarray(arr, np.float32))
+        if leaf == "kernel" and t.dim() in (2, 4):
+            name = ".".join(mod + ["weight"])
+            t = from_flax_layout(t, name).contiguous()
+        elif leaf in ("scale", "bias", "score_pre_s"):
+            name = ".".join(mod + ["weight" if leaf == "scale" else leaf])
         else:
             raise KeyError(f"unmapped flax param {'/'.join(path)}")
-        out[".".join(mod + [name])] = torch.tensor(arr)
+        out[name] = t
     stat_names = {"mean": "running_mean", "var": "running_var"}
     for path, arr in _leaves(variables.get("batch_stats", {})):
         *mod, leaf = path
         out[".".join(mod + [stat_names[leaf]])] = torch.tensor(
             np.asarray(arr, np.float32))
     return out
+
+
+def to_flax_layout(t: torch.Tensor, name: str) -> torch.Tensor:
+    """Parameter `name` in the flax layout: OIHW conv weight -> HWIO,
+    [out, in] Dense weight -> [in, out]; `score_pre_s` ([1, c_val] on both
+    sides) and 1-D leaves as they are."""
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    if t.dim() == 2 and not name.endswith("score_pre_s"):
+        return t.t()
+    return t
+
+
+def from_flax_layout(t: torch.Tensor, name: str) -> torch.Tensor:
+    """Inverse of `to_flax_layout`."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    return to_flax_layout(t, name)
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's state dict -> flax `variables` ({"params": ...,
+    "batch_stats": ...} of nested dicts of float32 numpy arrays)."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, path, arr):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = arr
+
+    for name, t in state_dict.items():
+        *mod, leaf = name.split(".")
+        arr = t.detach().float().cpu()
+        if leaf in ("running_mean", "running_var"):
+            put(stats, mod + [leaf[len("running_"):]], arr.numpy())
+        elif leaf == "weight" and arr.dim() == 1:
+            put(params, mod + ["scale"], arr.numpy())
+        elif leaf == "weight":
+            put(params, mod + ["kernel"], to_flax_layout(arr, name).contiguous().numpy())
+        elif leaf in ("bias", "score_pre_s"):
+            put(params, mod + [leaf], arr.numpy())
+        else:
+            raise KeyError(f"unmapped state dict entry {name}")
+    return {"params": params, "batch_stats": stats}
 
 
 def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:

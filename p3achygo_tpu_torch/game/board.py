@@ -168,23 +168,49 @@ def point_liberties(stones: torch.Tensor, chain_id: torch.Tensor
                        torch.zeros_like(gathered))
 
 
+LABEL_CHUNK = 4  # label sweeps between two convergence checks
+
+
+def min_labels(mask: torch.Tensor, link: torch.Tensor) -> torch.Tensor:
+    """Min-point-index labels of the components of `mask` [B, 361] ->
+    int64[B, 361], SENTINEL off the mask. `link` [B, 361, 4] marks, per
+    mask point and direction, that the neighbour there is in the same
+    component; it is false at every point off the mask.
+
+    Each sweep takes the minimum over linked neighbours, then jumps every
+    label to its label's label (pointer jumping: the label of a point is a
+    point of the same component with a smaller or equal index). Labels
+    only fall and the min-index labelling is the unique fixed point, so
+    extra sweeps change nothing: the host checks for convergence once per
+    LABEL_CHUNK sweeps, one sync each. `min_labels.sweeps` counts sweeps."""
+    B = mask.shape[0]
+    dev = mask.device
+    nb = NEIGHBORS.on(dev)
+    iota = torch.arange(NUM_LOCS, dtype=torch.int64, device=dev)
+    lbl = torch.where(mask, iota, SENTINEL)
+    sent = torch.full((B, 1), SENTINEL, dtype=torch.int64, device=dev)
+    while True:
+        before = lbl
+        for _ in range(LABEL_CHUNK):
+            padded = torch.cat([lbl, sent], dim=1)
+            nl = torch.where(link, padded[:, nb], SENTINEL).amin(dim=2)
+            lbl = torch.minimum(lbl, nl)
+            lbl = torch.cat([lbl, sent], dim=1).gather(1, lbl)
+        min_labels.sweeps += LABEL_CHUNK
+        if torch.equal(lbl, before):
+            return lbl
+
+
+min_labels.sweeps = 0
+
+
 def compute_chains(stones: torch.Tensor) -> torch.Tensor:
     """Chain ids (min-point-index rep) from raw stones [B, 361] by label
-    propagation. Only for board construction; moves keep `chain_id`
-    incrementally."""
-    dev = stones.device
-    iota = torch.arange(NUM_LOCS, dtype=torch.int32, device=dev)[None]
+    propagation (`min_labels`). Only for board construction; moves keep
+    `chain_id` incrementally."""
     occupied = stones != EMPTY
-    lbl = torch.where(occupied, iota, torch.full_like(iota, -1))
     same = (_nbr(_pad(stones, 99)) == stones[:, :, None]) & occupied[:, :, None]
-    while True:
-        nl = _nbr(_pad(lbl, NUM_LOCS))
-        nl = torch.where(same, nl, torch.full_like(nl, NUM_LOCS))
-        cand = nl.min(dim=2).values
-        new = torch.where(occupied & (cand < lbl), cand, lbl)
-        if torch.equal(new, lbl):
-            return lbl
-        lbl = new
+    return torch.where(occupied, min_labels(occupied, same), -1).to(torch.int32)
 
 
 def new_state(batch_size: int, komi: Union[float, torch.Tensor] = DEFAULT_KOMI,

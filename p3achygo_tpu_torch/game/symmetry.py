@@ -64,3 +64,10 @@ def apply_symmetry_action(action: torch.Tensor, sym: torch.Tensor
     mapped = table[s, action.long().clamp(0, NUM_LOCS - 1)]
     on_board = (action >= 0) & (action < NUM_LOCS)
     return torch.where(on_board, mapped.to(action.dtype), action)
+
+
+def apply_symmetry_policy_batch(policy: torch.Tensor, sym: torch.Tensor
+                                ) -> torch.Tensor:
+    """Per-board D4 transform of [B, 362] policies (pass entry untouched)."""
+    board = apply_symmetry_grid_batch(policy[:, :NUM_LOCS], sym)
+    return torch.cat([board, policy[:, NUM_LOCS:]], dim=1)

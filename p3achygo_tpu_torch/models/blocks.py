@@ -5,7 +5,15 @@ Module and attribute names follow the flax parameter tree (`Conv_0`,
 `BatchNorm_0`, `Dense_0`, `reduce`, `inner_0`, ...) so `bridge.py` maps
 flax variables onto them by path. Parameters stay float32; each layer
 casts its weights to the activation dtype on use (flax's `dtype` rule).
-BatchNorm runs as inference only, from running statistics, eps 1e-3.
+
+BatchNorm (eps 1e-3) runs from its running statistics, or with
+`train=True` from the batch's, as flax's BatchNorm does under
+`mutable=["batch_stats"]` (flax 0.12 `_compute_stats` / `_normalize`):
+statistics in float32 whatever the compute dtype, the variance as
+E[x^2] - E[x]^2 clipped at 0, and the running statistics updated in place
+to 0.99 * running + 0.01 * batch, the variance term being that biased batch
+variance. `torch.nn.BatchNorm2d` differs on the last two points, hence the
+functional form here.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +51,9 @@ def mish_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over channel axis 1: a*x + b per channel."""
+    """BatchNorm over channel axis 1: a*x + b per channel from the running
+    statistics, or normalised by the batch statistics with `train=True`
+    (which also updates the running statistics)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -56,10 +67,23 @@ class BatchNorm(nn.Module):
         a = self.weight * torch.rsqrt(self.running_var + BN_EPS)
         return a, self.bias - self.running_mean * a
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = self.affine()
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+        if not train:
+            a, b = self.affine()
+            return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1.0 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1.0 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -94,8 +118,8 @@ class ConvBlock(nn.Module):
         self.BatchNorm_0 = BatchNorm(cin)
         self.Conv_0 = Conv(cin, features, kernel)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv_0(mish(self.BatchNorm_0(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.Conv_0(mish(self.BatchNorm_0(x, train)))
 
 
 class ClassicResidualBlock(nn.Module):
@@ -107,10 +131,10 @@ class ClassicResidualBlock(nn.Module):
         for i in range(stack_size):
             setattr(self, f"conv_{i}", ConvBlock(features, features, conv_size))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         res = x
         for i in range(self.stack):
-            x = getattr(self, f"conv_{i}")(x)
+            x = getattr(self, f"conv_{i}")(x, train)
         return res + x
 
 
@@ -127,12 +151,12 @@ class BottleneckResidualBlock(nn.Module):
             setattr(self, f"inner_{i}", ConvBlock(bottleneck, bottleneck, conv_size))
         self.expand = ConvBlock(bottleneck, features, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         res = x
-        x = self.reduce(x)
+        x = self.reduce(x, train)
         for i in range(self.inner):
-            x = getattr(self, f"inner_{i}")(x)
-        return res + self.expand(x)
+            x = getattr(self, f"inner_{i}")(x, train)
+        return res + self.expand(x, train)
 
 
 class NbtResidualBlock(nn.Module):
@@ -146,9 +170,9 @@ class NbtResidualBlock(nn.Module):
         self.nbt_res1 = ClassicResidualBlock(bottleneck, conv_size)
         self.expand = ConvBlock(bottleneck, features, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.nbt_res1(self.nbt_res0(self.reduce(x)))
-        return x + self.expand(h)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.nbt_res1(self.nbt_res0(self.reduce(x, train), train), train)
+        return x + self.expand(h, train)
 
 
 class Broadcast(nn.Module):
@@ -174,8 +198,8 @@ class BroadcastResidualBlock(nn.Module):
         self.mix = Broadcast(positions)
         self.conv_last = ConvBlock(features, features, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.conv_last(self.mix(self.conv_first(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return x + self.conv_last(self.mix(self.conv_first(x, train)), train)
 
 
 def global_pool(x: torch.Tensor) -> torch.Tensor:
@@ -193,6 +217,6 @@ class GlobalPoolBias(nn.Module):
         self.batch_norm_gpool = BatchNorm(channels)
         self.Dense_0 = Dense(2 * channels, channels)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor):
-        g_pooled = global_pool(mish(self.batch_norm_gpool(g)))
+    def forward(self, x: torch.Tensor, g: torch.Tensor, train: bool = False):
+        g_pooled = global_pool(mish(self.batch_norm_gpool(g, train)))
         return x + self.Dense_0(g_pooled)[:, :, None, None], g_pooled

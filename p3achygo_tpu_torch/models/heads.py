@@ -34,9 +34,9 @@ class PolicyHead(nn.Module):
         self.optimistic_moves = Conv(channels, 1, 1)
         self.optimistic_pass = Dense(2 * channels, 1)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         n = x.shape[0]
-        p, g_pooled = self.gpool(self.conv_p(x), self.conv_g(x))
+        p, g_pooled = self.gpool(self.conv_p(x), self.conv_g(x), train)
         p = mish(p)
         pi_both = self.output_moves(p).reshape(n, 2, NUM_LOCS)
         # Pass logits biased down by 3 (model.py:800-802).

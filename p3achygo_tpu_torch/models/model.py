@@ -2,8 +2,10 @@
 python/model.py P3achyGoModel :1063-1295): 15-plane board input + 8 game
 scalars, init conv (conv_size+2) + game-state bias, a trunk of
 classic/btl/nbt blocks with a broadcast block every `broadcast_interval`,
-then policy and value heads. Inference only, BatchNorm from running
-statistics.
+then policy and value heads. `forward(..., train=True)` is the training
+forward: BatchNorm from batch statistics (running statistics updated in
+place, models/blocks.py) and gradients recorded; otherwise BatchNorm reads
+the running statistics and no graph is built.
 
 The public boundary keeps the JAX layout: planes NHWC [N, 19, 19, 15];
 the network runs NCHW inside. All 25 outputs are float32.
@@ -114,20 +116,27 @@ class P3achyGoModel(nn.Module):
         x = self.init_board_conv(x)
         return x + self.init_game_layer(game_state.to(self.dtype))[:, :, None, None]
 
-    @torch.no_grad()
     def forward(self, board_state: torch.Tensor, game_state: torch.Tensor,
-                trunk_fn=None) -> ModelOutputs:
+                trunk_fn=None, train: bool = False) -> ModelOutputs:
         """`trunk_fn` (NHWC [N, 19, 19, C] -> same, e.g.
         nn/trunk_kernel.py `build_trunk_fn`) replaces the residual trunk; the
-        stem and all heads stay this module (JAX model.py:72, 88-89)."""
+        stem and all heads stay this module (JAX model.py:72, 88-89). It is
+        inference only. `train=True` records gradients unless the caller
+        disabled them (a BN refresh runs it under `torch.no_grad()`)."""
+        if train and trunk_fn is not None:
+            raise ValueError("trunk_fn is an inference-only trunk")
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            return self._forward(board_state, game_state, trunk_fn, train)
+
+    def _forward(self, board_state, game_state, trunk_fn, train) -> ModelOutputs:
         x = self.stem(board_state, game_state)
         if trunk_fn is not None:
             x = trunk_fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             x = x.to(self.dtype).contiguous()
         else:
             for i in range(self.config.blocks):
-                x = getattr(self, block_name(self.config, i))(x)
-        pi, pi_aux, pi_soft, pi_opt = (t.float() for t in self.policy_head(x))
+                x = getattr(self, block_name(self.config, i))(x, train)
+        pi, pi_aux, pi_soft, pi_opt = (t.float() for t in self.policy_head(x, train))
         vh = self.value_head(x)
         return ModelOutputs(
             pi_logits=pi,

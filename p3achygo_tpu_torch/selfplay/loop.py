@@ -5,17 +5,19 @@ A batch of B games advances one move per `selfplay_step_tiered` call:
 per-board playout-cap randomization into a selected tier and a fast tier
 (self_play_thread.cc:544-548), Gumbel search per tier at its own width,
 raw-policy openings, the exact superko guard on the played move, record
-writes into the `GameBuffer`, board step and tree reuse. Finished games are
-replaced by `reset_finished`.
+writes into the `GameBuffer`, board step and tree reuse. `selfplay_step`
+is the single-tier step (one search width for the batch, the whole step a
+selected or a fast one), which rl/slice.py drives. Finished games are
+scored by `final_scores` and replaced by `reset_finished`.
 
 Ported for `tier_groups=1` without the value-bias table, GoExploit restart
 states or the `no_raw` / `force_sel` restart options.
 
 Every random draw comes from the `generator` argument, or from a
-`StepDraws` built beforehand, so tests can inject the JAX draws:
-the tier permutation uniforms (loop.py:416), the per-tier search Gumbels,
+`StepDraws` / `SelfplayDraws` built beforehand, so tests can inject the JAX
+draws: the tier permutation uniforms (loop.py:416), the search Gumbels,
 the raw-policy Gumbels of `_choose_move` (loop.py:200; JAX's `categorical`
-is Gumbel-max) and the trainable-coin uniforms (loop.py:499).
+is Gumbel-max) and the trainable-coin uniforms (loop.py:345, :499).
 
 The step updates `buf` in place and returns it; states, aux and trees are
 new tensors.
@@ -37,6 +39,7 @@ from p3achygo_tpu_torch.game.board import (
     step,
     superko_violation,
 )
+from p3achygo_tpu_torch.game.scoring import score as score_board
 from p3achygo_tpu_torch.mcts.gumbel import (
     EvalFn,
     RootPreStats,
@@ -288,6 +291,80 @@ def _record_and_advance(states: GoState, buf: GameBuffer, res, move,
     return select_state(active, new_states, states), buf
 
 
+class SelfplayDraws(NamedTuple):
+    """Every random draw of one `selfplay_step` call (loop.py:319: the
+    search key gives `noise` and `sample`, then kraw and ksel)."""
+
+    noise: torch.Tensor  # f32[B, 362] root Gumbel noise
+    sample: torch.Tensor  # f32[B, 362] tau-sampling Gumbels
+    raw: torch.Tensor  # f32[B, 362] raw-policy sampling Gumbels
+    train_u: torch.Tensor  # f32[B] trainable coins
+
+
+def draw_selfplay(B: int, generator: torch.Generator, device) -> SelfplayDraws:
+    g = lambda: gumbel((B, NUM_MOVES), generator, device)
+    return SelfplayDraws(noise=g(), sample=g(), raw=g(),
+                         train_u=torch.rand(B, generator=generator, device=device))
+
+
+def selfplay_step(states: GoState, buf: GameBuffer, aux: SelfplayAux,
+                  eval_fn: EvalFn, params: SearchParams, cfg: SelfplayConfig,
+                  selected_tier: bool,
+                  generator: Optional[torch.Generator] = None,
+                  reuse_tree: Optional[Tree] = None, reuse_capacity: int = 0,
+                  calib=None, sel_mult_base=None,
+                  draws: Optional[SelfplayDraws] = None):
+    """One lockstep move for the whole batch at one search width
+    (selfplay/loop.py:299-362 of the JAX package). `selected_tier` marks
+    a full-search step: only its non-raw-policy, non-down-bad-suppressed
+    moves become trainable records; `force_sel` boards are trainable
+    whatever the tier.
+
+    Returns (states, buf, aux, next_tree) with `reuse_tree`, else
+    (states, buf, aux)."""
+    B = states.stones.shape[0]
+    dev = states.stones.device
+    if draws is None:
+        draws = draw_selfplay(B, generator, dev)
+    # Pre-search root stats from the reused tree, read before the search
+    # mutates the root (self_play_thread.cc:459-482).
+    if reuse_tree is not None:
+        pre = root_pre_stats(reuse_tree, params.c_visit, params.c_scale)
+    else:
+        pre = _zero_pre_stats(B, dev)
+
+    tau = tau_schedule(states.move_count, cfg)
+    if reuse_tree is not None:
+        res, work_tree = search_root(states, eval_fn, params, tau=tau,
+                                     init_tree=reuse_tree,
+                                     reuse_capacity=reuse_capacity,
+                                     gumbel_noise=draws.noise,
+                                     sample_gumbel=draws.sample)
+    else:
+        res = search_root(states, eval_fn, params, tau=tau,
+                          gumbel_noise=draws.noise, sample_gumbel=draws.sample)
+        work_tree = None
+
+    move, sampling_raw, over = _choose_move(states, res, aux.raw_until, draws.raw)
+    keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
+        res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
+    coin = ~sampling_raw & (draws.train_u < keep_prob * sel_mult)
+    trainable = torch.where(aux.force_sel, ~sampling_raw,
+                            coin if selected_tier else torch.zeros_like(coin))
+
+    nn_q_root = work_tree.init_util[:, 0] if work_tree is not None else pre.nn_q
+    nn_unc_root = (work_tree.init_err[:, 0] if work_tree is not None
+                   else pre.nn_uncertainty)
+    states, buf = _record_and_advance(states, buf, res, move, sampling_raw,
+                                      over, pre, nn_q_root, nn_unc_root,
+                                      trainable, keep_prob, sel_modifier, cfg)
+    aux = SelfplayAux(raw_until=aux.raw_until, down_bad_count=down_bad_count,
+                      force_sel=torch.zeros_like(aux.force_sel))
+    if work_tree is not None:
+        return states, buf, aux, compact_subtree(work_tree, move, reuse_capacity)
+    return states, buf, aux
+
+
 def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                          eval_fn: EvalFn, params_sel: SearchParams,
                          params_fast: SearchParams, cfg: SelfplayConfig,
@@ -371,6 +448,12 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
 
 def finished_mask(states: GoState, cfg: SelfplayConfig) -> torch.Tensor:
     return is_game_over(states) | (states.move_count >= cfg.max_game_len)
+
+
+def final_scores(states: GoState):
+    """Batched terminal scoring -> (black f32[B], white f32[B], ownership
+    int8[B, 361]), Benson pass-alive analysis included (game/scoring.py)."""
+    return score_board(states)
 
 
 def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,

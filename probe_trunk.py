@@ -52,7 +52,6 @@ import tempfile
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
@@ -74,16 +73,6 @@ N_TIMED = (512, 2880)
 PHASES = ("block-0 reduce", "3x3 products", "3x3 epilogues", "expand (+ next reduce)")
 BROADCAST_PHASES = ("conv_first", "wait for m free", "barrier after conv_first",
                     "mix products", "mix epilogue + conv_last + store")
-# Kernel classes of a ply, by substrings of the kernel's name (first match).
-CLASSES = (
-    ("segment kernel", ("trunk_segment_kernel",)),
-    ("broadcast kernel", ("trunk_broadcast_kernel",)),
-    ("liberty kernel", ("point_liberties_kernel",)),
-    ("cuDNN/cuBLAS convs and GEMMs", ("gemm", "conv", "cutlass", "xmma", "cudnn", "sm90_")),
-    ("index/gather/scatter", ("index", "gather", "scatter")),
-    ("reductions, sorts, softmax", ("reduce", "sort", "softmax", "scan", "radix")),
-    ("elementwise", ("elementwise",)),
-)
 
 
 def log(msg: str) -> None:
@@ -283,15 +272,8 @@ def ply_run(eval_fn, seed: int):
             ply()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / 2
-    by_class, kernels = {}, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        kernels += e.count
-        name = e.key.lower()
-        cls = next((c for c, keys in CLASSES if any(k in name for k in keys)), "other, copies")
-        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3 / 2
-    return times, by_class, sum(by_class.values()), wall, kernels / 2
+    by_class, kernels = chip_smoke.kernel_classes(prof, 2)
+    return times, by_class, sum(by_class.values()), wall, kernels
 
 
 def probe_ply(smi: str) -> None:

@@ -6,16 +6,23 @@ but no JAX (the repo's conftest imports JAX, hence `--noconftest`):
 
     python -m pytest -o addopts= --noconftest -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
 from chip_smoke import KERNEL_TOL, random_boards, rel_err, seeded_model
+from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import legal_mask_batch, map_state
+from p3achygo_tpu_torch.game.scoring import compute_pass_alive
 from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
+from p3achygo_tpu_torch.models.losses import LossCoeffs
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
 from p3achygo_tpu_torch.ops import liberties as tl
 from p3achygo_tpu_torch.ops import trunk as tk
+from p3achygo_tpu_torch.selfplay.loop import final_scores
+from p3achygo_tpu_torch.train.optimizer import sgd_nesterov
+from p3achygo_tpu_torch.train.step import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +214,75 @@ def test_fused_eval_on_card_agrees_with_cpu(device, boards):
     top1 = (card.log_priors.argmax(-1).cpu() == cpu.log_priors.argmax(-1)).float().mean()
     assert float(top1) >= 0.95, float(top1)
     assert float((card.outcome_value.cpu() - cpu.outcome_value).abs().max()) < 0.05
+
+
+def _replay_rows(states, seed: int):
+    """Replay rows (ReplayBuffer.sample's dict) on `states`' positions with
+    seeded random targets of every kind."""
+    rng = np.random.default_rng(seed)
+    n = states.stones.shape[0]
+    dist = lambda: (lambda p: (p / p.sum(-1, keepdims=True)).astype(np.float32))(
+        rng.dirichlet(np.full(362, 0.3), n))
+    score = rng.normal(0, 30, n).astype(np.float32)
+    return dict(
+        stones=states.stones.cpu().numpy(),
+        last_moves=states.last_moves.cpu().numpy().astype(np.int16),
+        color=states.to_move.cpu().numpy(), komi=np.full(n, 7.5, np.float32),
+        pi=dist(), pi_aux=rng.integers(0, 362, n).astype(np.int16), pi_aux_dist=dist(),
+        has_pi_aux_dist=rng.random(n) < 0.6,
+        own=rng.integers(-1, 2, (n, 361)).astype(np.int8), score_margin=score,
+        z=np.where(score > 0, 1.0, -1.0).astype(np.float32),
+        **{k: np.tanh(rng.normal(0, 1, n)).astype(np.float32) for k in ("q6", "q16", "q50")},
+        **{k: rng.normal(0, 10, n).astype(np.float32)
+           for k in ("q6_score", "q16_score", "q50_score")},
+        weight=np.ones(n, np.float32),
+        mcts_value_dist=rng.integers(0, 20, (n, 51)).astype(np.uint16))
+
+
+def test_scoring_on_card_equals_cpu(boards):
+    """Benson scoring (labels, V/A count matrices, the removal loop) on the
+    card: scores and ownership equal to the CPU's."""
+    sub = map_state(lambda t: t[:256], boards)
+    got = final_scores(sub)
+    want = final_scores(map_state(lambda t: t.cpu(), sub))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(compute_pass_alive(sub).cpu(),
+                       compute_pass_alive(map_state(lambda t: t.cpu(), sub)))
+
+
+def test_prepare_batch_on_card_equals_cpu(boards, device):
+    rows = _replay_rows(map_state(lambda t: t[:256], boards), 1)
+    syms = torch.arange(256) % 8
+    before = tl.point_liberties_batch.launches
+    card = prepare_batch(rows, syms=syms.to(device), device=device)
+    assert tl.point_liberties_batch.launches > before
+    cpu = prepare_batch(rows, syms=syms, device="cpu")
+    assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+    for f in cpu[2]._fields:
+        assert torch.equal(getattr(card[2], f).cpu(), getattr(cpu[2], f)), f
+
+
+def test_float32_train_step_on_card_matches_cpu(boards, device):
+    """One float32 sgd_nesterov step of b8c64 (train-mode BN, autograd,
+    clipping) on the card and on the CPU: losses, grad_norm, parameter
+    updates and BN statistics to rtol 1e-3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = _replay_rows(map_state(lambda t: t[:64], boards), 2)
+    syms = torch.arange(64) % 8
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        m = seeded_model("b8c64", dev, torch.Generator().manual_seed(9))
+        before = {k: v.detach().clone() for k, v in m.state_dict().items()}
+        tx = sgd_nesterov(1e-2)
+        state = create_train_state(m, tx)
+        planes, scalars, targets = prepare_batch(rows, syms=syms.to(dev), device=dev)
+        state, losses = make_train_step(m, tx, LossCoeffs.rl())(state, planes, scalars, targets)
+        out[dev.type] = ({k: float(v) for k, v in losses.items()},
+                         {k: (v - before[k]).cpu() for k, v in m.state_dict().items()})
+    (l_card, d_card), (l_cpu, d_cpu) = out["cuda"], out["cpu"]
+    for k in l_cpu:
+        assert l_card[k] == pytest.approx(l_cpu[k], rel=1e-3, abs=1e-6), k
+    for k in d_cpu:
+        torch.testing.assert_close(d_card[k], d_cpu[k], rtol=1e-3, atol=1e-6, msg=k)

@@ -66,24 +66,26 @@ def _near_tie_boards(pi):
     return set(np.flatnonzero(top2[:, 1] - top2[:, 0] < 1e-4).tolist())
 
 
-def _compare(jx, tx, skip, what):
-    """NamedTuples of [B, ...] arrays: integers exact, floats to 1e-4, rows
-    in `skip` left out."""
+def _compare(jx, tx, skip, what, bf16_rtol=0.0):
+    """NamedTuples of [B, ...] arrays: integers exact, floats to 1e-4
+    (bfloat16 fields also to `bf16_rtol`), rows in `skip` left out."""
     keep = np.array([i for i in range(B) if i not in skip], np.int64)
     for f in type(tx)._fields:
         a = to_np(getattr(jx, f))[keep]
         b = getattr(tx, f)
+        rtol = bf16_rtol if b.dtype == torch.bfloat16 else 0.0
         b = (b.float() if b.dtype == torch.bfloat16 else b).numpy()[keep]
         if str(a.dtype) == "bfloat16":
             a = a.astype(np.float32)
         if np.issubdtype(a.dtype, np.floating):
-            np.testing.assert_allclose(b, a, rtol=0, atol=1e-4,
+            np.testing.assert_allclose(b, a, rtol=rtol, atol=1e-4,
                                        err_msg=f"{what}.{f}")
         else:
             np.testing.assert_array_equal(b, a, err_msg=f"{what}.{f}")
 
 
-def test_selfplay_slice_parity():
+def _sharpened_tiny():
+    """(flax tiny model, its numpy variables, the port's model with them)."""
     jm = jax_build(jax_get_config("tiny"))
     variables = jax.jit(jm.init, static_argnames="train")(
         jax.random.PRNGKey(5), jnp.zeros((1, 19, 19, 15)), jnp.zeros((1, 8)),
@@ -98,6 +100,11 @@ def test_selfplay_slice_parity():
     np_vars["params"]["value_head"]["outcome_q_output"]["kernel"] *= 10.0
     np_vars["params"]["value_head"]["score_pre_s"] *= 0.02
     tm = load_flax_variables(build_model(get_config("tiny"), device="cpu"), np_vars)
+    return jm, np_vars, tm
+
+
+def test_selfplay_slice_parity():
+    jm, np_vars, tm = _sharpened_tiny()
     j_eval = jg.make_eval_fn(jm, jax.tree_util.tree_map(jnp.asarray, np_vars),
                              serve_fold=True)
     t_eval = tg.make_eval_fn(tm, serve_fold=True)
@@ -177,3 +184,60 @@ def test_tau_schedule_and_generator_draws():
     for a, b in zip(d1, d2):
         assert torch.equal(a, b)
     assert d1.sel_noise.shape == (2, 362) and d1.fast_noise.shape == (6, 362)
+
+
+def test_single_tier_selfplay_step_parity():
+    """The single-tier step RLSlice drives (JAX loop.py:299-362) with the
+    plain evaluator and tree reuse, two plies, every JAX draw injected
+    through SelfplayDraws: states, buffers, aux and trees agree (near-tie
+    boards left out as above). The tree's bfloat16 priors may differ by one
+    bfloat16 unit: the plain forward's float32 logits differ from JAX's in
+    the last bits, and a few round to the other side."""
+    jm, np_vars, tm = _sharpened_tiny()
+    j_eval = jg.make_eval_fn(jm, jax.tree_util.tree_map(jnp.asarray, np_vars))
+    t_eval = tg.make_eval_fn(tm)
+    cfg_j = jl.SelfplayConfig(batch_size=B, max_game_len=40)
+    cfg_t = tl.SelfplayConfig(batch_size=B, max_game_len=40)
+    cap = J_SEL.n + 2
+    j_step = jax.jit(functools.partial(
+        jl.selfplay_step, eval_fn=j_eval, params=J_SEL, cfg=cfg_j,
+        selected_tier=True, reuse_capacity=cap))
+
+    js = random_jax_states(B=B, moves=20, seed=8, pass_prob=0.05)
+    ts = state_to_torch(js)
+    jbuf = jl.make_game_buffer(B, cfg_j.max_game_len)
+    tbuf = tl.make_game_buffer(B, cfg_t.max_game_len, device="cpu")
+    jaux = jl.make_aux(jax.random.PRNGKey(3), B)
+    taux = tl.make_aux(B, raw_until=torch.tensor(np.array(jaux.raw_until)), device="cpu")
+    jtree = jt.make_tree(B, cap)
+    ttree = tt.make_tree(B, cap, device="cpu")
+    key = jax.random.PRNGKey(21)
+    skipped = set()
+    for _ in range(2):
+        _, ksearch, kraw, ksel = jax.random.split(key, 4)
+        k1, knoise = jax.random.split(ksearch)
+        _, ksample = jax.random.split(k1)
+        draws = tl.SelfplayDraws(
+            noise=_gumbel(knoise, B), sample=_gumbel(ksample, B), raw=_gumbel(kraw, B),
+            train_u=torch.tensor(np.array(jax.random.uniform(ksel, (B,)))))
+        js, jbuf, jaux, jtree, key = j_step(js, jbuf, jaux, key, reuse_tree=jtree)
+        ts, tbuf, taux, ttree = tl.selfplay_step(
+            ts, tbuf, taux, t_eval, T_SEL, cfg_t, selected_tier=True,
+            reuse_tree=ttree, reuse_capacity=cap, draws=draws)
+        t = int(np.asarray(js.move_count)[0]) - 1
+        skipped |= _near_tie_boards(np.asarray(jbuf.pi)[:, t])
+        # Where the pre-search policy equals the prior, the pre-search KLD is
+        # 0; the jitted JAX step computes it as +-1e-7 of rounding, and
+        # move_sel's `pre_kld == 0` test then takes its penalty branch. The
+        # port's is exactly 0. sel_mult_modifier is compared on the other
+        # boards only (with sel_mult_base None it decides nothing).
+        pre_kld = np.asarray(jbuf.pre_kld)[:, t]
+        noise = (pre_kld != 0) & (np.abs(pre_kld) < 1e-6)
+        assert not tbuf.pre_kld[torch.from_numpy(noise), t].any()
+        mod = np.array(jbuf.sel_mult_modifier)
+        mod[noise, t] = tbuf.sel_mult_modifier[torch.from_numpy(noise), t].numpy()
+        for what, a, b_ in (("state", js, ts), ("buf", jbuf._replace(sel_mult_modifier=mod), tbuf),
+                            ("aux", jaux, taux), ("tree", jtree, ttree)):
+            _compare(a, b_, skipped, what, bf16_rtol=2.0 ** -7)
+    assert len(skipped) <= B // 2
+    assert bool(tbuf.trainable.any()) and bool((~tbuf.trainable[:, :20]).all())

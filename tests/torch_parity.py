@@ -1,6 +1,9 @@
 """Helpers for the parity tests of the PyTorch port against the JAX package:
-moving batched states and trees between the two, and random legal play."""
+moving batched states and trees between the two, random legal play, and
+short JAX self-play runs."""
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +13,8 @@ import torch
 from p3achygo_tpu.game.board import legal_mask as jax_legal_mask
 from p3achygo_tpu.game.board import new_state as jax_new_state
 from p3achygo_tpu.game.board import step as jax_step
+from p3achygo_tpu.mcts import gumbel as jg
+from p3achygo_tpu.selfplay import loop as jl
 from p3achygo_tpu_torch.game.board import GoState
 from p3achygo_tpu_torch.mcts.tree import Tree
 
@@ -105,3 +110,34 @@ def random_jax_states(B: int, moves: int, seed: int, pass_prob: float = 0.0):
                          for m in masks], np.int32)
         states, _ = _jit_step(states, jnp.asarray(acts))
     return states
+
+
+def toy_eval_fn(states):
+    """A network-free JAX evaluator whose priors, value and score depend on
+    the position, so root values (and TD targets) vary along a game."""
+    lead = jnp.sum(states.stones.astype(jnp.float32), axis=1) \
+        * states.to_move.astype(jnp.float32)
+    phase = states.hash[:, 0].astype(jnp.float32) * 1e-9
+    logits = jnp.sin(jnp.arange(362, dtype=jnp.float32)[None, :] * 0.37
+                     + lead[:, None] + phase[:, None])
+    return jg.EvalOutput(log_priors=jax.nn.log_softmax(2.0 * logits),
+                         outcome_value=jnp.tanh(0.3 * lead + jnp.sin(phase)),
+                         score_est=2.0 * lead, score_var=jnp.ones_like(lead))
+
+
+def jax_selfplay_games(B: int, T: int, plies: int, seed: int = 1):
+    """(states, buf) of B JAX games after `plies` single-tier self-play
+    steps with `toy_eval_fn`, an n=4/k=2 search and a T-move cap; every move
+    is trainable (force_sel), no raw-policy openings."""
+    cfg = jl.SelfplayConfig(batch_size=B, max_game_len=T, max_raw_policy_moves=0)
+    params = jg.SearchParams(n=4, k=2, max_depth=6)
+    step = jax.jit(functools.partial(jl.selfplay_step, eval_fn=toy_eval_fn,
+                                     params=params, cfg=cfg, selected_tier=True))
+    states = jax.vmap(lambda _: jax_new_state(7.5))(jnp.arange(B))
+    buf = jl.make_game_buffer(B, T)
+    aux = jl.make_aux(jax.random.PRNGKey(seed), B, 0)
+    key = jax.random.PRNGKey(seed + 1)
+    for _ in range(plies):
+        aux = aux._replace(force_sel=jnp.ones((B,), bool))
+        states, buf, aux, key = step(states, buf, aux, key)
+    return states, buf
