@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's self-play paths once on an NVIDIA card.
+"""Drive the PyTorch port's self-play, learning and generation paths once
+on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -71,7 +72,25 @@ fallback):
              finite and summing to 1). The liberty kernel must have been
              launched by this phase; the trunk kernels are not on its path.
 
-Phase 7 prints a {"learn": ...} JSON line of its measurements. Before the
+  8 gen      one generation of rl/loop.py GenerationLoop (the system users
+             run) on config/b12-onegen.json at b12c128btl3 width, bf16,
+             seeded weights, with the cuts of GEN_CUTS (B=128, 128 games of
+             at most 32 moves, selected 32/4 and fast 16/4, eval 16 games at
+             n=16/k=4 of at most 32 moves, 4 BN-refresh passes, 2
+             validation batches, use_seen_state_prob 0.25 so GoExploit
+             restarts happen), SGFs on: self-play with restarts and forks
+             -> harvest -> train -> SWA + BN refresh -> validation -> gating
+             eval -> checkpoint. Checks every played move legal and
+             superko-clean, gen 1, model_0001 and elo_history.txt written,
+             one .stats file and a calibration, a non-empty reuse buffer, at
+             least one fork job flushed, every SGF parsing back into the
+             moves its board played, the eval's wins + losses = its games,
+             the liberty kernel launched; then a second loop on the same
+             directory resumes bitwise (gen, golden, train state, optimizer,
+             generators, replay). Prints the wall time of each part.
+
+Phases 7 and 8 print {"learn": ...} and {"gen": ...} JSON lines of their
+measurements. Before the
 last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
 each input read once and each output written once, over 3.35 TB/s) and the
@@ -80,6 +99,7 @@ nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -90,6 +110,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
@@ -99,6 +120,7 @@ from p3achygo_tpu_torch.constants import NUM_MOVES, PASS_MOVE
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import (
+    is_game_over,
     legal_mask_batch,
     legal_mask_from_libs,
     map_state,
@@ -124,8 +146,15 @@ from p3achygo_tpu_torch.ops.liberties import (
     point_liberties_batch,
     point_liberties_reference,
 )
+from p3achygo_tpu_torch.eval import harness
+from p3achygo_tpu_torch.game.scoring import score as score_boards
+from p3achygo_tpu_torch.rl import loop as rl_loop
 from p3achygo_tpu_torch.rl import slice as rl_slice
+from p3achygo_tpu_torch.rl.config import parse as parse_run_config
+from p3achygo_tpu_torch.rl.loop import GenerationLoop
 from p3achygo_tpu_torch.rl.slice import RLSlice, SliceConfig
+from p3achygo_tpu_torch.selfplay.stats import compute_calibration
+from p3achygo_tpu_torch.sgf import extract_moves, parse_sgf
 from p3achygo_tpu_torch.selfplay.loop import (
     SelfplayConfig,
     final_scores,
@@ -168,6 +197,23 @@ LEARN_B = 128
 LEARN_TRAIN_B = 256
 LEARN_MAX_GAME_LEN = 24
 LEARN_STEPS = 8
+# Phase 8: one generation of rl/loop.py GenerationLoop on config/b12-onegen.json
+# with these cuts (config value -> phase value).
+GEN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
+                          "b12-onegen.json")
+GEN_CUTS = dict(
+    selfplay_batch_size=128, games_first_gen=128, selfplay_max_game_len=32,
+    min_train_selected_n=32, max_train_selected_n=32,
+    min_train_selected_k=4, max_train_selected_k=4,
+    min_train_default_n=16, max_train_default_n=16,
+    min_train_default_k=4, max_train_default_k=4,
+    eval_games=16, eval_n=16, eval_k=4, eval_max_game_len=32,
+    bn_recompute_passes=4, val_batches=2,
+    # GoExploit restarts within the phase (config: 0.0).
+    use_seen_state_prob=0.25)
+# Seed 0's first 128 fork plans hold 3 fork jobs below move 32 (two late
+# forks, one uniform-sample fork), so the fork flush runs within the phase.
+GEN_SEED = 0
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
@@ -898,6 +944,285 @@ def phase_learn(device, smi):
     return launches, learn
 
 
+def gen_config():
+    """config/b12-onegen.json with phase 8's cuts (GEN_CUTS)."""
+    cfg = parse_run_config(GEN_CONFIG)
+    return dataclasses.replace(cfg, **GEN_CUTS)
+
+
+class GenSpies:
+    """Records what phase 8 checks and times, by wrapping the loop's own
+    calls (module functions it calls by name, and its methods): every ply's
+    boards and moves, each harvest, each SGF text, each eval ply and the
+    eval's final winners, and the wall time of each part (host clock after
+    a synchronize)."""
+
+    def __init__(self, loop: GenerationLoop):
+        self.loop = loop
+        self.plies, self.harvests, self.sgfs, self.finals = [], [], [], []
+        self.seconds = {}
+        self.eval_plies = 0
+        self.train_steps = 0
+        self.flushed = 0
+        self.restarts = 0
+        self._undo = []
+
+    def _patch(self, owner, name, wrapper):
+        real = getattr(owner, name)
+        self._undo.append((owner, name, real, name in vars(owner)))
+        setattr(owner, name, wrapper(real))
+
+    def _timed(self, key):
+        def wrap(real):
+            def fn(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds.setdefault(key, []).append(time.perf_counter() - t0)
+                return out
+            return fn
+        return wrap
+
+    def __enter__(self):
+        loop, sp_cfg = self.loop, self.loop.sp_cfg
+
+        def ply(real):
+            def fn(states, buf, aux, *a, **kw):
+                active = ~is_game_over(states)  # the boards the step records
+                out = real(states, buf, aux, *a, **kw)
+                b = torch.arange(states.stones.shape[0], device=states.stones.device)
+                t = states.move_count.long().clamp(max=sp_cfg.max_game_len - 1)
+                self.plies.append((states, active, out[1].move[b, t].long().clone(),
+                                   out[1].pi[b, t].clone(), out[0]))
+                return out
+            return fn
+
+        def harvest(real):
+            def fn(done):
+                idx = np.flatnonzero(done)
+                self.harvests.append((len(self.plies), idx, loop._init_mv.copy(),
+                                      len(self.sgfs)))
+                self._timed("harvest")(real)(done)
+                self.restarts += int((~loop._is_fresh[idx]).sum())
+            return fn
+
+        def sgf(real):
+            def fn(*a, **kw):
+                text = real(*a, **kw)
+                self.sgfs.append(text)
+                return text
+            return fn
+
+        def flush(real):
+            def fn(model):
+                n = real(model)
+                self.flushed += n
+                return n
+            return fn
+
+        def train(real):
+            def fn(*a, **kw):
+                step0 = loop.train_state.step
+                out = real(*a, **kw)
+                self.train_steps += loop.train_state.step - step0
+                return out
+            return fn
+
+        def eval_ply(real):
+            def fn(*a, **kw):
+                self.eval_plies += 1
+                return real(*a, **kw)
+            return fn
+
+        def finish(real):
+            def fn(states, resigned, winner, cand_is_black):
+                res = real(states, resigned, winner, cand_is_black)
+                bs, ws, _ = score_boards(states)
+                final = torch.where(winner != 0, winner.long(),
+                                    torch.where(bs > ws, 1, -1))
+                cand = torch.where(cand_is_black, 1, -1)
+                self.finals.append((res, int((final == cand).sum()),
+                                    int((final == -cand).sum())))
+                return res
+            return fn
+
+        self._patch(rl_loop, "selfplay_step_tiered", ply)
+        self._patch(rl_loop, "game_to_sgf", sgf)
+        self._patch(harness, "_eval_ply", eval_ply)
+        self._patch(harness, "_finish", finish)
+        self._patch(loop, "_harvest", harvest)
+        self._patch(loop.fork, "flush", flush)
+        self._patch(loop.fork, "flush", self._timed("fork_flush"))
+        self._patch(loop, "selfplay_games", self._timed("selfplay"))
+        self._patch(loop, "train_epoch", train)
+        self._patch(loop, "train_epoch", self._timed("train_epoch"))
+        self._patch(loop, "build_candidate", self._timed("bn_refresh"))
+        self._patch(loop, "validate", self._timed("validation"))
+        self._patch(loop, "evaluate_candidate", self._timed("eval"))
+        self._patch(loop, "save_resume", self._timed("checkpoint"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real, own in reversed(self._undo):
+            if own:
+                setattr(owner, name, real)
+            else:
+                delattr(owner, name)
+        return False
+
+    def total(self, key) -> float:
+        return sum(self.seconds.get(key, ()))
+
+
+def check_gen_sgfs(spies: GenSpies, B: int, max_len: int) -> int:
+    """Each SGF the harvests wrote parses back with the port's parser into
+    the moves its board played since its game began, and each file on disk
+    is one of them. Returns the number of games checked.
+
+    Two features of the record format, the JAX package's: rows before a
+    restart's first move are empty records, and a board that reached the
+    length cap goes on playing until its harvest, rewriting its last row,
+    so that row holds the last move played."""
+    log_np = [(prev.to_move.cpu().numpy(), active.cpu().numpy(), move.cpu().numpy())
+              for prev, active, move, _, _ in spies.plies]
+    started = np.zeros(B, np.int64)
+    checked = 0
+    for ply_idx, idx, init_mv, first_sgf in spies.harvests:
+        for i, b in enumerate(idx):
+            played = [(int(c[b]), int(m[b])) for c, a, m in log_np[started[b]:ply_idx] if a[b]]
+            started[b] = ply_idx
+            moves = extract_moves(parse_sgf(spies.sgfs[first_sgf + i]))
+            rows = max(max_len - int(init_mv[b]), 0)
+            if len(played) > rows:
+                played = played[:rows - 1] + played[-1:] if rows else []
+            if moves[int(init_mv[b]):] != played:
+                raise AssertionError(
+                    f"phase 8: board {b}'s SGF (from move {init_mv[b]}: "
+                    f"{moves[int(init_mv[b]):][:8]}..., {len(moves)} rows) != the "
+                    f"{len(played)} moves it played ({played[:8]}...)")
+            checked += 1
+    on_disk = set()
+    for name in os.listdir(spies.loop.sgf_dir):
+        with open(os.path.join(spies.loop.sgf_dir, name)) as f:
+            on_disk.add(f.read())
+    if not on_disk or not on_disk <= set(spies.sgfs):
+        raise AssertionError("phase 8: an SGF on disk is none of the games written")
+    return checked
+
+
+def check_resume(loop: GenerationLoop, cfg, root: str, device):
+    """A second loop on the same directory resumes bitwise: gen, golden,
+    train params and BN statistics, optimizer state, step, generators,
+    sel_mult base and both replay rings."""
+    again = GenerationLoop(cfg, root_dir=root, seed=GEN_SEED, device=device)
+    if not again.try_resume():
+        raise AssertionError("phase 8: try_resume found nothing")
+    same = lambda a, b: a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    ts, ts2 = loop.train_state, again.train_state
+    checks = {
+        "gen": again.gen == loop.gen == 1,
+        "golden": same(again.golden.state_dict(), loop.golden.state_dict()),
+        "params": same(ts2.params, ts.params),
+        "batch_stats": same(ts2.batch_stats, ts.batch_stats),
+        "opt_state": (ts2.opt_state["count"] == ts.opt_state["count"]
+                      and same(ts2.opt_state["trace"], ts.opt_state["trace"])),
+        "step": ts2.step == ts.step,
+        "generator": torch.equal(again.generator.get_state(), loop.generator.get_state()),
+        "np_rng": again._np_rng.bit_generator.state == loop._np_rng.bit_generator.state,
+        "sel_mult_base": again.sel_mult_base == loop.sel_mult_base,
+    }
+    for name in ("replay", "val_replay"):
+        r, r2 = getattr(loop, name), getattr(again, name)
+        n = len(r)
+        checks[name] = ((len(r2), r2.games_added, r2.total_added)
+                        == (n, r.games_added, r.total_added)
+                        and all(np.array_equal(r2._data[f][:n], a[:n]) for f, a in r._data.items()))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 8: resume is not bitwise for {bad}")
+    return again
+
+
+def phase_gen(device, smi):
+    """Phase 8 (see the module docstring). Returns (liberty launches of the
+    generation, the {"gen": ...} measurements)."""
+    t_phase = time.perf_counter()
+    cfg = gen_config()
+    B = cfg.selfplay_batch_size
+    with tempfile.TemporaryDirectory() as root:
+        loop = GenerationLoop(cfg, root_dir=root, seed=GEN_SEED, device=device)
+        loop.sgf_dir = os.path.join(root, "sgf")
+        torch.cuda.reset_peak_memory_stats(device)
+        for k in KERNELS:
+            k.launches = 0
+        with GenSpies(loop) as spies:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = loop.run_generation()
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        launches = point_liberties_batch.launches
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+        for ply, check in enumerate(spies.plies):
+            check_ply(*check, f"phase 8 self-play ply {ply}")
+        games = check_gen_sgfs(spies, B, cfg.selfplay_max_game_len)
+        stats = os.listdir(loop.stats_dir)
+        res, wins, losses = spies.finals[-1]
+        checks = {
+            "gen == 1": info["gen"] == loop.gen == 1,
+            "model_0001": os.path.isdir(os.path.join(root, "model_0001")),
+            "elo_history.txt": os.path.exists(os.path.join(root, "elo_history.txt")),
+            "one .stats file": len(stats) == 1 and stats[0].endswith(".stats"),
+            "calibration": (compute_calibration(loop.stats_dir, 0) is not None
+                            and os.path.exists(os.path.join(root, "sel_mult_calib.txt"))),
+            "reuse buffer": len(loop.reuse) > 0,
+            "fork flush": spies.flushed > 0,
+            "eval wins + losses": (res.cand_wins == wins
+                                   and wins + losses == res.num_games == cfg.eval_games),
+            "liberty kernel launched": launches > 0,
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"phase 8: failed checks {bad}")
+        restarts = spies.restarts
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check_resume(loop, cfg, root, device)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+
+    cuts = ", ".join(f"{k}={v}" for k, v in GEN_CUTS.items())
+    parts = {
+        "selfplay_s": spies.total("selfplay"), "selfplay_plies": len(spies.plies),
+        "harvests": len(spies.harvests), "harvest_ms": 1e3 * spies.total("harvest"),
+        "fork_flush_ms": 1e3 * spies.total("fork_flush"), "forks_flushed": spies.flushed,
+        "train_epoch_s": spies.total("train_epoch"), "train_steps": spies.train_steps,
+        "bn_refresh_s": spies.total("bn_refresh"), "validation_s": spies.total("validation"),
+        "eval_s": spies.total("eval"), "eval_plies": spies.eval_plies,
+        "checkpoint_s": spies.total("checkpoint"), "resume_s": resume_s,
+    }
+    log(f"phase 8: GenerationLoop(config/b12-onegen.json, bf16) with cuts {cuts}: "
+        f"{games} games harvested and checked ({restarts} GoExploit/fork restarts), "
+        f"every move legal and superko-clean, every SGF parses back into its moves; "
+        f"eval {res.cand_wins:.0f} wins + {losses} losses of {res.num_games}, elo "
+        f"{res.elo:.1f}; replay {len(loop.replay)} rows, val {len(loop.val_replay)}, reuse "
+        f"buffer {len(loop.reuse)}; resume bitwise")
+    log("phase 8: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                for k, v in parts.items())
+        + f"; generation {gen_s:.2f} s; liberty launches {launches}; peak memory "
+        f"{peak_gb:.2f} GB; phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
+    gen = {"config": "config/b12-onegen.json", "cuts": GEN_CUTS, "seed": GEN_SEED,
+           "generation_s": gen_s, **parts, "games_checked": games, "restarts": restarts,
+           "eval_elo": res.elo, "eval_cand_wins": res.cand_wins,
+           "replay_rows": len(loop.replay), "liberty_launches": launches,
+           "peak_memory_gb": peak_gb, "phase_wall_s": time.perf_counter() - t_phase,
+           "card": smi}
+    return launches, gen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -962,6 +1287,9 @@ def main() -> int:
     learn_launches, learn = phase_learn(device, smi)
     print(json.dumps({"learn": learn}), flush=True)
 
+    gen_launches, gen_info = phase_gen(device, smi)
+    print(json.dumps({"gen": gen_info}), flush=True)
+
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
@@ -976,6 +1304,7 @@ def main() -> int:
         "launches": launches["point_liberties_batch"],
         "launches_from": "phase 4 (serve_fold self-play)",
         "launches_phase7": learn_launches,
+        "launches_phase8": gen_launches,
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],

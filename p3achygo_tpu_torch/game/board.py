@@ -246,6 +246,27 @@ def new_state(batch_size: int, komi: Union[float, torch.Tensor] = DEFAULT_KOMI,
     )
 
 
+def from_stones(stones, komi: Union[float, torch.Tensor] = DEFAULT_KOMI,
+                to_move: Union[int, torch.Tensor] = BLACK, device="cuda",
+                history: int = MAX_HISTORY) -> GoState:
+    """B positions from raw stone arrays [B, 361] (position only: chains
+    recomputed, history row 0 = the position's hash, no last moves).
+    `komi` and `to_move` are scalars or [B] (board.py:228-242 of the JAX
+    package, vmapped)."""
+    dev = torch.device(device)
+    stones = torch.as_tensor(stones).to(device=dev, dtype=torch.int8)
+    B = stones.shape[0]
+    st = new_state(B, komi, device=dev, history=history)
+    h = compute_hash(stones)
+    hist = torch.zeros_like(st.history)
+    if history > 0:
+        hist[:, 0] = h
+    color = torch.as_tensor(to_move, device=dev).to(torch.int8)
+    return st._replace(stones=stones, chain_id=compute_chains(stones), hash=h,
+                       history=hist,
+                       to_move=torch.broadcast_to(color, (B,)).clone())
+
+
 class PlaySim(NamedTuple):
     stones: torch.Tensor  # int8[B, 361] after placement + captures
     chain_id: torch.Tensor  # int32[B, 361]

@@ -118,7 +118,10 @@ class SearchParams:
     visit_group: int = 1
 
 
-def _check_supported(params: SearchParams) -> None:
+def check_supported(params: SearchParams) -> None:
+    """Raise NotImplementedError naming every option of `params` the port
+    does not have; search_root calls it, and callers that bind a search
+    ahead of time call it then."""
     unported = {
         "use_mcgs": params.use_mcgs,
         "bias_lambda > 0": params.bias_lambda > 0,
@@ -367,7 +370,7 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
     returns the result. `gumbel_noise` / `sample_gumbel` ([B, 362], standard
     Gumbel) replace the draws from `generator`.
     """
-    _check_supported(params)
+    check_supported(params)
     B = states.stones.shape[0]
     dev = states.stones.device
     b = torch.arange(B, device=dev)

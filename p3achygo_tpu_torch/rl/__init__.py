@@ -1,1 +1,1 @@
-"""The actor-learner slice: self-play -> replay -> train."""
+"""The RL loops: the actor-learner slice and the generation loop."""

@@ -10,8 +10,7 @@ is the single-tier step (one search width for the batch, the whole step a
 selected or a fast one), which rl/slice.py drives. Finished games are
 scored by `final_scores` and replaced by `reset_finished`.
 
-Ported for `tier_groups=1` without the value-bias table, GoExploit restart
-states or the `no_raw` / `force_sel` restart options.
+Ported for `tier_groups=1` without the value-bias table.
 
 Every random draw comes from the `generator` argument, or from a
 `StepDraws` / `SelfplayDraws` built beforehand, so tests can inject the JAX
@@ -461,15 +460,30 @@ def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                    generator: Optional[torch.Generator] = None,
                    max_raw_policy_moves: int = 30,
                    reuse_tree: Optional[Tree] = None,
-                   uniform: Optional[torch.Tensor] = None):
-    """Replace finished boards (`done` [B]) with fresh games and clear their
-    records (buffer rows in place). The new raw-policy opening length is
-    floor(U * (max_raw + 1)) with U from `generator` or `uniform` [B]
-    (loop.py:564-570 of the JAX package). Returns (states, buf, aux) plus
-    the reset tree when `reuse_tree` is given."""
+                   uniform: Optional[torch.Tensor] = None,
+                   init_states: Optional[GoState] = None,
+                   use_init: Optional[torch.Tensor] = None,
+                   no_raw: Optional[torch.Tensor] = None,
+                   force_sel: Optional[torch.Tensor] = None):
+    """Replace finished boards (`done` [B]) with fresh games, or with
+    restart positions, and clear their records (buffer rows in place)
+    (loop.py:524-575 of the JAX package; GetInitState,
+    self_play_thread.cc:203-254).
+
+    `komi` is a scalar or [B]. `init_states` / `use_init` [B] supply
+    per-board restart positions (GoExploit reuse, book, handicap). The new
+    raw-policy opening length is floor(U * (max_raw + 1)) with U from
+    `generator` or `uniform` [B], max_raw decaying with the start move
+    number at a half-life of 40 moves (self_play_thread.cc:362-366);
+    `no_raw` [B] boards get none, and `force_sel` [B] forces a full search
+    and a trainable first move (FirstMoveBehavior kPlay / kForceFullSearch,
+    reuse_buffer.h:19-26). Returns (states, buf, aux) plus the reset tree
+    when `reuse_tree` is given."""
     B = states.stones.shape[0]
     dev = states.stones.device
     repl = new_state(B, komi, device=dev, history=states.history.shape[1])
+    if init_states is not None:
+        repl = select_state(done & use_init, init_states, repl)
     states = select_state(done, repl, states)
     for arr in buf:
         arr[done] = 0
@@ -478,11 +492,16 @@ def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     if uniform is None:
         uniform = torch.rand(B, generator=generator, device=dev)
     new_raw = torch.floor(uniform * (max_raw + 1).float()).to(torch.int32)
+    if no_raw is not None:
+        new_raw = torch.where(no_raw, torch.zeros_like(new_raw), new_raw)
+    new_force = aux.force_sel
+    if force_sel is not None:
+        new_force = torch.where(done, force_sel, aux.force_sel)
     aux = SelfplayAux(
         raw_until=torch.where(done, states.move_count + new_raw, aux.raw_until),
         down_bad_count=torch.where(done, torch.zeros_like(aux.down_bad_count),
                                    aux.down_bad_count),
-        force_sel=aux.force_sel,
+        force_sel=new_force,
     )
     if reuse_tree is not None:
         empty = make_tree(B, reuse_tree.n.shape[1], dev)

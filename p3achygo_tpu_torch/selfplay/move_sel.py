@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # MoveSelFlags (move_sel_manager.h:11-17).
@@ -44,6 +45,36 @@ def default_calibration() -> SelMultCalibration:
         pre_kld_p05=0.0001, pre_kld_p70=0.310, pre_kld_p95=1.166,
         nn_mcts_p70=0.1463, nn_mcts_p99=0.6500,
         expected_std_by_n=torch.zeros(NUM_STD_BINS, dtype=torch.float32))
+
+
+def calibration_from_dict(calib: dict) -> SelMultCalibration:
+    """A SelMultCalibration from a flat {'field.pct': value} dict (the
+    format the calibration loop writes; main.cc ParseCalibrationFile
+    :71-121). Missing keys keep the defaults; values round to float32, as
+    the JAX package stores them."""
+    d = default_calibration()
+    g = lambda key, dflt: float(np.float32(calib.get(key, dflt)))
+    expected = np.zeros((NUM_STD_BINS,), np.float32)
+    for key, val in calib.items():
+        if key.startswith("expected_std.n"):
+            try:
+                bin_n = int(key[len("expected_std.n"):])
+            except ValueError:
+                continue
+            if 0 <= bin_n <= STD_BIN_CAP and bin_n % 5 == 0:
+                expected[bin_n // 5] = val
+    return SelMultCalibration(
+        std_adj_p01=g("v_outcome_stddev_adj.p01", d.std_adj_p01),
+        std_adj_p50=g("v_outcome_stddev_adj.p50", d.std_adj_p50),
+        std_adj_p80=g("v_outcome_stddev_adj.p80", d.std_adj_p80),
+        std_adj_p99=g("v_outcome_stddev_adj.p99", d.std_adj_p99),
+        pre_kld_p05=g("pre_kld.p05", d.pre_kld_p05),
+        pre_kld_p70=g("pre_kld.p70", d.pre_kld_p70),
+        pre_kld_p95=g("pre_kld.p95", d.pre_kld_p95),
+        nn_mcts_p70=g("nn_mcts_diff.p70", d.nn_mcts_p70),
+        nn_mcts_p99=g("nn_mcts_diff.p99", d.nn_mcts_p99),
+        expected_std_by_n=torch.from_numpy(expected),
+    )
 
 
 class MoveSelResult(NamedTuple):

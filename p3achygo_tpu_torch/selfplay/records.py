@@ -179,3 +179,17 @@ def finalize_game(
         ex.weight[:] = 0.5 + 0.5 * kld[tr_idx].astype(np.float64) / avg_kld
     return ex
 
+
+
+def game_to_sgf(to_move: np.ndarray, move: np.ndarray, num_moves: int,
+                black_score: float, white_score: float, komi: float,
+                by_resign: bool = False) -> str:
+    """Finished-game move list -> SGF text (SgfRecorder parity)."""
+    from p3achygo_tpu_torch.sgf import result_string, serialize_game
+
+    L = int(num_moves)
+    moves = [(int(to_move[t]), int(move[t])) for t in range(L)]
+    winner = BLACK if black_score > white_score else WHITE
+    return serialize_game(
+        moves, komi=komi,
+        result=result_string(black_score, white_score, by_resign, winner))

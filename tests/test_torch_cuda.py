@@ -13,14 +13,18 @@ import torch
 from chip_smoke import KERNEL_TOL, random_boards, rel_err, seeded_model
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
-from p3achygo_tpu_torch.game.board import legal_mask_batch, map_state
+from p3achygo_tpu_torch.game.board import from_stones, legal_mask_batch, map_state
 from p3achygo_tpu_torch.game.scoring import compute_pass_alive
 from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
 from p3achygo_tpu_torch.models.losses import LossCoeffs
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
 from p3achygo_tpu_torch.ops import liberties as tl
 from p3achygo_tpu_torch.ops import trunk as tk
-from p3achygo_tpu_torch.selfplay.loop import final_scores
+from p3achygo_tpu_torch.mcts.tree import make_tree
+from p3achygo_tpu_torch.rl.config import RunConfig
+from p3achygo_tpu_torch.rl.loop import GenerationLoop
+from p3achygo_tpu_torch.selfplay.fork import ForkEvaluator, _Position
+from p3achygo_tpu_torch.selfplay.loop import final_scores, make_aux, make_game_buffer, reset_finished
 from p3achygo_tpu_torch.train.optimizer import sgd_nesterov
 from p3achygo_tpu_torch.train.step import create_train_state, make_train_step
 
@@ -286,3 +290,89 @@ def test_float32_train_step_on_card_matches_cpu(boards, device):
         assert l_card[k] == pytest.approx(l_cpu[k], rel=1e-3, abs=1e-6), k
     for k in d_cpu:
         torch.testing.assert_close(d_card[k], d_cpu[k], rtol=1e-3, atol=1e-6, msg=k)
+
+
+def test_from_stones_on_card_equals_cpu(boards):
+    sub = map_state(lambda t: t[:128], boards)
+    card = from_stones(sub.stones, sub.komi, sub.to_move, device=sub.stones.device)
+    cpu = from_stones(sub.stones.cpu(), sub.komi.cpu(), sub.to_move.cpu(), device="cpu")
+    for f in card._fields:
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert torch.equal(card.chain_id, sub.chain_id)
+
+
+def test_reset_finished_with_restarts_on_card_equals_cpu(boards, device):
+    """reset_finished with restart states, per-board komi, no_raw and
+    force_sel, the same uniforms on both devices."""
+    B = 64
+    gen = torch.Generator().manual_seed(2)
+    sub = map_state(lambda t: t[:B], boards)
+    init = from_stones(boards.stones[B:2 * B], boards.komi[B:2 * B], 1, device=device)._replace(
+        move_count=torch.randint(0, 200, (B,), generator=gen, dtype=torch.int32).to(device))
+    masks = [torch.rand(B, generator=gen).to(device) < p for p in (0.7, 0.6, 0.4, 0.4)]
+    uniform = torch.rand(B, generator=gen).to(device)
+    komi = torch.rand(B, generator=gen).to(device) * 20
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        mv = lambda t: t.to(dev)
+        buf = make_game_buffer(B, 12, dev)
+        buf.move.fill_(3)
+        aux = make_aux(B, raw_until=torch.full((B,), 5), device=dev)
+        done, use, no_raw, force = map(mv, masks)
+        out[dev.type] = reset_finished(
+            map_state(mv, sub), buf, aux, done, mv(komi), max_raw_policy_moves=30,
+            reuse_tree=make_tree(B, 6, dev), uniform=mv(uniform), init_states=map_state(mv, init),
+            use_init=use, no_raw=no_raw, force_sel=force)
+    for part, a, b in zip(("state", "buf", "aux", "tree"), out["cuda"], out["cpu"]):
+        for f in a._fields:
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f"{part}.{f}"
+
+
+def test_fork_evaluator_on_card_equals_cpu(boards, device):
+    """ForkEvaluator.evaluate / play with the same b8c64 weights on the card
+    and on the CPU: legality and moved positions exact, network outputs
+    to 1e-3 (float32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stones = boards.stones[:40].cpu().numpy()
+    rng = np.random.default_rng(0)
+    positions = [_Position(stones=s, last_moves=rng.integers(-1, 361, 5).astype(np.int32),
+                           to_move=int(rng.choice([1, -1])), komi=7.5) for s in stones]
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        m = seeded_model("b8c64", dev, torch.Generator().manual_seed(3))
+        ev = ForkEvaluator(batch=16, device=dev)
+        legal, probs, value, score = ev.evaluate(m, positions)
+        moves = [int(rng.choice(np.flatnonzero(l))) for l in legal] if dev == device \
+            else out["moves"]
+        out["moves"] = moves
+        out[dev.type] = (legal, probs, value, score, ev.play(positions, moves))
+    (lc, pc, vc, sc, playc), (l0, p0, v0, s0, play0) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(lc, l0)
+    for a, b in ((pc, p0), (vc, v0), (sc, s0)):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+    for a, b in zip(playc, play0):
+        np.testing.assert_array_equal(a.stones, b.stones)
+        assert a.to_move == b.to_move
+
+
+def test_generation_loop_on_card_runs_and_resumes(device, tmp_path):
+    """One generation of the tiny configuration on the card, then a second
+    loop resumes it bitwise."""
+    cfg = RunConfig(model_config="tiny", num_generations=1, games_first_gen=4,
+                    selfplay_batch_size=8, train_batch_size=16, selfplay_max_game_len=12,
+                    eval_max_game_len=12, eval_games=4, eval_n=4, eval_k=2,
+                    min_train_selected_n=4, max_train_selected_n=4, min_train_selected_k=2,
+                    max_train_selected_k=2, min_train_default_n=4, max_train_default_n=4,
+                    min_train_default_k=2, max_train_default_k=2, bn_recompute_passes=1,
+                    val_batches=1, replay_capacity=1 << 12, use_seen_state_prob=0.25)
+    loop = GenerationLoop(cfg, root_dir=str(tmp_path), device=device)
+    before = tl.point_liberties_batch.launches
+    assert loop.run_generation()["gen"] == 1
+    assert tl.point_liberties_batch.launches > before
+    again = GenerationLoop(cfg, root_dir=str(tmp_path), device=device)
+    assert again.try_resume() and again.gen == 1
+    for a, b in ((again.golden.state_dict(), loop.golden.state_dict()),
+                 (again.train_state.params, loop.train_state.params)):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert torch.equal(again.generator.get_state(), loop.generator.get_state())

@@ -2,6 +2,7 @@
 CPU: each defaults to device="cuda", and where there is no card a call that
 leaves the device out fails instead of quietly building CPU tensors."""
 import inspect
+import tempfile
 
 import numpy as np
 import pytest
@@ -9,12 +10,15 @@ import torch
 
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.data.replay import _FIELDS
-from p3achygo_tpu_torch.game.board import new_state
+from p3achygo_tpu_torch.game.board import from_stones, new_state
+from p3achygo_tpu_torch.game.dsl import board_from_dsl
 from p3achygo_tpu_torch.mcts.gumbel import SearchParams
 from p3achygo_tpu_torch.mcts.tree import make_tree
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.heads import score_bins
 from p3achygo_tpu_torch.models.model import build_model
+from p3achygo_tpu_torch.rl.config import RunConfig
+from p3achygo_tpu_torch.rl.loop import GenerationLoop
 from p3achygo_tpu_torch.rl.slice import RLSlice, SliceConfig
 from p3achygo_tpu_torch.selfplay.loop import SelfplayConfig, make_aux, make_game_buffer
 
@@ -29,6 +33,13 @@ def _slice(**kw):
                                search=SearchParams(n=2, k=2),
                                selfplay=SelfplayConfig(max_game_len=4)), **kw)
 
+def _generation_loop(**kw):
+    with tempfile.TemporaryDirectory() as root:
+        return GenerationLoop(RunConfig(model_config="tiny", selfplay_batch_size=2,
+                                        selfplay_max_game_len=4, replay_capacity=64),
+                              root_dir=root, **kw)
+
+
 CONSTRUCTORS = {
     "new_state": (new_state, lambda **kw: new_state(2, **kw)),
     "make_tree": (make_tree, lambda **kw: make_tree(2, 4, **kw)),
@@ -38,6 +49,9 @@ CONSTRUCTORS = {
     "score_bins": (score_bins, lambda **kw: score_bins(**kw)),
     "prepare_batch": (prepare_batch, lambda **kw: prepare_batch(_rows(), **kw)),
     "RLSlice": (RLSlice, _slice),
+    "from_stones": (from_stones, lambda **kw: from_stones(np.zeros((2, 361), np.int8), **kw)),
+    "board_from_dsl": (board_from_dsl, lambda **kw: board_from_dsl("x o", **kw)),
+    "GenerationLoop": (GenerationLoop, _generation_loop),
 }
 
 
@@ -46,7 +60,7 @@ def _a_tensor(out) -> torch.Tensor:
         return out
     if isinstance(out, torch.nn.Module):
         return next(out.parameters())
-    if isinstance(out, RLSlice):
+    if isinstance(out, (RLSlice, GenerationLoop)):
         return out.states.stones
     return next(t for t in out if isinstance(t, torch.Tensor))
 

@@ -1,8 +1,8 @@
 """The port's Benson scoring (p3achygo_tpu_torch/game/scoring.py and
 selfplay/loop.py final_scores) held against the JAX package on the same
-positions: the Benson positions of tests/test_board.py (built with the
-JAX DSL), a few more with pass-alive groups and dead stones, and 16
-random played-out boards. Labels, pass-alive maps and ownership must be
+positions: the Benson positions of tests/test_board.py (built with each
+package's own DSL), a few more with pass-alive groups and dead stones,
+and 16 random played-out boards. Labels, pass-alive maps and ownership must be
 equal, and the scores equal as float32."""
 import jax
 import jax.numpy as jnp
@@ -14,8 +14,9 @@ from p3achygo_tpu.game import scoring as js
 from p3achygo_tpu.game.dsl import board_from_dsl
 from p3achygo_tpu.selfplay.loop import final_scores as jax_final_scores
 from p3achygo_tpu_torch.constants import BLACK, WHITE
+from p3achygo_tpu_torch.game import dsl as tdsl
 from p3achygo_tpu_torch.game import scoring as ts
-from p3achygo_tpu_torch.game.board import compute_chains
+from p3achygo_tpu_torch.game.board import compute_chains, map_state
 from p3achygo_tpu_torch.selfplay.loop import final_scores
 from torch_parity import random_jax_states, state_to_torch
 
@@ -86,7 +87,10 @@ def boards():
     rand = random_jax_states(16, 120, seed=4, pass_prob=0.1)
     both = jax.tree_util.tree_map(lambda a, b: jnp.concatenate([a, b]), benson, rand)
     oracle = jax.tree_util.tree_map(np.asarray, _jax_oracle(both))
-    return both, state_to_torch(both), oracle
+    t_benson = [tdsl.board_from_dsl(d, komi=7.5, to_move=c, device="cpu")
+                for d, c in BENSON_BOARDS]
+    t_both = map_state(lambda *xs: torch.cat(xs), *t_benson, state_to_torch(rand))
+    return both, t_both, oracle
 
 
 @pytest.mark.parametrize("mask", sorted(MASKS))

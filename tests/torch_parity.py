@@ -141,3 +141,26 @@ def jax_selfplay_games(B: int, T: int, plies: int, seed: int = 1):
         aux = aux._replace(force_sel=jnp.ones((B,), bool))
         states, buf, aux, key = step(states, buf, aux, key)
     return states, buf
+
+
+def tiny_pair(seed: int):
+    """(flax `tiny` model, its variables as jnp arrays, the port's `tiny`
+    model in float32 with the same weights). The weights are the port's
+    seeded init carried to flax (no JAX init to compile), sharpened as
+    tests/test_torch_selfplay.py does: a random tiny net's policy is near
+    uniform and its score head sits on an end bin."""
+    from p3achygo_tpu.models import build_model as jax_build
+    from p3achygo_tpu.models import get_config as jax_get_config
+    from p3achygo_tpu_torch.bridge import load_flax_variables, state_dict_to_flax
+    from p3achygo_tpu_torch.models.config import get_config
+    from p3achygo_tpu_torch.models.model import build_model, init_params
+
+    tm = build_model(get_config("tiny"), device="cpu")
+    init_params(tm, torch.Generator().manual_seed(seed))
+    np_vars = state_dict_to_flax(tm.state_dict())
+    np_vars["params"]["policy_head"]["output_moves"]["kernel"] *= 30.0
+    np_vars["params"]["value_head"]["outcome_q_output"]["kernel"] *= 10.0
+    np_vars["params"]["value_head"]["score_pre_s"] *= 0.02
+    load_flax_variables(tm, np_vars)
+    return (jax_build(jax_get_config("tiny")),
+            jax.tree_util.tree_map(jnp.asarray, np_vars), tm)
