@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's self-play, learning and generation paths once
-on an NVIDIA card.
+"""Drive the PyTorch port's self-play, learning, generation and search
+paths once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -89,8 +89,40 @@ fallback):
              directory resumes bitwise (gen, golden, train state, optimizer,
              generators, replay). Prints the wall time of each part.
 
-Phases 7 and 8 print {"learn": ...} and {"gen": ...} JSON lines of their
-measurements. Before the
+  9 search   the search extras, about a minute and a half:
+             (a) one generation of GenerationLoop on
+             config/r4-b8c64-curve.json at b8c64 width, bf16, seeded
+             weights, with its own terminal_mode "exact", lr_schedule,
+             selected 32/4 and default 16/4, phase 8's cuts (SEARCH_CUTS:
+             B=128, 128 games of at most 32 moves, eval 16 games of at most
+             32 moves at n=16/k=4, 4 BN-refresh passes, 2 validation
+             batches) and two smoke choices no committed config sets
+             together with it (SEARCH_SWITCHES: early stopping, the bias
+             cache at lambda 0.35 / alpha 0.8); a quarter of the boards
+             starts from a settled endgame (settled_boards), since a
+             seeded network ranks pass last and would never finish a game
+             within 32 moves. Checks every move legal and superko-clean,
+             gen 1 and model_0001 written, the eval's wins + losses = its
+             games, every board's visits within visit_budget, a round
+             stopped early, a bias slot filled, a leaf scored exactly, the
+             liberty kernel launched; prints each part's wall time and the
+             host syncs per searched move (mcts.gumbel.COUNTERS).
+             (b) run_eval of 16 games of at most 32 moves between two
+             seeded b8c64 bf16 networks, tree reuse on: a PUCT player at
+             n=32 (max_depth 4: its visits run down one line) against a
+             Gumbel player at n=32/k=4 with MCGS and the integral utility. Checks wins + losses = games and every move
+             legal; prints the MCGS hits.
+             (c) one search_root with MCGS, the bias cache (filled by a
+             first search), early stopping, exact terminals and the
+             integral utility at B=64 (random-play and settled boards, half
+             one pass from the end), float32 weights and one Gumbel draw,
+             on the card (the liberty kernel launched) and on the CPU:
+             fails if fewer than 90% of the boards agree on the move and
+             the root visit counts (the card sums floats in another order;
+             exact parity is the CPU tests').
+
+Phases 7, 8 and 9 print {"learn": ...}, {"gen": ...} and {"search": ...}
+JSON lines of their measurements. Before the
 last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
 each input read once and each output written once, over 3.35 TB/s) and the
@@ -120,17 +152,22 @@ from p3achygo_tpu_torch.constants import NUM_MOVES, PASS_MOVE
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import (
+    from_stones,
     is_game_over,
     legal_mask_batch,
     legal_mask_from_libs,
     map_state,
     min_labels,
     new_state,
+    select_state,
     step,
     superko_violation,
 )
 from p3achygo_tpu_torch.game.scoring import pass_alive_for_color
-from p3achygo_tpu_torch.mcts.gumbel import SearchParams, make_eval_fn
+from p3achygo_tpu_torch.eval.player_config import PlayerSearchConfig
+from p3achygo_tpu_torch.mcts import gumbel as search
+from p3achygo_tpu_torch.mcts.bias import bias_probe, local_pattern_keys, make_bias_table
+from p3achygo_tpu_torch.mcts.gumbel import SearchParams, make_eval_fn, visit_budget
 from p3achygo_tpu_torch.mcts.tree import make_tree
 from p3achygo_tpu_torch.models.blocks import BatchNorm
 from p3achygo_tpu_torch.models.config import get_config
@@ -214,6 +251,41 @@ GEN_CUTS = dict(
 # Seed 0's first 128 fork plans hold 3 fork jobs below move 32 (two late
 # forks, one uniform-sample fork), so the fork flush runs within the phase.
 GEN_SEED = 0
+# Phase 9: the search extras. (a) one generation of config/r4-b8c64-curve.json
+# (terminal_mode "exact", its lr_schedule, selected 32/4 and default 16/4 stay)
+# with phase 8's cuts (config value -> phase value) ...
+SEARCH_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
+                             "r4-b8c64-curve.json")
+SEARCH_CUTS = dict(
+    selfplay_batch_size=128, games_first_gen=128, selfplay_max_game_len=32,
+    eval_games=16, min_eval_games=16, eval_n=16, min_eval_n=16, eval_k=4,
+    eval_max_game_len=32, bn_recompute_passes=4, val_batches=2)
+# ... and two smoke choices that no committed config sets together with it:
+# early stopping (as config/ci-tiny.json sets it) and the value-bias cache.
+SEARCH_SWITCHES = dict(early_stopping_enabled=True, bias_cache_lambda=0.35,
+                       bias_cache_alpha=0.8)
+SEARCH_SEED = 0
+# A quarter of the self-play boards starts from a settled endgame (two
+# living groups with two eyes each: two legal moves and a pass), so games
+# end by passes within the cut and their leaves are scored exactly; a
+# seeded network ranks pass last everywhere else.
+SEARCH_SETTLED_SHARE = 4
+# (b) run_eval: a PUCT player against a Gumbel player with MCGS and the
+# integral utility, two seeded b8c64 bf16 networks, tree reuse on.
+SEARCH_MODEL = "b8c64"
+EXTRAS_EVAL = dict(num_games=16, max_game_len=32)
+# A seeded network values positions alike, so PUCT's visits run down one
+# line and simulation i descends i levels, each a scratch-board step of
+# ~8 ms of host time on an H100 machine: max_depth 4 (the config default is
+# 32) bounds the descent.
+EXTRAS_PUCT = dict(search_type="puct", n=32, max_depth=4)
+EXTRAS_GUMBEL = dict(n=32, k=4, use_mcgs=True, score_utility_mode="integral")
+# (c) one search_root with every Gumbel extra on, card against CPU.
+EXTRAS_B = 64
+EXTRAS_PARAMS = dict(n=32, k=4, max_depth=24, visit_group=4, use_mcgs=True,
+                     bias_lambda=0.35, bias_alpha=0.8, early_stopping=True,
+                     terminal_mode="exact", score_utility_mode="integral")
+EXTRAS_AGREE_MIN = 0.9
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
@@ -270,20 +342,26 @@ def wall_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 50) -> float:
+def device_ms(fn, calls: int = 50, attempts: int = 3) -> float:
     """Device time per call: the summed duration of the CUDA kernels that
-    `calls` calls ran, from the profiler's kernel records."""
+    `calls` calls ran, from the profiler's kernel records. A profile that
+    records no kernel (CUPTI drops one now and then) is taken again; after
+    `attempts` empty ones the time comes from CUDA events around the calls
+    instead, host gaps included, and a line says so."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / calls / 1000.0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1000.0
+    log(f"device_ms: {attempts} profiles recorded no device time; CUDA-event time per "
+        f"call used instead")
+    return event_ms(lambda: [fn() for _ in range(calls)]) / calls
 
 
 def event_ms(fn) -> float:
@@ -339,10 +417,11 @@ def phase_kernel(device, gen):
     return boards, max_err, times
 
 
-def seeded_model(name: str, device, gen: torch.Generator):
-    """float32 model of config `name` with random weights from `gen` (a CPU
-    generator) and BN statistics perturbed so no fold is an identity."""
-    model = build_model(get_config(name), torch.float32, device)
+def seeded_model(name: str, device, gen: torch.Generator, dtype=torch.float32):
+    """Model of config `name` (float32 unless `dtype`) with random weights
+    from `gen` (a CPU generator) and BN statistics perturbed so no fold is
+    an identity."""
+    model = build_model(get_config(name), dtype, device)
     init_params(model, gen)
     with torch.no_grad():
         for mod in model.modules():
@@ -617,9 +696,9 @@ def kernel_row(kern, w, x):
     return row
 
 
-def check_ply(prev, active, move, pi, after, what: str) -> None:
+def check_moves(prev, active, move, after, what: str) -> None:
     """Every active board's move was legal and superko-clean (and placed its
-    stone), its pi_improved finite and summing to 1."""
+    stone)."""
     b = torch.arange(prev.stones.shape[0], device=prev.stones.device)
     libs = point_liberties_reference(prev.stones, prev.chain_id)
     ok_legal = legal_mask_from_libs(prev, libs)[b, move]
@@ -629,6 +708,12 @@ def check_ply(prev, active, move, pi, after, what: str) -> None:
     bad = active & ~(ok_legal & ok_superko & (~on_board | placed))
     if bool(bad.any()):
         raise AssertionError(f"{what}: illegal move on boards {b[bad].tolist()[:8]}")
+
+
+def check_ply(prev, active, move, pi, after, what: str) -> None:
+    """check_moves, and every active board's pi_improved finite and summing
+    to 1."""
+    check_moves(prev, active, move, after, what)
     pis = pi[active]
     if not bool(torch.isfinite(pis).all()):
         raise AssertionError(f"{what}: pi_improved not finite")
@@ -1223,6 +1308,296 @@ def phase_gen(device, smi):
     return launches, gen
 
 
+def settled_boards(B: int, device, to_move=1):
+    """B copies of a settled endgame built with from_stones: Black fills
+    columns 0-9 and White columns 10-18, each group with two one-point
+    eyes, so the side to move has two legal moves (filling an own eye) and
+    the pass."""
+    s = np.zeros((19, 19), np.int8)
+    s[:, :10] = 1
+    s[:, 10:] = -1
+    for r, c in ((3, 3), (15, 3), (3, 15), (15, 15)):
+        s[r, c] = 0
+    return from_stones(np.repeat(s.reshape(1, -1), B, axis=0), 7.5, to_move,
+                       device=device)
+
+
+def search_config():
+    """config/r4-b8c64-curve.json with phase 9's cuts and switches."""
+    return dataclasses.replace(parse_run_config(SEARCH_CONFIG), **SEARCH_CUTS,
+                               **SEARCH_SWITCHES)
+
+
+def syncs_per_search(counts: dict) -> float:
+    return sum(counts["syncs"].values()) / max(counts["searches"], 1)
+
+
+def search_generation(device):
+    """Phase 9 (a): one GenerationLoop generation with every self-play
+    extra the configuration turns on. Returns its measurements."""
+    cfg = search_config()
+    B = cfg.selfplay_batch_size
+    with tempfile.TemporaryDirectory() as root:
+        loop = GenerationLoop(cfg, root_dir=root, seed=SEARCH_SEED, device=device)
+        settled = torch.arange(B, device=device) % SEARCH_SETTLED_SHARE == 0
+        loop.states = select_state(settled, settled_boards(B, device), loop.states)
+        loop._bind_selfplay()
+        params_sel, params_fast, _ = loop._sp
+        budget = {"selected": visit_budget(params_sel), "fast": visit_budget(params_fast)}
+        visits, used, sp_counts = [], [], {}
+        b = torch.arange(B, device=device)
+
+        def step_spy(real):
+            def fn(states, buf, aux, *a, **kw):
+                active = ~is_game_over(states)
+                out = real(states, buf, aux, *a, **kw)
+                t = states.move_count.long().clamp(max=cfg.selfplay_max_game_len - 1)
+                visits.append(torch.where(active, out[1].visits[b, t], 0).max())
+                used.append(out[-1].used.sum())
+                return out
+            return fn
+
+        def selfplay_spy(real):
+            def fn(*a, **kw):
+                n = real(*a, **kw)
+                sp_counts.update(search.COUNTERS.snapshot())
+                return n
+            return fn
+
+        for k in KERNELS:
+            k.launches = 0
+        search.COUNTERS.reset()
+        with GenSpies(loop) as spies:
+            spies._patch(rl_loop, "selfplay_step_tiered", step_spy)
+            spies._patch(loop, "selfplay_games", selfplay_spy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = loop.run_generation()
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        launches = point_liberties_batch.launches
+        counts = search.COUNTERS.snapshot()
+        for ply, check in enumerate(spies.plies):
+            check_ply(*check, f"phase 9 self-play ply {ply}")
+        res, wins, losses = spies.finals[-1]
+        max_visits = int(torch.stack(visits).max())
+        max_used = int(torch.stack(used).max())
+        checks = {
+            "gen == 1": info["gen"] == loop.gen == 1,
+            "model_0001": os.path.isdir(os.path.join(root, "model_0001")),
+            "eval wins + losses": (res.cand_wins == wins
+                                   and wins + losses == res.num_games == cfg.eval_games),
+            "visits within budget": max_visits <= max(budget.values()),
+            "a round stopped early": sp_counts.get("early_stops", 0) > 0,
+            "a bias slot filled": max_used > 0,
+            "a leaf scored exactly": sp_counts["exact_scored"] > 0,
+            "liberty kernel launched": launches > 0,
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"phase 9 (a): failed checks {bad}")
+    plies = len(spies.plies)
+    return {
+        "config": "config/r4-b8c64-curve.json", "cuts": SEARCH_CUTS,
+        "smoke_switches": SEARCH_SWITCHES, "seed": SEARCH_SEED, "generation_s": gen_s,
+        "selfplay_s": spies.total("selfplay"), "selfplay_plies": plies,
+        "harvests": len(spies.harvests), "harvest_ms": 1e3 * spies.total("harvest"),
+        "train_epoch_s": spies.total("train_epoch"), "bn_refresh_s": spies.total("bn_refresh"),
+        "validation_s": spies.total("validation"), "eval_s": spies.total("eval"),
+        "eval_plies": spies.eval_plies, "checkpoint_s": spies.total("checkpoint"),
+        "eval_cand_wins": res.cand_wins, "eval_games": res.num_games,
+        "visit_budget": budget, "max_visits": max_visits, "max_bias_slots_used": max_used,
+        "selfplay_searches": sp_counts["searches"], "selfplay_syncs": sp_counts["syncs"],
+        "selfplay_syncs_per_search": syncs_per_search(sp_counts),
+        "selfplay_syncs_per_ply": sum(sp_counts["syncs"].values()) / max(plies, 1),
+        "early_stops": sp_counts.get("early_stops", 0),
+        "exact_scored_leaves": sp_counts["exact_scored"],
+        "syncs_with_eval": counts["syncs"], "liberty_launches": launches,
+    }
+
+
+def search_eval(device):
+    """Phase 9 (b): run_eval of a PUCT player against a Gumbel player with
+    MCGS and the integral utility. Returns its measurements."""
+    gen_cpu = torch.Generator().manual_seed(SEARCH_SEED + 5)
+    cand = seeded_model(SEARCH_MODEL, device, gen_cpu, torch.bfloat16)
+    cur = seeded_model(SEARCH_MODEL, device, gen_cpu, torch.bfloat16)
+    cfg = harness.EvalConfig(cand=PlayerSearchConfig(**EXTRAS_PUCT),
+                             cur=PlayerSearchConfig(**EXTRAS_GUMBEL), **EXTRAS_EVAL)
+    plies, finals, search_s = [], [], {"puct": [], "gumbel": []}
+    real_ply, real_finish = harness._eval_ply, harness._finish
+    real_puct, real_gumbel = harness.search_root_puct, harness.search_root
+
+    def timed(real, key):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            search_s[key].append(time.perf_counter() - t0)
+            return out
+        return fn
+
+    def ply(generator, states, resigned, *a, **kw):
+        out = real_ply(generator, states, resigned, *a, **kw)
+        plies.append((states, out[0]))
+        return out
+
+    def finish(states, resigned, winner, cand_is_black):
+        res = real_finish(states, resigned, winner, cand_is_black)
+        bs, ws, _ = score_boards(states)
+        final = torch.where(winner != 0, winner.long(), torch.where(bs > ws, 1, -1))
+        cand = torch.where(cand_is_black, 1, -1)
+        finals.append((res, int((final == cand).sum()), int((final == -cand).sum())))
+        return res
+
+    for k in KERNELS:
+        k.launches = 0
+    search.COUNTERS.reset()
+    harness._eval_ply, harness._finish = ply, finish
+    harness.search_root_puct = timed(real_puct, "puct")
+    harness.search_root = timed(real_gumbel, "gumbel")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = harness.run_eval(make_eval_fn(cand), make_eval_fn(cur), cfg,
+                               generator=torch.Generator(device=device).manual_seed(3),
+                               device=device)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        harness._eval_ply, harness._finish = real_ply, real_finish
+        harness.search_root_puct, harness.search_root = real_puct, real_gumbel
+    counts = search.COUNTERS.snapshot()
+    for i, (prev, after) in enumerate(plies):
+        moved = after.move_count > prev.move_count
+        check_moves(prev, moved, after.last_moves[:, -1].long(), after,
+                    f"phase 9 (b) eval ply {i}")
+    _, wins, losses = finals[-1]
+    if not (res.cand_wins == wins and wins + losses == res.num_games == cfg.num_games):
+        raise AssertionError(f"phase 9 (b): {wins} wins + {losses} losses != {cfg.num_games}")
+    if point_liberties_batch.launches <= 0:
+        raise AssertionError("phase 9 (b): the liberty kernel was not launched")
+    return {"games": res.num_games, "plies": len(plies), "eval_s": eval_s,
+            "cand_wins": res.cand_wins, "by_resign": res.by_resign,
+            "mcgs_hits": counts.get("mcgs_hits", 0), "searches": counts["searches"],
+            "syncs": counts["syncs"], "syncs_per_search": syncs_per_search(counts),
+            "puct": EXTRAS_PUCT, "gumbel": EXTRAS_GUMBEL,
+            "puct_ms_per_move": 1e3 * statistics.median(search_s["puct"]),
+            "gumbel_mcgs_ms_per_move": 1e3 * statistics.median(search_s["gumbel"]),
+            "boards_per_search": cfg.num_games // 2,
+            "liberty_launches": point_liberties_batch.launches}
+
+
+def search_card_vs_cpu(device):
+    """Phase 9 (c): one search_root with every Gumbel extra on, float32
+    weights and one Gumbel draw, on the card and on the CPU; a first search
+    on the card fills the bias table both then read. Returns the share of
+    boards whose move and root visit counts agree, and timings."""
+    gen = torch.Generator(device=device).manual_seed(SEARCH_SEED + 9)
+    # Boards from random play and settled endgames, half of each one pass
+    # from the end, so leaves reach finished games.
+    lane = torch.arange(EXTRAS_B, device=device)
+    boards = select_state(lane % 4 < 2, settled_boards(EXTRAS_B, device),
+                          random_boards(EXTRAS_B, 120, device, gen))
+    boards = boards._replace(consecutive_passes=torch.where(
+        lane % 2 == 0, torch.ones_like(boards.consecutive_passes), boards.consecutive_passes))
+    model = seeded_model(SEARCH_MODEL, device, torch.Generator().manual_seed(SEARCH_SEED + 11))
+    model_cpu = copy.deepcopy(model).cpu()
+    params = SearchParams(**EXTRAS_PARAMS)
+    noise = search.gumbel((EXTRAS_B, NUM_MOVES), torch.Generator().manual_seed(1), "cpu")
+    _, table = search.search_root(boards, make_eval_fn(model), params,
+                                  gumbel_noise=(noise * 0.5).to(device),
+                                  bias_table=make_bias_table(EXTRAS_B, 1024, device))
+    out = {}
+    for name, dev, net in (("card", device, model), ("cpu", torch.device("cpu"), model_cpu)):
+        st = map_state(lambda t: t.to(dev), boards)
+        tab = type(table)(*(t.to(dev) for t in table))
+        search.COUNTERS.reset()
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res, _ = search.search_root(st, make_eval_fn(net), params, gumbel_noise=noise.to(dev),
+                                    bias_table=tab)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t0, search.COUNTERS.snapshot(),
+                     point_liberties_batch.launches)
+    (rc, card_s, counts, launches), (rp, cpu_s, _, _) = out["card"], out["cpu"]
+    if launches <= 0:
+        raise AssertionError("phase 9 (c): the liberty kernel was not launched")
+    # The bias branch alone on a leaf batch of the first round's width
+    # (B * k boards): liberties, pattern keys, probe, correction.
+    leaves = map_state(lambda t: t.repeat_interleave(params.k, dim=0), boards)
+    legal = legal_mask_batch(leaves)
+
+    def bias_branch():
+        libs = point_liberties_batch(leaves.stones, leaves.chain_id)
+        ill = (leaves.stones == 0) & ~legal[:, :PASS_MOVE]
+        h0, h1, valid = local_pattern_keys(leaves.stones, libs == 1, ill,
+                                           leaves.last_moves, leaves.to_move)
+        num, den, _, _ = bias_probe(table, params.k, h0, h1, valid)
+        return torch.where(den > 0, params.bias_lambda * num / den.clamp(min=1e-9), 0.0)
+    bias_ms = wall_ms(bias_branch)
+    same = ((rc.mcts_move.cpu() == rp.mcts_move)
+            & (rc.root_child_visits.cpu() == rp.root_child_visits).all(dim=1))
+    share = float(same.float().mean())
+    if share < EXTRAS_AGREE_MIN:
+        raise AssertionError(f"phase 9 (c): card and CPU agree on {share:.3f} of the "
+                             f"boards (< {EXTRAS_AGREE_MIN})")
+    for f in ("root_value", "pi_improved"):
+        if not bool(torch.isfinite(getattr(rc, f)).all()):
+            raise AssertionError(f"phase 9 (c): {f} not finite")
+    return {"boards": EXTRAS_B, "params": EXTRAS_PARAMS, "agree_share": share,
+            "max_abs_root_value_diff": float((rc.root_value.cpu() - rp.root_value).abs().max()),
+            "card_s": card_s, "cpu_s": cpu_s, "card_counts": counts,
+            "bias_branch_ms_per_leaf_batch": bias_ms, "liberty_launches": launches,
+            "bias_leaf_batch": EXTRAS_B * params.k,
+            "bias_slots_used": int(table.used.sum())}
+
+
+def phase_search(device, smi):
+    """Phase 9 (see the module docstring). Returns (liberty launches of
+    (a), the {"search": ...} measurements)."""
+    t_phase = time.perf_counter()
+    gen = search_generation(device)
+    launches = gen["liberty_launches"]
+    log(f"phase 9 (a): GenerationLoop(config/r4-b8c64-curve.json, bf16) with cuts "
+        + ", ".join(f"{k}={v}" for k, v in SEARCH_CUTS.items())
+        + " and smoke switches " + ", ".join(f"{k}={v}" for k, v in SEARCH_SWITCHES.items())
+        + f": every move legal and superko-clean; max visits {gen['max_visits']} <= budget "
+        f"{gen['visit_budget']}; {gen['early_stops']} early stops; up to "
+        f"{gen['max_bias_slots_used']} bias slots in use; {gen['exact_scored_leaves']} leaves "
+        f"scored exactly; eval {gen['eval_cand_wins']:.0f} wins of {gen['eval_games']}")
+    log(f"phase 9 (a): generation {gen['generation_s']:.2f} s: selfplay "
+        f"{gen['selfplay_s']:.3f} s ({gen['selfplay_plies']} plies), harvest "
+        f"{gen['harvest_ms']:.1f} ms, train {gen['train_epoch_s']:.3f} s, bn refresh "
+        f"{gen['bn_refresh_s']:.3f} s, validation {gen['validation_s']:.3f} s, eval "
+        f"{gen['eval_s']:.3f} s ({gen['eval_plies']} plies), checkpoint "
+        f"{gen['checkpoint_s']:.3f} s; host syncs {gen['selfplay_syncs']} in "
+        f"{gen['selfplay_searches']} self-play searches: "
+        f"{gen['selfplay_syncs_per_search']:.2f} per searched move, "
+        f"{gen['selfplay_syncs_per_ply']:.2f} per ply; liberty launches {launches} ({smi})")
+    ev = search_eval(device)
+    log(f"phase 9 (b): run_eval PUCT n={EXTRAS_PUCT['n']} vs Gumbel "
+        f"n={EXTRAS_GUMBEL['n']}/k={EXTRAS_GUMBEL['k']} with MCGS and the integral "
+        f"utility, {SEARCH_MODEL} bf16, tree reuse: {ev['games']} games, {ev['plies']} plies, every "
+        f"move legal and superko-clean, {ev['cand_wins']:.0f} PUCT wins; MCGS hits "
+        f"{ev['mcgs_hits']}; {ev['syncs_per_search']:.2f} host syncs per searched move; "
+        f"PUCT {ev['puct_ms_per_move']:.1f} ms and Gumbel+MCGS "
+        f"{ev['gumbel_mcgs_ms_per_move']:.1f} ms per move of {ev['boards_per_search']} "
+        f"boards (medians); {ev['eval_s']:.2f} s ({smi})")
+    cmp = search_card_vs_cpu(device)
+    log(f"phase 9 (c): search_root with MCGS, bias, early stopping, exact terminals and "
+        f"the integral utility at B={EXTRAS_B}, float32: card and CPU agree on move and "
+        f"root visits for {cmp['agree_share']:.3f} of the boards (max |d root_value| "
+        f"{cmp['max_abs_root_value_diff']:.2e}); card {cmp['card_s']:.2f} s, CPU "
+        f"{cmp['cpu_s']:.2f} s; bias branch {cmp['bias_branch_ms_per_leaf_batch']:.3f} ms "
+        f"per leaf batch of {cmp['bias_leaf_batch']}; phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches, {"generation": gen, "eval": ev, "card_vs_cpu": cmp,
+                      "phase_wall_s": time.perf_counter() - t_phase, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1290,6 +1665,9 @@ def main() -> int:
     gen_launches, gen_info = phase_gen(device, smi)
     print(json.dumps({"gen": gen_info}), flush=True)
 
+    search_launches, search_info = phase_search(device, smi)
+    print(json.dumps({"search": search_info}), flush=True)
+
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
@@ -1305,6 +1683,7 @@ def main() -> int:
         "launches_from": "phase 4 (serve_fold self-play)",
         "launches_phase7": learn_launches,
         "launches_phase8": gen_launches,
+        "launches_phase9": search_launches,
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],

@@ -12,11 +12,15 @@ All games run in lockstep on one device:
   here: `EvalRunner.run(cand, cur)` takes the two networks.
 - Per-player search configs (player_config.h:21-109). When the two
   players' configs are identical the whole batch searches as one call;
-  otherwise each half runs its active player's search. A PUCT player
-  raises NotImplementedError (the PUCT search is not ported).
+  otherwise each half runs its active player's search, Gumbel
+  (mcts/gumbel.py, with MCGS or the integral score utility if its config
+  asks) or PUCT (mcts/puct.py).
 - Per-player tree reuse across plies (eval.cc:125-141, :330-358): each
   board keeps one tree per COLOR; after every move BOTH trees advance to
-  the played move's child by subtree compaction.
+  the played move's child by subtree compaction. PUCT players carry no
+  tree (search_root_puct has no init_tree path), as in the JAX package;
+  under MCGS a compaction keeps what the JAX one keeps, the nodes whose
+  first allocation parent is kept (tree._compact).
 - Resign at root OUTCOME value < -0.92 (kResignThreshold eval.cc:28,
   checked as VOutcome(player_tree), eval.cc:278-283).
 - Result: winrate -> relative Elo +- 95% CI (eval/main.cc:455-470).
@@ -44,6 +48,7 @@ from p3achygo_tpu_torch.game.board import (
 )
 from p3achygo_tpu_torch.game.scoring import score as score_board
 from p3achygo_tpu_torch.mcts.gumbel import EvalFn, EvalOutput, SearchParams, make_eval_fn, search_root
+from p3achygo_tpu_torch.mcts.puct import search_root_puct
 from p3achygo_tpu_torch.mcts.tree import compact_subtree, make_tree
 
 
@@ -123,7 +128,8 @@ def _half_search(generator, states_h, fn_h, pcfg: PlayerSearchConfig,
                  tree_h, rcap: int):
     """Run one half's active player's search -> (result, work tree)."""
     if pcfg.search_type == "puct":
-        raise NotImplementedError("the PUCT search is not ported")
+        return search_root_puct(states_h, fn_h, pcfg.to_puct_params(),
+                                generator=generator), None
     sp = pcfg.to_search_params()
     if tree_h is not None:
         return search_root(states_h, fn_h, sp, generator=generator,

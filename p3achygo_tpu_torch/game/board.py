@@ -359,6 +359,14 @@ def in_history(state: GoState, h: torch.Tensor) -> torch.Tensor:
     return eq.any(dim=1)
 
 
+def strip_history(state: GoState) -> GoState:
+    """Zero-capacity-history view for in-tree search scratch boards
+    (board.py:335-350 of the JAX package): the tree search never checks
+    positional superko on simulated moves, so the [B, H, 2] ring is
+    dropped, and `step` then skips its superko bookkeeping."""
+    return state._replace(history=state.history[:, :0])
+
+
 def step(state: GoState, action: torch.Tensor) -> Tuple[GoState, torch.Tensor]:
     """Play `action` [B] (0..360 point, 361 pass) for each board's to_move.
 

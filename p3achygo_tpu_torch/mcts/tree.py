@@ -1,6 +1,5 @@
-"""Array-of-nodes search tree, batched over boards (port of
-p3achygo_tpu/mcts/tree.py without the MCGS table and the value-bias
-fields).
+"""Array-of-nodes search tree, batched over boards, and the MCGS
+transposition table (port of p3achygo_tpu/mcts/tree.py).
 
 Replaces the reference's pointer tree (cc/mcts/tree.h TreeNode) with
 preallocated [B, N, ...] tensors; each simulation allocates at most one
@@ -12,11 +11,18 @@ Child statistics are kept edge-indexed (`edge_n`/`edge_w`, [B, N, 362]) as
 in the JAX tree, and every node stores its board at creation so descents
 never step a board. Field dtypes are the JAX tree's (int16 children and
 edge counts, bf16 log-priors): the rounding of bf16 priors is part of
-search semantics. The hash lanes are int64 holding uint32 values.
+search semantics. The hash lanes and bias keys are int64 holding uint32
+values.
+
+Colliding writes: where several lanes write one slot (the MCGS insert,
+duplicate MCGS children, the bias fields of grouped followers), the JAX
+package's scatter keeps the last lane's value, in lane order, as XLA:CPU
+does. `scatter_last` makes that choice explicit, so the result does not
+depend on the order in which a CUDA scatter happens to apply writes.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -72,6 +78,31 @@ class Tree(NamedTuple):
     s_cpass: torch.Tensor  # int8[B, N]
     s_hash: torch.Tensor  # int64[B, N, 2]
     s_legal: torch.Tensor  # bool[B, N, 362]
+    # Value-bias cache bookkeeping (mcts/bias.py): the node's pattern slot
+    # and keys and its last contributed terms, so that accumulation
+    # telescopes across searches under tree reuse.
+    bias_slot: torch.Tensor  # int32[B, N] pattern table slot (-1 none)
+    bias_k0: torch.Tensor  # int64[B, N] (uint32 value)
+    bias_k1: torch.Tensor  # int64[B, N] (uint32 value)
+    bias_obs_last: torch.Tensor  # f32[B, N] last contributed error term
+    bias_w_last: torch.Tensor  # f32[B, N] last contributed weight term
+
+
+def scatter_last(flat: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None) -> None:
+    """In place `flat[idx] = vals` over lanes W (idx int64[W] into dim 0 of
+    `flat`, vals [W, ...]); lanes with `keep` False write nothing. Where
+    several lanes hit one index the highest lane wins, and every lane
+    writing an index writes the winner's value, so the write order cannot
+    matter."""
+    lane = torch.arange(idx.shape[0], device=idx.device)
+    if keep is not None:
+        lane = torch.where(keep, lane, torch.full_like(lane, -1))
+    win = torch.full((flat.shape[0],), -1, dtype=torch.long, device=idx.device)
+    win.scatter_reduce_(0, idx, lane, "amax")
+    w = win[idx]
+    has = (w >= 0).reshape((-1,) + (1,) * (vals.dim() - 1))
+    flat[idx] = torch.where(has, vals[w.clamp(min=0)].to(flat.dtype), flat[idx])
 
 
 def make_tree(batch_size: int, max_nodes: int, device="cuda") -> Tree:
@@ -108,6 +139,11 @@ def make_tree(batch_size: int, max_nodes: int, device="cuda") -> Tree:
         s_cpass=z(B, N, dtype=torch.int8),
         s_hash=z(B, N, 2, dtype=torch.int64),
         s_legal=z(B, N, NUM_MOVES, dtype=torch.bool),
+        bias_slot=f(-1, B, N, dtype=torch.int32),
+        bias_k0=z(B, N, dtype=torch.int64),
+        bias_k1=z(B, N, dtype=torch.int64),
+        bias_obs_last=z(B, N),
+        bias_w_last=z(B, N),
     )
 
 
@@ -144,6 +180,92 @@ def q_of_children(tree: Tree, node: torch.Tensor) -> torch.Tensor:
 def child_visits(tree: Tree, node: torch.Tensor) -> torch.Tensor:
     """[B, 362] visit counts of one node's children per board."""
     return q_nvis_of_children(tree, node[:, None])[1][:, 0]
+
+
+# ---------------------------------------------------------------------------
+# MCGS transposition table (McgsNodeTable, node_table.h:78-120): nodes keyed
+# by (zobrist hash, color to move, is_terminal) so transposed positions share
+# one node. A per-board open-addressed table probed by gathers.
+#
+# Deviations (the JAX package's, documented there): inserts are deferred to
+# the end of each sweep, so two lanes reaching the same new position in one
+# sweep create duplicate nodes; backprop stays incremental.
+# ---------------------------------------------------------------------------
+
+MCGS_PROBES = 4
+_U32 = 0xFFFFFFFF
+
+
+def mul_u32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for int64 `a` holding uint32 values and a uint32
+    constant or tensor `c`, without int64 overflow (16-bit halves of c)."""
+    lo = (a * (c & 0xFFFF)) & _U32
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+class McgsTable(NamedTuple):
+    """Open-addressed per-board node table [B, S] (S a power of two)."""
+
+    key0: torch.Tensor  # int64[B, S] zobrist lane 0 (uint32 value)
+    key1: torch.Tensor  # int64[B, S] zobrist lane 1
+    meta: torch.Tensor  # int8[B, S]: 0 empty, else color * (1 + is_terminal)
+    node: torch.Tensor  # int32[B, S] node slot index
+
+
+def make_mcgs_table(batch_size: int, size: int, device="cuda") -> McgsTable:
+    if size & (size - 1):
+        raise ValueError(f"table size must be a power of two, got {size}")
+    dev = torch.device(device)
+    z = lambda dtype: torch.zeros((batch_size, size), dtype=dtype, device=dev)
+    return McgsTable(key0=z(torch.int64), key1=z(torch.int64), meta=z(torch.int8),
+                     node=z(torch.int32))
+
+
+def mcgs_meta(color: torch.Tensor, is_terminal: torch.Tensor) -> torch.Tensor:
+    """Key tag: color in {1,-1} x (1 + terminal) -> {1,-1,2,-2}; 0 = empty."""
+    return (color.to(torch.int8) * (1 + is_terminal.to(torch.int8))).to(torch.int8)
+
+
+def _mcgs_slots(h0: torch.Tensor, h1: torch.Tensor, size: int) -> torch.Tensor:
+    """[W, P] linear probe sequence from the 2-lane hash."""
+    base = h0 ^ mul_u32(h1, 2654435761)
+    offs = torch.arange(MCGS_PROBES, device=h0.device)[None, :]
+    return (base[:, None] + offs) & (size - 1)
+
+
+def mcgs_probe(table: McgsTable, k_r: int, h0: torch.Tensor, h1: torch.Tensor,
+               meta_q: torch.Tensor):
+    """Lookup (hash, meta) for W = B * k_r lanes (lanes b-major) ->
+    (hit bool[W], node int64[W], ins_slot int64[W], has_empty bool[W]);
+    ins_slot is the first empty probed slot, for a later insert."""
+    S = table.key0.shape[1]
+    slots = _mcgs_slots(h0, h1, S)  # [W, P]
+    bw = (torch.arange(h0.shape[0], device=h0.device) // k_r)[:, None]
+    g_meta = table.meta[bw, slots]
+    hit_p = ((g_meta == meta_q[:, None]) & (g_meta != 0)
+             & (table.key0[bw, slots] == h0[:, None])
+             & (table.key1[bw, slots] == h1[:, None]))
+    first = lambda m: m & (m.long().cumsum(dim=1) == 1)
+    hit = hit_p.any(dim=1)
+    node = torch.where(first(hit_p), table.node[bw, slots].long(), 0).sum(dim=1)
+    empty_p = g_meta == 0
+    ins_slot = torch.where(first(empty_p), slots, 0).sum(dim=1)
+    return hit, node, ins_slot, empty_p.any(dim=1)
+
+
+def mcgs_insert(table: McgsTable, k_r: int, slot: torch.Tensor, h0: torch.Tensor,
+                h1: torch.Tensor, meta: torch.Tensor, node: torch.Tensor,
+                do: torch.Tensor) -> McgsTable:
+    """Insert W lane entries in place; `do`=False lanes are dropped. Lanes
+    colliding on a slot keep the last lane's entry (scatter_last)."""
+    B, S = table.key0.shape
+    bw = torch.arange(slot.shape[0], device=slot.device) // k_r
+    flat = bw * S + slot.long().clamp(0, S - 1)
+    for arr, val in ((table.key0, h0), (table.key1, h1), (table.meta, meta),
+                     (table.node, node)):
+        scatter_last(arr.view(-1), flat, val, do)
+    return table
 
 
 def welford_m3_delta(q, v_old, n_new, m2_old, dvar):
@@ -235,15 +357,16 @@ def _compact(tree: Tree, new_root: torch.Tensor, capacity: int) -> Tree:
     action_rows = rows(tree.parent_action)
     compact_reach = rows(reachable.to(torch.int32)) > 0
 
-    # Rebuild children from (parent_new, action) of rows 1..C-1.
+    # Rebuild children from (parent_new, action) of rows 1..C-1. As in the
+    # JAX one-hot rebuild, an edge that several kept nodes claim (MCGS
+    # duplicates of one sweep) reads the sum of their row indices.
     is_child = compact_reach & (torch.arange(C, device=dev)[None] > 0)
-    children = torch.full((B, C * NUM_MOVES + 1), NO_CHILD, dtype=tree.children.dtype,
-                          device=dev)
+    ids = torch.zeros((B, C * NUM_MOVES + 1), dtype=torch.long, device=dev)
     flat = torch.where(is_child, parent_new * NUM_MOVES + action_rows.long(),
                        torch.full_like(parent_new, C * NUM_MOVES))
-    children.scatter_(1, flat, torch.arange(C, device=dev, dtype=children.dtype
-                                            ).expand(B, C).clone())
-    children = children[:, :C * NUM_MOVES].reshape(B, C, NUM_MOVES)
+    ids.scatter_add_(1, flat, torch.arange(C, device=dev).expand(B, C))
+    ids = ids[:, :C * NUM_MOVES].reshape(B, C, NUM_MOVES)
+    children = torch.where(ids > 0, ids, NO_CHILD).to(tree.children.dtype)
 
     return Tree(
         n=rows(tree.n), w=rows(tree.w), w_outcome=rows(tree.w_outcome),
@@ -267,4 +390,8 @@ def _compact(tree: Tree, new_root: torch.Tensor, capacity: int) -> Tree:
         s_last5=rows(tree.s_last5), s_ko=rows(tree.s_ko),
         s_cpass=rows(tree.s_cpass), s_hash=rows(tree.s_hash),
         s_legal=rows(tree.s_legal),
+        # rows without a source read slot -1, not 0
+        bias_slot=torch.where(has, rows(tree.bias_slot), -1).to(torch.int32),
+        bias_k0=rows(tree.bias_k0), bias_k1=rows(tree.bias_k1),
+        bias_obs_last=rows(tree.bias_obs_last), bias_w_last=rows(tree.bias_w_last),
     )

@@ -4,8 +4,10 @@
 
 --role both (the default) runs the single-process combined loop. The
 distributed roles (actor, learner) need the store bus and workers, which
-are not ported: asking for one is an error. --device picks the device the
-loop runs on (the card unless the caller asks for the CPU).
+are not ported: asking for one is an error. Every search option of a run
+configuration runs (early stopping, exact terminal scoring, the value-bias
+cache). --device picks the device the loop runs on (the card unless the
+caller asks for the CPU).
 """
 from __future__ import annotations
 

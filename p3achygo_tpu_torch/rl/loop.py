@@ -41,7 +41,8 @@ from p3achygo_tpu_torch.data.replay import ReplayBuffer
 from p3achygo_tpu_torch.eval.harness import EvalConfig, EvalRunner
 from p3achygo_tpu_torch.game.board import from_stones, map_state, new_state
 from p3achygo_tpu_torch.game.scoring import refresh_pass_alive
-from p3achygo_tpu_torch.mcts.gumbel import SearchParams, check_supported, make_eval_fn
+from p3achygo_tpu_torch.mcts.gumbel import SearchParams, make_eval_fn
+from p3achygo_tpu_torch.mcts.bias import make_bias_table
 from p3achygo_tpu_torch.mcts.tree import make_tree
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.losses import LossCoeffs, compute_losses
@@ -161,6 +162,10 @@ class GenerationLoop:
         self.reuse_capacity = max_n + 2 if self.sp_cfg.tree_reuse else 0
         self.tree = (make_tree(B, self.reuse_capacity, dev)
                      if self.sp_cfg.tree_reuse else None)
+        # Value-bias cache (bias_cache.h; off by default like the
+        # reference, selfplay/main.cc:58), 1024 slots per board.
+        self.bias = (make_bias_table(B, 1024, dev) if cfg.bias_cache_lambda > 0
+                     else None)
         self.sgf_dir: Optional[str] = None
         self._sp = None
         self._eval_n = None
@@ -171,8 +176,7 @@ class GenerationLoop:
     def _bind_selfplay(self):
         """The two tiers' SearchParams at this generation's n/k and the
         golden's evaluator (selfplay_step_tiered: a random quarter of the
-        batch runs the selected tier; self_play_thread.cc:527-611). A search
-        option the port does not have raises NotImplementedError here."""
+        batch runs the selected tier; self_play_thread.cc:527-611)."""
         cfg = self.cfg
         n_s, k_s = gumbel_params_for_gen(cfg, self.gen, selected=True)
         n_f, k_f = gumbel_params_for_gen(cfg, self.gen, selected=False)
@@ -184,8 +188,6 @@ class GenerationLoop:
                       terminal_mode=cfg.terminal_mode)
         params_sel = SearchParams(n=n_s, k=k_s, **common)
         params_fast = SearchParams(n=n_f, k=k_f, **common)
-        check_supported(params_sel)
-        check_supported(params_fast)
         self._sp = (params_sel, params_fast, make_eval_fn(self.golden))
 
     def selfplay_games(self, num_games: int, max_plies: int = 100000) -> int:
@@ -202,11 +204,8 @@ class GenerationLoop:
                 self.states, self.buf, self.aux, eval_fn, params_sel, params_fast,
                 self.sp_cfg, generator=self.generator, reuse_tree=self.tree,
                 reuse_capacity=self.reuse_capacity, calib=self.calib,
-                sel_mult_base=self.sel_mult_base)
-            if self.tree is not None:
-                self.states, self.buf, self.aux, self.tree = out
-            else:
-                self.states, self.buf, self.aux = out
+                sel_mult_base=self.sel_mult_base, bias_table=self.bias)
+            self._unpack(out)
             plies += 1
             # Pass-alive checkpoint poll (self_play_thread.cc:701-705 +
             # board.cc:587-590), amortized over 8 moves.
@@ -303,11 +302,18 @@ class GenerationLoop:
             komi_arr, generator=self.generator,
             max_raw_policy_moves=self.sp_cfg.max_raw_policy_moves,
             reuse_tree=self.tree, init_states=init_states, use_init=use_init,
-            no_raw=no_raw, force_sel=force_sel)
+            no_raw=no_raw, force_sel=force_sel, bias_table=self.bias)
+        self._unpack(out)
+
+    def _unpack(self, out):
+        """Store the (states, buf, aux[, tree][, bias]) a step or a reset
+        returns."""
+        self.states, self.buf, self.aux = out[:3]
+        rest = list(out[3:])
         if self.tree is not None:
-            self.states, self.buf, self.aux, self.tree = out
-        else:
-            self.states, self.buf, self.aux = out
+            self.tree = rest.pop(0)
+        if self.bias is not None:
+            self.bias = rest.pop(0)
 
     # Free-handicap placement (board.cc:479-480 kHandicapStones), flat idx.
     _HANDICAP_STONES = (15 * 19 + 3, 3 * 19 + 15, 3 * 19 + 3, 15 * 19 + 15)
@@ -560,7 +566,10 @@ class GenerationLoop:
     # train_sp_eval.py:213-215): the full train state, golden, device
     # generator and replay rings land on disk after every generation, and
     # `try_resume` picks the run back up from there. In-flight self-play
-    # games at crash time are lost, as the reference's thread games are.
+    # games at crash time are lost, as the reference's thread games are,
+    # and with them the bias table, which holds their per-game knowledge:
+    # as in JAX (whose resume template has no bias entry), a resumed loop
+    # starts from an empty table.
     def save_resume(self):
         ts = self.train_state
         save_named(self.root, "live", {

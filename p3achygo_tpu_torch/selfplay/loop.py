@@ -10,7 +10,8 @@ is the single-tier step (one search width for the batch, the whole step a
 selected or a fast one), which rl/slice.py drives. Finished games are
 scored by `final_scores` and replaced by `reset_finished`.
 
-Ported for `tier_groups=1` without the value-bias table.
+Ported for `tier_groups=1`. The value-bias table (mcts/bias.py) rides
+along the tiered step and `reset_finished` when one is given.
 
 Every random draw comes from the `generator` argument, or from a
 `StepDraws` / `SelfplayDraws` built beforehand, so tests can inject the JAX
@@ -47,6 +48,7 @@ from p3achygo_tpu_torch.mcts.gumbel import (
     root_pre_stats,
     search_root,
 )
+from p3achygo_tpu_torch.mcts.bias import BiasTable, make_bias_table
 from p3achygo_tpu_torch.mcts.tree import Tree, compact_subtree, make_tree
 from p3achygo_tpu_torch.selfplay.move_sel import compute_move_sel, default_calibration
 
@@ -371,14 +373,18 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                          reuse_tree: Optional[Tree] = None,
                          reuse_capacity: int = 0, calib=None,
                          sel_mult_base=None,
-                         draws: Optional[StepDraws] = None):
+                         draws: Optional[StepDraws] = None,
+                         bias_table: Optional[BiasTable] = None):
     """One lockstep move with per-board playout-cap randomization
     (selfplay/loop.py:364-512 of the JAX package): a uniformly random subset
     of round(B * trainable_move_prob) boards (force_sel boards first) runs
     the selected search, the rest the fast one, each at its own width.
+    Each tier searches with its boards' rows of `bias_table` when its
+    params have bias_lambda > 0.
 
     Returns (states, buf, aux, next_tree) with `reuse_tree`, else
-    (states, buf, aux)."""
+    (states, buf, aux); with a bias table in use, the updated table is
+    appended."""
     B = states.stones.shape[0]
     dev = states.stones.device
     b_sel, _ = tier_sizes(B, cfg)
@@ -397,14 +403,20 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     def run_tier(idx, params, noise, sample, raw):
         take = lambda x: x[idx]
         st = map_state(take, states)
+        use_bias = bias_table is not None and params.bias_lambda > 0
+        bt = map_state(take, bias_table) if use_bias else None
         if reuse_tree is not None:
-            res, work = search_root(st, eval_fn, params, tau=take(tau),
-                                    init_tree=map_state(take, reuse_tree),
-                                    reuse_capacity=reuse_capacity,
-                                    gumbel_noise=noise, sample_gumbel=sample)
+            out = search_root(st, eval_fn, params, tau=take(tau),
+                              init_tree=map_state(take, reuse_tree),
+                              reuse_capacity=reuse_capacity,
+                              gumbel_noise=noise, sample_gumbel=sample,
+                              bias_table=bt)
+            res, work, bt = out if use_bias else (*out, None)
         else:
-            res = search_root(st, eval_fn, params, tau=take(tau),
-                              gumbel_noise=noise, sample_gumbel=sample)
+            out = search_root(st, eval_fn, params, tau=take(tau),
+                              gumbel_noise=noise, sample_gumbel=sample,
+                              bias_table=bt)
+            res, bt = out if use_bias else (out, None)
             work = None
         move, sampling_raw, over = _choose_move(st, res, take(aux.raw_until), raw)
         if work is not None:
@@ -413,12 +425,13 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
         else:
             ntree = None
             nn_q, nn_unc = take(pre.nn_q), take(pre.nn_uncertainty)
-        return (res, move, sampling_raw, over, nn_q, nn_unc), ntree
+        return (res, move, sampling_raw, over, nn_q, nn_unc), ntree, bt
 
-    out_sel, tree_sel = run_tier(perm[:b_sel], params_sel, draws.sel_noise,
-                                 draws.sel_sample, draws.sel_raw)
-    out_fast, tree_fast = run_tier(perm[b_sel:], params_fast, draws.fast_noise,
-                                   draws.fast_sample, draws.fast_raw)
+    out_sel, tree_sel, bias_sel = run_tier(perm[:b_sel], params_sel, draws.sel_noise,
+                                           draws.sel_sample, draws.sel_raw)
+    out_fast, tree_fast, bias_fast = run_tier(perm[b_sel:], params_fast,
+                                              draws.fast_noise, draws.fast_sample,
+                                              draws.fast_raw)
 
     def unperm(a, b_):
         return torch.cat([a, b_], dim=0)[inv]
@@ -428,6 +441,8 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
         unperm(a, b_) for a, b_ in zip(out_sel[1:], out_fast[1:]))
     next_tree = (map_state(unperm, tree_sel, tree_fast)
                  if reuse_tree is not None else None)
+    next_bias = (map_state(unperm, bias_sel, bias_fast)
+                 if bias_sel is not None else None)
 
     is_sel = inv < b_sel
     keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
@@ -440,9 +455,9 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                                       trainable, keep_prob, sel_modifier, cfg)
     aux = SelfplayAux(raw_until=aux.raw_until, down_bad_count=down_bad_count,
                       force_sel=torch.zeros_like(aux.force_sel))
-    if next_tree is not None:
-        return states, buf, aux, next_tree
-    return states, buf, aux
+    out = (states, buf, aux) + ((next_tree,) if next_tree is not None else ()) \
+        + ((next_bias,) if next_bias is not None else ())
+    return out
 
 
 def finished_mask(states: GoState, cfg: SelfplayConfig) -> torch.Tensor:
@@ -464,7 +479,8 @@ def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                    init_states: Optional[GoState] = None,
                    use_init: Optional[torch.Tensor] = None,
                    no_raw: Optional[torch.Tensor] = None,
-                   force_sel: Optional[torch.Tensor] = None):
+                   force_sel: Optional[torch.Tensor] = None,
+                   bias_table: Optional[BiasTable] = None):
     """Replace finished boards (`done` [B]) with fresh games, or with
     restart positions, and clear their records (buffer rows in place)
     (loop.py:524-575 of the JAX package; GetInitState,
@@ -477,8 +493,11 @@ def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     number at a half-life of 40 moves (self_play_thread.cc:362-366);
     `no_raw` [B] boards get none, and `force_sel` [B] forces a full search
     and a trainable first move (FirstMoveBehavior kPlay / kForceFullSearch,
-    reuse_buffer.h:19-26). Returns (states, buf, aux) plus the reset tree
-    when `reuse_tree` is given."""
+    reuse_buffer.h:19-26). The bias cache is per-game knowledge: finished
+    boards' rows of `bias_table` are cleared (the reference's per-move
+    PruneUnused fades them once their game's nodes are reaped). Returns
+    (states, buf, aux), then the reset tree when `reuse_tree` is given and
+    the reset table when `bias_table` is."""
     B = states.stones.shape[0]
     dev = states.stones.device
     repl = new_state(B, komi, device=dev, history=states.history.shape[1])
@@ -503,7 +522,11 @@ def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                                    aux.down_bad_count),
         force_sel=new_force,
     )
+    out = (states, buf, aux)
     if reuse_tree is not None:
         empty = make_tree(B, reuse_tree.n.shape[1], dev)
-        return states, buf, aux, select_state(done, empty, reuse_tree)
-    return states, buf, aux
+        out += (select_state(done, empty, reuse_tree),)
+    if bias_table is not None:
+        empty_b = make_bias_table(B, bias_table.key0.shape[1], dev)
+        out += (select_state(done, empty_b, bias_table),)
+    return out

@@ -376,3 +376,69 @@ def test_generation_loop_on_card_runs_and_resumes(device, tmp_path):
                  (again.train_state.params, loop.train_state.params)):
         assert all(torch.equal(a[k], b[k]) for k in b)
     assert torch.equal(again.generator.get_state(), loop.generator.get_state())
+
+
+def test_mcgs_insert_collisions_on_card_equal_cpu(device):
+    """Colliding MCGS inserts keep the last lane on the card as on the CPU,
+    twice in a row (scatter_last does not depend on the write order)."""
+    from p3achygo_tpu_torch.mcts.tree import make_mcgs_table, mcgs_insert, mcgs_probe
+
+    gen = torch.Generator().manual_seed(0)
+    B, S, k_r = 64, 64, 16
+    W = B * k_r
+    # Few distinct keys, all >= 2**31: lanes of a board share slots.
+    keys = torch.randint(1 << 31, 1 << 32, (8, 2), generator=gen, dtype=torch.int64)
+    pick = torch.randint(0, 8, (W,), generator=gen)
+    h0, h1 = keys[pick, 0], keys[pick, 1]
+    meta = torch.ones(W, dtype=torch.int8)
+    node = torch.arange(W, dtype=torch.int32)
+    do = torch.rand(W, generator=gen) < 0.9
+    tables = []
+    for dev in ("cpu", device, device):
+        tab = make_mcgs_table(B, S, dev)
+        args = [t.to(dev) for t in (h0, h1, meta)]
+        for _ in range(2):
+            _, _, slot, has = mcgs_probe(tab, k_r, *args)
+            mcgs_insert(tab, k_r, slot, *args, node.to(dev), do.to(dev) & has)
+        tables.append([t.cpu() for t in tab])
+    for got in tables[1:]:
+        for a, b in zip(tables[0], got):
+            assert torch.equal(a, b)
+
+
+def test_bias_keys_on_card_equal_cpu(boards):
+    """The bias keys of one leaf batch: liberties from the kernel on the
+    card, the plain version on the CPU."""
+    from p3achygo_tpu_torch.mcts.bias import local_pattern_keys
+
+    out = []
+    for st in (boards, map_state(lambda t: t.cpu(), boards)):
+        libs = tl.point_liberties_batch(st.stones, st.chain_id)
+        ill = (st.stones == 0) & ~legal_mask_batch(st)[:, :361]
+        out.append([t.cpu() for t in local_pattern_keys(st.stones, libs == 1, ill,
+                                                        st.last_moves, st.to_move)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert bool(out[0][2].any())
+
+
+def test_bias_branch_launches_the_liberty_kernel(device, boards):
+    """A search with the bias branch on the card launches the CUDA liberty
+    kernel for its leaves' pattern keys (besides legality and features),
+    and its table fills."""
+    from p3achygo_tpu_torch.mcts import gumbel as tg
+    from p3achygo_tpu_torch.mcts.bias import make_bias_table
+
+    st = map_state(lambda t: t[:8], boards)
+    params = tg.SearchParams(n=8, k=2, max_depth=6)
+    gen = torch.Generator(device=device).manual_seed(1)
+    tl.point_liberties_batch.launches = 0
+    tg.search_root(st, tg.uniform_eval_fn, params, generator=gen)
+    plain = tl.point_liberties_batch.launches
+    tl.point_liberties_batch.launches = 0
+    _, table = tg.search_root(st, tg.uniform_eval_fn,
+                              tg.SearchParams(n=8, k=2, max_depth=6, bias_lambda=0.35),
+                              generator=gen, bias_table=make_bias_table(8, 64, device))
+    torch.cuda.synchronize()
+    assert tl.point_liberties_batch.launches > plain > 0
+    assert int(table.used.sum()) > 0

@@ -13,7 +13,8 @@ from p3achygo_tpu_torch.data.replay import _FIELDS
 from p3achygo_tpu_torch.game.board import from_stones, new_state
 from p3achygo_tpu_torch.game.dsl import board_from_dsl
 from p3achygo_tpu_torch.mcts.gumbel import SearchParams
-from p3achygo_tpu_torch.mcts.tree import make_tree
+from p3achygo_tpu_torch.mcts.bias import make_bias_table
+from p3achygo_tpu_torch.mcts.tree import make_mcgs_table, make_tree
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.heads import score_bins
 from p3achygo_tpu_torch.models.model import build_model
@@ -43,6 +44,8 @@ def _generation_loop(**kw):
 CONSTRUCTORS = {
     "new_state": (new_state, lambda **kw: new_state(2, **kw)),
     "make_tree": (make_tree, lambda **kw: make_tree(2, 4, **kw)),
+    "make_mcgs_table": (make_mcgs_table, lambda **kw: make_mcgs_table(2, 64, **kw)),
+    "make_bias_table": (make_bias_table, lambda **kw: make_bias_table(2, 64, **kw)),
     "make_game_buffer": (make_game_buffer, lambda **kw: make_game_buffer(2, 3, **kw)),
     "make_aux": (make_aux, lambda **kw: make_aux(2, **kw)),
     "build_model": (build_model, lambda **kw: build_model(get_config("tiny"), **kw)),

@@ -284,7 +284,89 @@ def test_eval_runner_plays_two_models(pair):
 
 
 def test_puct_player_raises():
+    """A PUCT player no longer raises: its games run to the end (it carries
+    no tree while its Gumbel opponent reuses one)."""
     cfg = th.EvalConfig(num_games=2, max_game_len=2,
                         cand=tpc.PlayerSearchConfig(search_type="puct", n=4))
-    with pytest.raises(NotImplementedError, match="PUCT"):
-        th.run_eval(_despair, _despair, cfg, device="cpu")
+    res = th.run_eval(_despair, _despair, cfg, device="cpu")
+    assert res.num_games == 2 and res.by_resign >= 1
+
+
+MIXED_PLIES = 6
+
+
+def _mixed_cfgs():
+    """PUCT candidate against a Gumbel incumbent with MCGS and the integral
+    utility, tree reuse on (no noise, so no draw reaches a search)."""
+    kw = dict(num_games=B, max_game_len=MIXED_PLIES)
+    puct = dict(search_type="puct", n=8, max_depth=8, root_selection="lcb")
+    gumbel = dict(n=8, k=2, max_depth=8, noise_scale=0.0, use_mcgs=True,
+                  score_utility_mode="integral")
+    return (jh.EvalConfig(cand=jpc.PlayerSearchConfig(**puct),
+                          cur=jpc.PlayerSearchConfig(**gumbel), **kw),
+            th.EvalConfig(cand=tpc.PlayerSearchConfig(**puct),
+                          cur=tpc.PlayerSearchConfig(**gumbel), **kw))
+
+
+def test_puct_against_mcgs_integral_matches_jax(jit_jax_scoring):
+    """Whole lockstep games: every ply's boards, resignations, winners and
+    both colors' reused trees (MCGS under tree reuse: the compaction keeps
+    what the JAX one keeps), then the same wins and Elo."""
+    from test_torch_mcgs import _peaked_tables
+    from test_torch_search_extras import _jax_eval, _torch_eval
+
+    tab = _peaked_tables(2)
+    jfn, tfn = functools.partial(_jax_eval, tab), functools.partial(_torch_eval, tab)
+    jcfg, tcfg = _mixed_cfgs()
+    assert th._reuse_capacity(tcfg) == jh._reuse_capacity(jcfg) == 10
+    j_ply = {even: jax.jit(functools.partial(jh._eval_ply, fn_cand=jfn, fn_cur=jfn, cfg=jcfg,
+                                             cand_first=even)) for even in (True, False)}
+    rcap = th._reuse_capacity(tcfg)
+    js, ts = _start()
+    jb, jw = jt.make_tree(B, rcap), jt.make_tree(B, rcap)
+    tb, tw = tt.make_tree(B, rcap, "cpu"), tt.make_tree(B, rcap, "cpu")
+    jres, jwin = jnp.zeros(B, bool), jnp.zeros(B, jnp.int8)
+    tres, twin = torch.zeros(B, dtype=torch.bool), torch.zeros(B, dtype=torch.int8)
+    key = jax.random.PRNGKey(0)
+    tg.COUNTERS.reset()
+    for t in range(MIXED_PLIES):
+        even = t % 2 == 0
+        jm_, jo = (jb, jw) if even else (jw, jb)
+        js, key, jres, jwin, jm_, jo = j_ply[even](key, js, jres, jwin, jm_, jo)
+        jb, jw = (jm_, jo) if even else (jo, jm_)
+        tm_, to = (tb, tw) if even else (tw, tb)
+        ts, tres, twin, tm_, to = th._eval_ply(None, ts, tres, twin, tm_, to, tfn, tfn,
+                                               tcfg, cand_first=even)
+        tb, tw = (tm_, to) if even else (to, tm_)
+        for f in ts._fields:
+            np.testing.assert_array_equal(getattr(ts, f).numpy(), to_np(getattr(js, f)),
+                                          err_msg=f"ply {t} {f}")
+        np.testing.assert_array_equal(tres.numpy(), to_np(jres))
+        np.testing.assert_array_equal(twin.numpy(), to_np(jwin))
+        for name, jtree, ttree in (("black", jb, tb), ("white", jw, tw)):
+            want = tree_to_torch(jtree)
+            for f in tt.Tree._fields:
+                a, b_ = getattr(want, f), getattr(ttree, f)
+                if a.is_floating_point():
+                    np.testing.assert_allclose(b_.float().numpy(), a.float().numpy(), rtol=0,
+                                               atol=TOL, err_msg=f"ply {t} {name} tree {f}")
+                else:
+                    np.testing.assert_array_equal(b_.numpy(), a.numpy(),
+                                                  err_msg=f"ply {t} {name} tree {f}")
+    assert tg.COUNTERS.searches == 2 * MIXED_PLIES  # a PUCT and a Gumbel half per ply
+    assert (tw.n[:, 0] > 0).any()  # the Gumbel player's reused trees carry statistics
+    want = jh._finish(js, jres, jwin, jnp.arange(B) < B // 2, B)
+    got = th._finish(ts, tres, twin, torch.arange(B) < B // 2)
+    assert vars(got) == vars(want)
+    # run_eval plays the same games from fresh boards.
+    res = th.run_eval(tfn, tfn, tcfg, device="cpu")
+    assert res.num_games == B and 0.0 <= res.winrate <= 1.0
+
+
+def test_player_config_passes_search_options():
+    text = "search_type: gumbel\nuse_mcgs: true\nscore_utility_mode: integral\nn: 16\n"
+    t, j = tpc.parse_player_config(text), jpc.parse_player_config(text)
+    assert dataclasses.asdict(t.to_search_params()) == dataclasses.asdict(j.to_search_params())
+    sp = t.to_search_params()
+    assert sp.use_mcgs and sp.score_utility_mode == "integral"
+    assert dataclasses.asdict(t.to_puct_params()) == dataclasses.asdict(j.to_puct_params())

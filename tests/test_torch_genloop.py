@@ -15,8 +15,9 @@ JAX (ROADMAP Queue 3) needs no masking.
 Whole loop (tests/test_resume.py's tiny configuration, float32): resume
 round trip, fresh-directory resume, replay persistence, the golden's
 independence from training, momentum and the per-generation LR across
-train_and_gate, bind-time errors for options the port lacks, and the
-command line."""
+train_and_gate, the search options of config/ci-tiny.json and of exact
+terminal scoring with the value-bias cache (a generation each), the bias
+table under resume and harvest, and the command line."""
 import dataclasses
 import functools
 import json
@@ -409,15 +410,107 @@ def test_momentum_and_lr_across_generations(tmp_path):
 
 
 def test_unported_search_options_raise_at_bind(tmp_path):
+    """The search options that once raised at bind now run: a generation of
+    config/ci-tiny.json (early stopping) with exact terminal scoring and
+    the value-bias cache, whose table the self-play steps fill (ci-tiny
+    as it is: test_cli_runs_ci_tiny)."""
+    from p3achygo_tpu_torch.mcts import gumbel as tg
+    from p3achygo_tpu_torch.rl import loop as rl_loop
+
     cfg = tconfig.parse(os.path.join(ROOT, "config", "ci-tiny.json"))
-    loop = GenerationLoop(cfg, root_dir=str(tmp_path / "ci"), dtype=torch.float32,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="early_stopping"):
-        loop.run_generation()
-    for kw, what in (({"bias_cache_lambda": 0.5}, "bias_lambda"),
-                     ({"terminal_mode": "exact"}, "terminal_mode")):
-        with pytest.raises(NotImplementedError, match=what):
-            _loop(tmp_path, name=what, **kw).selfplay_games(1)
+    assert cfg.early_stopping_enabled
+    for name, kw in (("exact_bias", dict(terminal_mode="exact", bias_cache_lambda=0.5)),):
+        loop = GenerationLoop(dataclasses.replace(cfg, **kw), root_dir=str(tmp_path / name),
+                              dtype=torch.float32, device="cpu", seed=1)
+        used = []
+        real = rl_loop.selfplay_step_tiered
+
+        def spy(*a, **k):
+            out = real(*a, **k)
+            if loop.bias is not None:
+                used.append(int(out[-1].used.sum()))
+            return out
+        tg.COUNTERS.reset()
+        rl_loop.selfplay_step_tiered = spy
+        try:
+            info = loop.run_generation()
+        finally:
+            rl_loop.selfplay_step_tiered = real
+        assert info["gen"] == 1 and os.path.isdir(os.path.join(loop.root, "model_0001"))
+        snap = tg.COUNTERS.snapshot()
+        assert snap["syncs"]["early_stop"] > 0, snap
+        assert loop.bias.key0.shape == (cfg.selfplay_batch_size, 1024)
+        assert max(used) > 0 and snap["syncs"]["exact_terminal"] > 0
+
+
+def test_resume_keeps_no_bias_table(tmp_path):
+    """JAX's save_resume / try_resume carry no bias table: a resumed loop
+    starts from an empty one of the configured size (in-flight games, whose
+    knowledge the table holds, are lost at a crash)."""
+    loop = _loop(tmp_path, bias_cache_lambda=0.5, terminal_mode="exact")
+    loop.run_generation()
+    loop.bias = loop.bias._replace(used=torch.ones_like(loop.bias.used))
+    loop.save_resume()
+    again = _loop(tmp_path, bias_cache_lambda=0.5, terminal_mode="exact")
+    assert again.try_resume() and again.gen == 1
+    assert again.bias.key0.shape == loop.bias.key0.shape
+    assert all(int(t.abs().sum()) == 0 for t in again.bias)
+    template = set(JaxLoop._resume_template(types.SimpleNamespace(
+        train_state=types.SimpleNamespace(params=0, batch_stats=0, opt_state=0, step=0),
+        golden={"params": 0, "batch_stats": 0}, key=0, sel_mult_base=0)))
+    assert not any("bias" in k for k in template)
+
+
+def test_harvest_clears_bias_rows_like_jax(finished_games, tmp_path):
+    """_harvest resets the finished boards' rows of the bias table, as the
+    JAX loop's does."""
+    from p3achygo_tpu.mcts import bias as jb
+
+    B, T, states, buf = finished_games
+    seed = 4
+    kw = dict(selfplay_batch_size=B, selfplay_max_game_len=T, fork_enabled=False,
+              bias_cache_lambda=0.5)
+    jcfg = jconfig.RunConfig(**{**dataclasses.asdict(jax_tiny_run_cfg()), **kw})
+    ns = _jax_namespace(None, None, jcfg, states, buf, B, T, seed, None)
+    ns.fork = None
+    rng = np.random.default_rng(3)
+    filled = jb.make_bias_table(B, 1024)._replace(
+        used=jnp.asarray((rng.random((B, 1024)) < 0.3).astype(np.int8)),
+        err_sum=jnp.asarray(rng.normal(0, 1, (B, 1024)).astype(np.float32)))
+    ns.bias = filled
+    loop = _loop(tmp_path, seed=seed, **kw)
+    loop.states = state_to_torch(states)
+    loop.buf = tl.GameBuffer(**{f: torch.tensor(np.asarray(getattr(buf, f)))
+                                for f in tl.GameBuffer._fields})
+    loop.tree = tree_to_torch(ns.tree)
+    loop.bias = type(loop.bias)(*(torch.tensor(to_np(t)) for t in filled))
+    done = np.array(jl.finished_mask(states, ns.sp_cfg))
+    done[2] = False
+    ns._harvest(done)
+    loop._harvest(done)
+    for f, a, b in zip(type(loop.bias)._fields, ns.bias, loop.bias):
+        np.testing.assert_array_equal(b.numpy(), to_np(a), err_msg=f)
+    assert int(loop.bias.used[~torch.from_numpy(done)].sum()) > 0
+    assert int(loop.bias.used[torch.from_numpy(done)].sum()) == 0
+
+
+def test_cli_runs_ci_tiny(tmp_path, monkeypatch, capsys):
+    """python -m p3achygo_tpu_torch.rl on config/ci-tiny.json (early
+    stopping on) runs one generation and exits 0 (run as `-m` does, in
+    this process: a second interpreter would compete with the test
+    workers for the cores)."""
+    import runpy
+    import sys
+
+    monkeypatch.setattr(sys, "argv", [
+        "p3achygo_tpu_torch.rl", "--config", os.path.join(ROOT, "config", "ci-tiny.json"),
+        "--gens", "1", "--device", "cpu", "--run-dir", str(tmp_path / "cli")])
+    monkeypatch.delitem(sys.modules, "p3achygo_tpu_torch.rl.__main__", raising=False)
+    try:
+        runpy.run_module("p3achygo_tpu_torch.rl", run_name="__main__", alter_sys=True)
+    except SystemExit as e:  # argparse and the like exit; a clean run returns
+        assert e.code in (0, None), e.code
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["gen"] == 1
 
 
 def test_validate_writes_a_rendered_sample(tmp_path):

@@ -175,13 +175,25 @@ def test_compact_root_parity():
                                     "bias_lambda", "terminal_mode",
                                     "score_utility_mode"])
 def test_unported_options_raise(option):
+    """Each option that once raised NotImplementedError now runs and gives
+    a whole result (tests/test_torch_search_extras.py, test_torch_mcgs.py
+    and test_torch_bias.py hold each against JAX); with bias_lambda and a
+    table the result tuple carries the updated table back."""
     value = {"bias_lambda": 0.5, "terminal_mode": "exact",
              "score_utility_mode": "integral"}.get(option, True)
-    params = tg.SearchParams(n=4, k=2, **{option: value})
-    ts = state_to_torch(random_jax_states(B=1, moves=2, seed=0))
-    with pytest.raises(NotImplementedError):
-        tg.search_root(ts, tg.uniform_eval_fn, params,
-                       generator=torch.Generator().manual_seed(0))
+    params = tg.SearchParams(n=4, k=2, max_depth=4, **{option: value})
+    ts = state_to_torch(random_jax_states(B=2, moves=6, seed=0))
+    gen = torch.Generator().manual_seed(0)
+    if option == "bias_lambda":
+        from p3achygo_tpu_torch.mcts.bias import make_bias_table
+        res, table = tg.search_root(ts, tg.uniform_eval_fn, params, generator=gen,
+                                    bias_table=make_bias_table(2, 64, device="cpu"))
+        assert int(table.used.sum()) > 0
+    else:
+        res = tg.search_root(ts, tg.uniform_eval_fn, params, generator=gen)
+    assert isinstance(res, tg.GumbelResult) and (res.visits > 0).all()
+    assert torch.allclose(res.pi_improved.sum(-1), torch.ones(2))
+    assert not hasattr(tg, "check_supported")
 
 
 def test_saturating_edge_add():

@@ -66,7 +66,7 @@ def state_to_torch(js) -> GoState:
 
 
 def tree_to_torch(jt) -> Tree:
-    """JAX Tree -> port Tree (drops the JAX-only value-bias fields)."""
+    """JAX Tree -> port Tree (uint32 fields widen to int64)."""
     out = {}
     for f in Tree._fields:
         a = np.asarray(getattr(jt, f))
