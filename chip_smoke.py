@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's self-play, learning, generation and search
-paths once on an NVIDIA card.
+"""Drive the PyTorch port's self-play, learning, generation, search and
+GTP paths once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -76,7 +76,7 @@ fallback):
              run) on config/b12-onegen.json at b12c128btl3 width, bf16,
              seeded weights, with the cuts of GEN_CUTS (B=128, 128 games of
              at most 32 moves, selected 32/4 and fast 16/4, eval 16 games at
-             n=16/k=4 of at most 32 moves, 4 BN-refresh passes, 2
+             n=16/k=4 of at most 16 moves, 4 BN-refresh passes, 2
              validation batches, use_seen_state_prob 0.25 so GoExploit
              restarts happen), SGFs on: self-play with restarts and forks
              -> harvest -> train -> SWA + BN refresh -> validation -> gating
@@ -95,7 +95,7 @@ fallback):
              weights, with its own terminal_mode "exact", lr_schedule,
              selected 32/4 and default 16/4, phase 8's cuts (SEARCH_CUTS:
              B=128, 128 games of at most 32 moves, eval 16 games of at most
-             32 moves at n=16/k=4, 4 BN-refresh passes, 2 validation
+             16 moves at n=16/k=4, 4 BN-refresh passes, 2 validation
              batches) and two smoke choices no committed config sets
              together with it (SEARCH_SWITCHES: early stopping, the bias
              cache at lambda 0.35 / alpha 0.8); a quarter of the boards
@@ -107,7 +107,7 @@ fallback):
              stopped early, a bias slot filled, a leaf scored exactly, the
              liberty kernel launched; prints each part's wall time and the
              host syncs per searched move (mcts.gumbel.COUNTERS).
-             (b) run_eval of 16 games of at most 32 moves between two
+             (b) run_eval of 16 games of at most 16 moves between two
              seeded b8c64 bf16 networks, tree reuse on: a PUCT player at
              n=32 (max_depth 4: its visits run down one line) against a
              Gumbel player at n=32/k=4 with MCGS and the integral utility. Checks wins + losses = games and every move
@@ -121,8 +121,38 @@ fallback):
              the root visit counts (the card sums floats in another order;
              exact parity is the CPU tests').
 
-Phases 7, 8 and 9 print {"learn": ...}, {"gen": ...} and {"search": ...}
-JSON lines of their measurements. Before the
+  10 gtp    the GTP engine, ladders and grouped tiers, on the card:
+             (a) GtpService over make_eval_fn(b12c128btl3 bf16) with phase
+             8's model_0001 (read as --checkpoint reads it), n=128/k=8, no
+             root noise, driven through run_stdin_loop on an os.pipe (so
+             its select() paths run): protocol_version, name,
+             list_commands, boardsize, clear_board, komi; 16 alternating
+             genmoves with 3 plays between; an illegal play on an occupied
+             point, then undo; a one-shot and a streamed lz-analyze (the
+             stream stopped by the next command); ownership, final_score,
+             showboard; loadsgf of an SGF phase 8 wrote;
+             p3achygo-serialize_sgf_with_trees; a genmove in byoyomi with a
+             1 s budget (a 2 s period: the engine keeps 1 s back); quit.
+             Checks every answer is '=' but the illegal play's '?', every
+             genmove legal by full_legal_mask on the card and that mask
+             equal to the CPU's, undo restoring the state bit for bit, the
+             SGF parsing back to the game's moves, the byoyomi genmove
+             within its budget plus one 16-visit slice, the liberty kernel
+             launched; prints ms per genmove (median, max), host syncs per
+             genmove, ms per lz-analyze batch, the byoyomi slices and
+             visits. (b) python -m p3achygo_tpu_torch.gtp --checkpoint
+             model_0001 with no --device answers `genmove b` and quits.
+             (c) batched_features(include_ladders=True) on the card equal
+             to the CPU's on the six positions of tests/test_ladder.py and
+             1,024 boards of phase 2; one make_eval_fn(include_ladders=
+             True) call finite; ms per featurizer call at B=1024 with and
+             without ladders, ladder syncs per call. (d) phase 4's mix at
+             B=256 with tier_groups=4 for 4 plies: every move legal and
+             superko-clean, pi_improved summing to 1, B_sel/G selected
+             boards in every group every ply.
+
+Phases 7, 8, 9 and 10 print {"learn": ...}, {"gen": ...}, {"search": ...}
+and {"gtp": ...} JSON lines of their measurements. Before the
 last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
 each input read once and each output written once, over 3.35 TB/s) and the
@@ -140,6 +170,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -163,7 +194,12 @@ from p3achygo_tpu_torch.game.board import (
     step,
     superko_violation,
 )
+from p3achygo_tpu_torch.game.board import full_legal_mask
+from p3achygo_tpu_torch.game.dsl import board_from_dsl
+from p3achygo_tpu_torch.game.ladder import laddered_stones
 from p3achygo_tpu_torch.game.scoring import pass_alive_for_color
+from p3achygo_tpu_torch.gtp import GtpConfig, GtpService, gtp_vertex_to_action, run_stdin_loop
+from p3achygo_tpu_torch.gtp.__main__ import load_model
 from p3achygo_tpu_torch.eval.player_config import PlayerSearchConfig
 from p3achygo_tpu_torch.mcts import gumbel as search
 from p3achygo_tpu_torch.mcts.bias import bias_probe, local_pattern_keys, make_bias_table
@@ -200,6 +236,7 @@ from p3achygo_tpu_torch.selfplay.loop import (
     make_game_buffer,
     reset_finished,
     selfplay_step_tiered,
+    tier_sizes,
 )
 from p3achygo_tpu_torch.train import checkpoint
 from p3achygo_tpu_torch.train.optimizer import apply_updates, conv_muon, global_norm
@@ -244,7 +281,7 @@ GEN_CUTS = dict(
     min_train_selected_k=4, max_train_selected_k=4,
     min_train_default_n=16, max_train_default_n=16,
     min_train_default_k=4, max_train_default_k=4,
-    eval_games=16, eval_n=16, eval_k=4, eval_max_game_len=32,
+    eval_games=16, eval_n=16, eval_k=4, eval_max_game_len=16,
     bn_recompute_passes=4, val_batches=2,
     # GoExploit restarts within the phase (config: 0.0).
     use_seen_state_prob=0.25)
@@ -259,7 +296,7 @@ SEARCH_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config
 SEARCH_CUTS = dict(
     selfplay_batch_size=128, games_first_gen=128, selfplay_max_game_len=32,
     eval_games=16, min_eval_games=16, eval_n=16, min_eval_n=16, eval_k=4,
-    eval_max_game_len=32, bn_recompute_passes=4, val_batches=2)
+    eval_max_game_len=16, bn_recompute_passes=4, val_batches=2)
 # ... and two smoke choices that no committed config sets together with it:
 # early stopping (as config/ci-tiny.json sets it) and the value-bias cache.
 SEARCH_SWITCHES = dict(early_stopping_enabled=True, bias_cache_lambda=0.35,
@@ -273,7 +310,7 @@ SEARCH_SETTLED_SHARE = 4
 # (b) run_eval: a PUCT player against a Gumbel player with MCGS and the
 # integral utility, two seeded b8c64 bf16 networks, tree reuse on.
 SEARCH_MODEL = "b8c64"
-EXTRAS_EVAL = dict(num_games=16, max_game_len=32)
+EXTRAS_EVAL = dict(num_games=16, max_game_len=16)
 # A seeded network values positions alike, so PUCT's visits run down one
 # line and simulation i descends i levels, each a scratch-board step of
 # ~8 ms of host time on an H100 machine: max_depth 4 (the config default is
@@ -286,6 +323,27 @@ EXTRAS_PARAMS = dict(n=32, k=4, max_depth=24, visit_group=4, use_mcgs=True,
                      bias_lambda=0.35, bias_alpha=0.8, early_stopping=True,
                      terminal_mode="exact", score_utility_mode="integral")
 EXTRAS_AGREE_MIN = 0.9
+# Phase 10: the GTP engine at b12c128btl3 width with phase 8's model_0001,
+# searching as `python -m p3achygo_tpu_torch.gtp` does by default.
+GTP_MODEL = "b12c128btl3"
+GTP_SEARCH = dict(n=128, k=8, noise_scale=0.0)
+GTP_GENMOVES = 16
+GTP_PLAY_AFTER = (4, 8, 12)  # a `play` follows these genmoves
+# A byoyomi period of P s is budgeted P - 1 s per move (time_control.py), so
+# a 1 s budget needs a 2 s period (a 1 s period would mean an untimed search).
+GTP_BYOYOMI_S = 2
+LADDER_B = 1024
+# The six positions of tests/test_ladder.py as (black, white, to_move).
+LADDER_POSITIONS = (
+    (((8, 9), (9, 8), (8, 10)), ((9, 9),), 1),
+    (((8, 9), (9, 8), (8, 10)), ((9, 9), (15, 15)), 1),
+    (((9, 10), (10, 9)), ((9, 9), (10, 10)), 1),
+    (((0, 1), (1, 0)), ((1, 1),), 1),
+    ((), ((5, 5), (5, 6), (6, 5), (6, 6)), 1),
+    (((0, 1), (1, 1), (2, 0)), ((0, 0),), -1),
+)
+TIER_GROUPS = 4
+TIER_PLIES = 4
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
@@ -1229,55 +1287,55 @@ def check_resume(loop: GenerationLoop, cfg, root: str, device):
     return again
 
 
-def phase_gen(device, smi):
-    """Phase 8 (see the module docstring). Returns (liberty launches of the
-    generation, the {"gen": ...} measurements)."""
+def phase_gen(device, smi, root):
+    """Phase 8 (see the module docstring), in the empty directory `root`,
+    which keeps model_0001 and the SGFs for phase 10. Returns (liberty
+    launches of the generation, the {"gen": ...} measurements)."""
     t_phase = time.perf_counter()
     cfg = gen_config()
     B = cfg.selfplay_batch_size
-    with tempfile.TemporaryDirectory() as root:
-        loop = GenerationLoop(cfg, root_dir=root, seed=GEN_SEED, device=device)
-        loop.sgf_dir = os.path.join(root, "sgf")
-        torch.cuda.reset_peak_memory_stats(device)
-        for k in KERNELS:
-            k.launches = 0
-        with GenSpies(loop) as spies:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            info = loop.run_generation()
-            torch.cuda.synchronize()
-            gen_s = time.perf_counter() - t0
-        launches = point_liberties_batch.launches
-        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-
-        for ply, check in enumerate(spies.plies):
-            check_ply(*check, f"phase 8 self-play ply {ply}")
-        games = check_gen_sgfs(spies, B, cfg.selfplay_max_game_len)
-        stats = os.listdir(loop.stats_dir)
-        res, wins, losses = spies.finals[-1]
-        checks = {
-            "gen == 1": info["gen"] == loop.gen == 1,
-            "model_0001": os.path.isdir(os.path.join(root, "model_0001")),
-            "elo_history.txt": os.path.exists(os.path.join(root, "elo_history.txt")),
-            "one .stats file": len(stats) == 1 and stats[0].endswith(".stats"),
-            "calibration": (compute_calibration(loop.stats_dir, 0) is not None
-                            and os.path.exists(os.path.join(root, "sel_mult_calib.txt"))),
-            "reuse buffer": len(loop.reuse) > 0,
-            "fork flush": spies.flushed > 0,
-            "eval wins + losses": (res.cand_wins == wins
-                                   and wins + losses == res.num_games == cfg.eval_games),
-            "liberty kernel launched": launches > 0,
-        }
-        bad = [k for k, ok in checks.items() if not ok]
-        if bad:
-            raise AssertionError(f"phase 8: failed checks {bad}")
-        restarts = spies.restarts
-
+    loop = GenerationLoop(cfg, root_dir=root, seed=GEN_SEED, device=device)
+    loop.sgf_dir = os.path.join(root, "sgf")
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in KERNELS:
+        k.launches = 0
+    with GenSpies(loop) as spies:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        check_resume(loop, cfg, root, device)
+        info = loop.run_generation()
         torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
+        gen_s = time.perf_counter() - t0
+    launches = point_liberties_batch.launches
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    for ply, check in enumerate(spies.plies):
+        check_ply(*check, f"phase 8 self-play ply {ply}")
+    games = check_gen_sgfs(spies, B, cfg.selfplay_max_game_len)
+    stats = os.listdir(loop.stats_dir)
+    res, wins, losses = spies.finals[-1]
+    checks = {
+        "gen == 1": info["gen"] == loop.gen == 1,
+        "model_0001": os.path.isdir(os.path.join(root, "model_0001")),
+        "elo_history.txt": os.path.exists(os.path.join(root, "elo_history.txt")),
+        "one .stats file": len(stats) == 1 and stats[0].endswith(".stats"),
+        "calibration": (compute_calibration(loop.stats_dir, 0) is not None
+                        and os.path.exists(os.path.join(root, "sel_mult_calib.txt"))),
+        "reuse buffer": len(loop.reuse) > 0,
+        "fork flush": spies.flushed > 0,
+        "eval wins + losses": (res.cand_wins == wins
+                               and wins + losses == res.num_games == cfg.eval_games),
+        "liberty kernel launched": launches > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 8: failed checks {bad}")
+    restarts = spies.restarts
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check_resume(loop, cfg, root, device)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
 
     cuts = ", ".join(f"{k}={v}" for k, v in GEN_CUTS.items())
     parts = {
@@ -1598,6 +1656,371 @@ def phase_search(device, smi):
                       "phase_wall_s": time.perf_counter() - t_phase, "card": smi}
 
 
+class GtpPipe:
+    """`run_stdin_loop` on an os.pipe in a thread of its own, so its select()
+    paths run: commands are written one at a time and each answer (up to
+    its blank line) is read back before the next."""
+
+    def __init__(self, svc: GtpService):
+        r, self.w = os.pipe()
+        self.infile = os.fdopen(r, "r")
+        self.text, self.pos, self.error = "", 0, None
+        self.cv = threading.Condition()
+        self.thread = threading.Thread(target=self._serve, args=(svc,), daemon=True)
+        self.thread.start()
+
+    def _serve(self, svc):
+        try:
+            run_stdin_loop(svc, self.infile, self)
+        except BaseException as e:  # handed to the driving thread
+            with self.cv:
+                self.error = e
+                self.cv.notify_all()
+
+    def write(self, s: str) -> None:
+        with self.cv:
+            self.text += s
+            self.cv.notify_all()
+
+    def flush(self) -> None:
+        pass
+
+    def _wait(self, pred, timeout: float) -> None:
+        with self.cv:
+            ok = self.cv.wait_for(lambda: self.error is not None or pred(), timeout)
+        if self.error is not None:
+            raise AssertionError(f"phase 10: the GTP loop failed: {self.error!r}")
+        if not ok:
+            raise AssertionError(f"phase 10: no answer within {timeout} s: "
+                                 f"{self.text[self.pos:][-400:]!r}")
+
+    def answer(self, timeout: float = 300.0) -> str:
+        self._wait(lambda: "\n\n" in self.text[self.pos:], timeout)
+        end = self.text.index("\n\n", self.pos) + 2
+        resp, self.pos = self.text[self.pos:end], end
+        return resp
+
+    def send(self, cmd: str) -> str:
+        os.write(self.w, (cmd + "\n").encode())
+        return self.answer()
+
+    def stream(self, cmd: str, stop: str):
+        """A streamed command, stopped by `stop` once its first info line
+        is out -> (the stream's answer, stop's answer)."""
+        os.write(self.w, (cmd + "\n").encode())
+        self._wait(lambda: "info move" in self.text[self.pos:], 300.0)
+        os.write(self.w, (stop + "\n").encode())
+        return self.answer(), self.answer()
+
+    def close(self) -> str:
+        resp = self.send("quit")
+        self.thread.join(60)
+        alive = self.thread.is_alive()
+        os.close(self.w)
+        self.infile.close()
+        if alive:
+            raise AssertionError("phase 10: the GTP loop did not stop at quit")
+        return resp
+
+
+def device_profile(fn):
+    """(device busy ms, kernels, {class: ms}) of one call of `fn`, from a
+    profile of the device alone: recording the host's operators too costs
+    tens of seconds for a call of ~10^5 kernels."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_class, kernels = kernel_classes(prof, 1)
+    busy = sum(by_class.values())
+    if busy <= 0:
+        log("phase 10: the device profile recorded no kernel")
+    return busy, kernels, by_class
+
+
+def same_state(a, b) -> bool:
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def gtp_server(device, smi, ckpt: str, sgf_path: str, tmp: str):
+    """Phase 10 (a): the GTP server over phase 8's model_0001, driven through
+    run_stdin_loop on a pipe. Returns (liberty launches, measurements)."""
+    model = load_model(GTP_MODEL, ckpt, device)
+    svc = GtpService(make_eval_fn(model), GtpConfig(search=SearchParams(**GTP_SEARCH)),
+                     device=device)
+    analyze_ms, slices = [], []
+    analyze, run_search = svc._analyze_batch, svc._run_search
+
+    def timed_analyze():
+        t0 = time.perf_counter()
+        out = analyze()
+        torch.cuda.synchronize()
+        analyze_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def recorded_search(n, st):
+        t0 = time.perf_counter()
+        res, work = run_search(n, st)
+        visits = int(res.visits[0])
+        slices.append((n, visits, 1e3 * (time.perf_counter() - t0), int(work.n[0, 0])))
+        return res, work
+
+    svc._analyze_batch, svc._run_search = timed_analyze, recorded_search
+    point_liberties_batch.launches = 0
+    pipe = GtpPipe(svc)
+    answers, bad = [], []
+
+    def send(cmd, expect="="):
+        resp = pipe.send(cmd)
+        answers.append((cmd, resp))
+        if not resp.startswith(expect):
+            bad.append((cmd, resp))
+        return resp
+
+    for cmd in ("protocol_version", "name", "list_commands", "boardsize 19",
+                "clear_board", "komi 7.5"):
+        send(cmd)
+    genmove_ms, searched, moves, before_last = [], [], [], None
+    color = 1
+    search.COUNTERS.reset()
+    for i in range(GTP_GENMOVES):
+        searched.append(svc._as_mover(svc.state, color))
+        if i == GTP_GENMOVES - 1:
+            before_last = type(svc.state)(*[t.clone() for t in svc.state])
+        t0 = time.perf_counter()
+        resp = send(f"genmove {'b' if color == 1 else 'w'}")
+        genmove_ms.append(1e3 * (time.perf_counter() - t0))
+        moves.append(gtp_vertex_to_action(resp[2:].strip()))
+        color = -color
+        if i + 1 in GTP_PLAY_AFTER:
+            st = svc._as_mover(svc.state, color)
+            legal = full_legal_mask(st)[0, :PASS_MOVE].nonzero()[:, 0]
+            v = int(legal[(i * 37) % legal.numel()])
+            send(f"play {'b' if color == 1 else 'w'} {'ABCDEFGHJKLMNOPQRST'[v % 19]}{19 - v // 19}")
+            color = -color
+    counts = search.COUNTERS.snapshot()
+    syncs = sum(counts["syncs"].values()) / GTP_GENMOVES
+    # Every genmove's position in one batch: legal by the card's exact mask,
+    # which equals the CPU's.
+    positions = map_state(lambda *ts: torch.cat(ts), *searched)
+    mask = full_legal_mask(positions)
+    masks_equal = torch.equal(mask.cpu(), full_legal_mask(map_state(lambda t: t.cpu(), positions)))
+    if not bool(mask[torch.arange(GTP_GENMOVES, device=device), torch.tensor(moves)].all()):
+        bad.append(("illegal genmove", moves))
+    occupied = int(svc.state.stones[0].nonzero()[0, 0])
+    send(f"play b {'ABCDEFGHJKLMNOPQRST'[occupied % 19]}{19 - occupied // 19}", "?")
+    send("undo")
+    undo_ok = same_state(svc.state, before_last)
+    send("lz-analyze")
+    stream, after = pipe.stream("lz-analyze 10", "p3achygo-ownership")
+    answers += [("lz-analyze 10", stream), ("p3achygo-ownership", after)]
+    if not (stream.startswith("=\ninfo move") and after.startswith("=")):
+        bad.append(("streamed lz-analyze", stream[:200] + after[:40]))
+    streamed = sum(line.startswith("info move") for line in stream.splitlines())
+    for cmd in ("final_score", "showboard", f"loadsgf {sgf_path}"):
+        send(cmd)
+    sgf_moves = extract_moves(parse_sgf(open(sgf_path).read()))
+    out_path = os.path.join(tmp, "trees.sgf")
+    send(f"p3achygo-serialize_sgf_with_trees {out_path}")
+    back = extract_moves(parse_sgf(open(out_path).read()))
+    sgf_ok = svc._moves == sgf_moves and back[:len(sgf_moves)] == sgf_moves
+    send(f"time_settings 0 {GTP_BYOYOMI_S} 1")
+    send(f"time_left b {GTP_BYOYOMI_S} 1")
+    slices.clear()
+    t0 = time.perf_counter()
+    send("genmove b")
+    byo_ms = 1e3 * (time.perf_counter() - t0)
+    byo_slices = list(slices)
+    last = pipe.close()
+    launches = point_liberties_batch.launches
+    # One untimed genmove under the profiler, outside the pipe: device busy
+    # time and kernels per genmove, the idle share against the 16 genmoves'
+    # median wall.
+    svc._analyze_batch, svc._run_search = analyze, run_search
+    svc.time_control = type(svc.time_control)()
+    busy_ms, kernels, by_class = device_profile(lambda: svc.handle("genmove w"))
+    budget_ms = 1000 * (GTP_BYOYOMI_S - 1)
+    slice16_ms = 16 * max(ms / max(v, 1) for _, v, ms, _ in byo_slices)
+    checks = {
+        "every answer '=' but the illegal play's '?'": not bad and last == "=\n\n",
+        "genmove masks on the card == the CPU's": masks_equal,
+        "undo restores the state bit for bit": undo_ok,
+        "lz-analyze streamed until the next command": streamed >= 1,
+        "the SGF with trees parses back to the game's moves": sgf_ok,
+        "byoyomi genmove within the budget plus one 16-visit slice":
+            byo_ms <= budget_ms + slice16_ms,
+        "liberty kernel launched": launches > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 10 (a): failed checks {failed}; bad answers {bad[:4]}")
+    info = {"genmove_ms_median": statistics.median(genmove_ms), "genmove_ms_max": max(genmove_ms),
+            "genmove_ms": genmove_ms, "host_syncs_per_genmove": syncs,
+            "syncs_by_cause": counts["syncs"],
+            "analyze_ms_per_batch": statistics.mean(analyze_ms), "analyze_batches": len(analyze_ms),
+            "streamed_lines": streamed, "sgf_moves": len(sgf_moves),
+            "byoyomi_budget_ms": budget_ms, "byoyomi_genmove_ms": byo_ms,
+            "byoyomi_slices": [n for n, _, _, _ in byo_slices],
+            "byoyomi_visits": sum(v for _, v, _, _ in byo_slices),
+            "byoyomi_root_visits": byo_slices[-1][3], "slice16_ms": slice16_ms,
+            "liberty_launches": launches, "profiled_genmove_busy_ms": busy_ms,
+            "profiled_genmove_kernels": kernels, "profiled_genmove_by_class_ms": by_class,
+            "genmove_idle_share": 1 - busy_ms / statistics.median(genmove_ms)}
+    log(f"phase 10 (a): GtpService({GTP_MODEL} bf16, model_0001 of phase 8, "
+        f"n={GTP_SEARCH['n']} k={GTP_SEARCH['k']}) over "
+        f"run_stdin_loop on a pipe, {len(answers) + 1} commands; every check passed. genmove "
+        f"median {info['genmove_ms_median']:.1f} ms, max {info['genmove_ms_max']:.1f} ms over "
+        f"{GTP_GENMOVES}; {syncs:.1f} host syncs per genmove; lz-analyze "
+        f"{info['analyze_ms_per_batch']:.1f} ms per batch of n={GTP_SEARCH['n']} ({len(analyze_ms)} batches, "
+        f"{streamed} streamed lines); byoyomi genmove {byo_ms:.1f} ms for a {budget_ms} ms "
+        f"budget, slices {info['byoyomi_slices']}, {info['byoyomi_visits']} visits; liberty "
+        f"launches {launches}; a profiled genmove: {busy_ms:.1f} ms device busy, {kernels:.0f} "
+        f"kernels, idle share {info['genmove_idle_share']:.3f} of the median ({smi})")
+    return launches, info
+
+
+def gtp_entry_point(ckpt: str) -> dict:
+    """Phase 10 (b): `python -m p3achygo_tpu_torch.gtp` on the card (no
+    --device) with phase 8's model_0001 answers a genmove."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "p3achygo_tpu_torch.gtp", "--model", GTP_MODEL,
+         "--checkpoint", ckpt], input="genmove b\nquit\n", capture_output=True, text=True,
+        timeout=600, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not re.fullmatch(r"= ([A-HJ-T]\d{1,2}|pass)\n\n=\n\n", proc.stdout):
+        raise AssertionError(f"phase 10 (b): rc {proc.returncode}, stdout {proc.stdout!r}, "
+                             f"stderr {proc.stderr[-2000:]!r}")
+    log(f"phase 10 (b): python -m p3achygo_tpu_torch.gtp --model {GTP_MODEL} --checkpoint "
+        f"model_0001 answered {proc.stdout.split()[1]} and quit, rc 0, {wall:.1f} s wall with "
+        f"start-up")
+    return {"answer": proc.stdout.split()[1], "wall_s": wall}
+
+
+def ladder_positions(device):
+    stones = np.zeros((len(LADDER_POSITIONS), 361), np.int8)
+    for i, (black, white, _) in enumerate(LADDER_POSITIONS):
+        for color, pts in ((1, black), (-1, white)):
+            for r, c in pts:
+                stones[i, r * 19 + c] = color
+    to_move = torch.tensor([m for _, _, m in LADDER_POSITIONS], dtype=torch.int8)
+    return from_stones(stones, to_move=to_move.to(device), device=device)
+
+
+def gtp_ladders(device, boards, model) -> tuple:
+    """Phase 10 (c): the ladder planes on the card equal the CPU's; one
+    eval with ladders is finite; times with and without ladders."""
+    point_liberties_batch.launches = 0
+    sub = map_state(lambda t: t[:LADDER_B].contiguous(), boards)
+    cpu = lambda st: map_state(lambda t: t.cpu(), st)
+    equal, marked = [], 0
+    for st in (ladder_positions(device), sub):
+        s0 = laddered_stones.syncs
+        planes, scalars = batched_features(st, include_ladders=True)
+        syncs = laddered_stones.syncs - s0
+        t0 = time.perf_counter()
+        want = batched_features(cpu(st), include_ladders=True)
+        cpu_s = time.perf_counter() - t0
+        equal.append(torch.equal(planes.cpu(), want[0]) and torch.equal(scalars.cpu(), want[1]))
+        marked = int(planes[..., 13:].sum())
+    out = make_eval_fn(model, include_ladders=True)(sub)
+    launches = point_liberties_batch.launches
+    finite = all(bool(torch.isfinite(x).all()) for x in out if x is not None)
+    if not (all(equal) and finite and marked > 0 and launches > 0):
+        raise AssertionError(f"phase 10 (c): card == CPU {equal}, finite {finite}, "
+                             f"laddered stones {marked}, launches {launches}")
+    with_ms = statistics.median(event_ms(lambda: batched_features(sub, include_ladders=True))
+                                for _ in range(3))
+    without_ms = wall_ms(lambda: batched_features(sub))
+    busy_ms, kernels, _ = device_profile(lambda: batched_features(sub, include_ladders=True))
+    info = {"boards": LADDER_B, "featurize_ms_ladders": with_ms,
+            "featurize_ms_plain": without_ms, "ladder_syncs_per_call": syncs,
+            "laddered_stones": marked, "liberty_launches": launches,
+            "cpu_reference_s": cpu_s, "profiled_busy_ms": busy_ms, "profiled_kernels": kernels,
+            "idle_share": 1 - busy_ms / with_ms}
+    log(f"phase 10 (c): batched_features(include_ladders=True) card == CPU on the 6 ladder "
+        f"positions and {LADDER_B} random-play boards ({marked} laddered stones); "
+        f"make_eval_fn(include_ladders=True) finite; at B={LADDER_B}: {with_ms:.2f} ms per call "
+        f"with ladders ({busy_ms:.1f} ms device busy, {kernels:.0f} kernels, idle share "
+        f"{info['idle_share']:.3f}), {without_ms:.3f} ms without; {syncs} host syncs per call; "
+        f"the CPU reference took {cpu_s:.1f} s")
+    return launches, info
+
+
+def gtp_tier_groups(device, model, gen) -> tuple:
+    """Phase 10 (d): phase 4's mix with tier_groups=TIER_GROUPS for
+    TIER_PLIES plies."""
+    B = BENCH_B
+    cfg = SelfplayConfig(batch_size=B, tier_groups=TIER_GROUPS)
+    params_sel = SearchParams(n=128, k=8, noise_scale=1.0, max_depth=24, visit_group=4)
+    params_fast = SearchParams(n=32, k=5, noise_scale=1.0, max_depth=24, visit_group=4)
+    b_sel, _ = tier_sizes(B, cfg)
+    eval_fn = make_eval_fn(model, serve_fold=True)
+    states = new_state(B, cfg.komi, device=device)
+    buf = make_game_buffer(B, cfg.max_game_len, device)
+    aux = make_aux(B, gen, device=device)
+    aux = aux._replace(raw_until=aux.raw_until * 0)
+    tree = make_tree(B, 64, device)
+    b = torch.arange(B, device=device)
+    point_liberties_batch.launches = 0
+    per_group = []
+    t0 = time.perf_counter()
+    for ply in range(TIER_PLIES):
+        prev = states
+        active = ~finished_mask(prev, cfg)
+        states, buf, aux, tree = selfplay_step_tiered(
+            states, buf, aux, eval_fn, params_sel, params_fast, cfg, generator=gen,
+            reuse_tree=tree, reuse_capacity=64)
+        t = prev.move_count.long().clamp(max=cfg.max_game_len - 1)
+        check_ply(prev, active, buf.move[b, t].long(), buf.pi[b, t], states,
+                  f"phase 10 (d) ply {ply}")
+        sel = buf.visits[b, t] > visit_budget(params_fast)
+        per_group.append(sel.reshape(TIER_GROUPS, -1).sum(dim=1).tolist())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = point_liberties_batch.launches
+    if any(n != b_sel // TIER_GROUPS for row in per_group for n in row) or launches <= 0:
+        raise AssertionError(f"phase 10 (d): selected boards per group {per_group} "
+                             f"(want {b_sel // TIER_GROUPS}), launches {launches}")
+    log(f"phase 10 (d): selfplay_step_tiered with tier_groups={TIER_GROUPS} at B={B}, "
+        f"{TIER_PLIES} plies in {dt:.2f} s: every move legal and superko-clean, pi_improved "
+        f"sums to 1, {b_sel // TIER_GROUPS} selected boards in every group every ply")
+    return launches, {"tier_groups": TIER_GROUPS, "plies": TIER_PLIES, "seconds": dt,
+                      "selected_per_group": per_group, "liberty_launches": launches}
+
+
+def phase_gtp(device, smi, gen_root: str, mix_model, boards, gen):
+    """Phase 10 (see the module docstring). Returns ({part: liberty
+    launches}, the {"gtp": ...} measurements)."""
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(gen_root, "model_0001")
+    sgf_dir = os.path.join(gen_root, "sgf")
+    sgf_path = os.path.join(sgf_dir, sorted(os.listdir(sgf_dir))[0])
+    launches, info, parts_s = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launches["server"], info["server"] = gtp_server(device, smi, ckpt, sgf_path, tmp)
+        parts_s["server"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["entry_point"] = gtp_entry_point(ckpt)
+    parts_s["entry_point"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["ladders"], info["ladders"] = gtp_ladders(
+        device, boards, load_model(GTP_MODEL, ckpt, device))
+    parts_s["ladders"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["tier_groups"], info["tier_groups"] = gtp_tier_groups(device, mix_model, gen)
+    parts_s["tier_groups"] = time.perf_counter() - t0
+    info["parts_s"] = parts_s
+    info["phase_wall_s"] = time.perf_counter() - t_phase
+    info["card"] = smi
+    log(f"phase 10: wall {info['phase_wall_s']:.1f} s: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in zip("abcd", parts_s.values())) + f" ({smi})")
+    return launches, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1662,11 +2085,15 @@ def main() -> int:
     learn_launches, learn = phase_learn(device, smi)
     print(json.dumps({"learn": learn}), flush=True)
 
-    gen_launches, gen_info = phase_gen(device, smi)
-    print(json.dumps({"gen": gen_info}), flush=True)
+    with tempfile.TemporaryDirectory() as gen_root:
+        gen_launches, gen_info = phase_gen(device, smi, gen_root)
+        print(json.dumps({"gen": gen_info}), flush=True)
 
-    search_launches, search_info = phase_search(device, smi)
-    print(json.dumps({"search": search_info}), flush=True)
+        search_launches, search_info = phase_search(device, smi)
+        print(json.dumps({"search": search_info}), flush=True)
+
+        gtp_launches, gtp_info = phase_gtp(device, smi, gen_root, model, boards, gen)
+        print(json.dumps({"gtp": gtp_info}), flush=True)
 
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
@@ -1684,6 +2111,8 @@ def main() -> int:
         "launches_phase7": learn_launches,
         "launches_phase8": gen_launches,
         "launches_phase9": search_launches,
+        "launches_phase10": gtp_launches["server"],
+        "launches_phase10_parts": gtp_launches,
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],

@@ -367,6 +367,18 @@ def strip_history(state: GoState) -> GoState:
     return state._replace(history=state.history[:, :0])
 
 
+def _move_status(is_pass, occupied, pa_banned, suicide, superko) -> torch.Tensor:
+    """Move status codes, first cause first: pass (and out of bounds) is
+    valid, then occupied, pass-alive region, self-capture, positional
+    superko (board.py:497-513 of the JAX package)."""
+    status = torch.full_like(occupied, MOVE_VALID, dtype=torch.int32)
+    status = torch.where(superko, MOVE_REPEATED_POSITION, status)
+    status = torch.where(suicide, MOVE_SELF_CAPTURE, status)
+    status = torch.where(pa_banned, MOVE_PASS_ALIVE_REGION, status)
+    status = torch.where(occupied, MOVE_LOC_NOT_EMPTY, status)
+    return torch.where(is_pass, MOVE_VALID, status).to(torch.int32)
+
+
 def step(state: GoState, action: torch.Tensor) -> Tuple[GoState, torch.Tensor]:
     """Play `action` [B] (0..360 point, 361 pass) for each board's to_move.
 
@@ -388,12 +400,7 @@ def step(state: GoState, action: torch.Tensor) -> Tuple[GoState, torch.Tensor]:
     illegal = (sim.occupied | sim.suicide | superko | pa_banned) & ~is_pass
     do_play = ~is_pass & ~illegal
 
-    status = torch.full((B,), MOVE_VALID, dtype=torch.int32, device=dev)
-    status = torch.where(superko, MOVE_REPEATED_POSITION, status)
-    status = torch.where(sim.suicide, MOVE_SELF_CAPTURE, status)
-    status = torch.where(pa_banned, MOVE_PASS_ALIVE_REGION, status)
-    status = torch.where(sim.occupied, MOVE_LOC_NOT_EMPTY, status)
-    status = torch.where(is_pass, MOVE_VALID, status).to(torch.int32)
+    status = _move_status(is_pass, sim.occupied, pa_banned, sim.suicide, superko)
 
     dp = do_play[:, None]
     stones_f = torch.where(dp, sim.stones, state.stones)
@@ -491,3 +498,46 @@ def superko_violation(state: GoState, action: torch.Tensor) -> torch.Tensor:
                         state.to_move)
     return in_bounds & ~sim.occupied & ~sim.suicide & in_history(state,
                                                                  sim.new_hash)
+
+
+def _dry_run(state: GoState, actions: torch.Tensor) -> torch.Tensor:
+    """Exact statuses of M candidate actions per board, actions [B, M] ->
+    int32[B, M]: one `simulate_play` over the B*M lanes, each lane a copy of
+    its board, and positional superko against each board's history."""
+    B, M = actions.shape
+    actions = actions.long()
+    in_bounds = (actions >= 0) & (actions < NUM_LOCS)
+    p = actions.clamp(0, NUM_LOCS - 1)
+    lanes = lambda x: x[:, None].expand(B, M, *x.shape[1:]).reshape(B * M, *x.shape[1:])
+    sim = simulate_play(lanes(state.stones), lanes(state.chain_id),
+                        lanes(state.hash), p.reshape(-1), lanes(state.to_move))
+    cap = state.history.shape[1]
+    if cap == 0:
+        superko = torch.zeros_like(in_bounds)
+    else:
+        valid = torch.arange(cap, device=p.device)[None] < state.history_len[:, None]
+        new_hash = sim.new_hash.reshape(B, M, 1, 2)
+        eq = (state.history[:, None] == new_hash).all(dim=3) & valid[:, None]
+        superko = eq.any(dim=2)
+    pa_banned = state.pass_alive.gather(1, p) != EMPTY
+    return _move_status(~in_bounds, sim.occupied.reshape(B, M), pa_banned,
+                        sim.suicide.reshape(B, M), superko)
+
+
+def dry_run_status(state: GoState, action: torch.Tensor) -> torch.Tensor:
+    """Exact status of `action` [B] for each board's to_move, positional
+    superko included -> int32[B] (board.py:491-513 of the JAX package,
+    batch-first). Out-of-bounds actions are passes, hence valid."""
+    return _dry_run(state, action.reshape(-1, 1))[:, 0]
+
+
+def full_legal_mask(state: GoState) -> torch.Tensor:
+    """Exact legality of all 362 actions, positional superko included ->
+    bool[B, 362] (board.py:516-523 of the JAX package): the 361 points in
+    one dry run over B*361 lanes, then the pass, always legal. About 361
+    times the work of `legal_mask_batch`; for GTP, analysis and tests."""
+    B = state.stones.shape[0]
+    pts = torch.arange(NUM_LOCS, device=state.stones.device).expand(B, NUM_LOCS)
+    legal = _dry_run(state, pts) == MOVE_VALID
+    return torch.cat([legal, torch.ones((B, 1), dtype=torch.bool,
+                                        device=legal.device)], dim=1)

@@ -198,14 +198,18 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def make_eval_fn(model, symmetrize: bool = True, p_opt_weight: float = 0.0,
-                 use_fused_trunk: bool = False,
+def make_eval_fn(model, symmetrize: bool = True, include_ladders: bool = False,
+                 p_opt_weight: float = 0.0, use_fused_trunk: bool = False,
                  serve_fold: bool = False) -> EvalFn:
     """NN eval adapter: featurize, run the network, reduce its outputs.
 
     With `symmetrize`, each position is evaluated under the D4 symmetry
     `hash[:, 0] % 8` and the policy is mapped back (nn_interface.cc:123-127;
-    the hash-derived choice is the JAX package's). `p_opt_weight` blends
+    the hash-derived choice is the JAX package's). `include_ladders` fills
+    the laddered-stones planes, read on the symmetrized state: its chain
+    labels are permuted, not renumbered, as in JAX, so the ladder reader
+    (which takes a chain whose label is its own point as a candidate) can
+    see fewer candidates under some symmetries. `p_opt_weight` blends
     the optimistic policy head into the priors in probability space,
     (1-w)*softmax(pi) + w*softmax(pi_opt) (JAX gumbel.py:289-295).
     `serve_fold` runs the folded, head-pruned `nn/serve.py` forward, built
@@ -238,7 +242,8 @@ def make_eval_fn(model, symmetrize: bool = True, p_opt_weight: float = 0.0,
                 last_moves=apply_symmetry_action(states.last_moves, sym),
                 ko_point=torch.where(ko_on, ko_mapped.to(ko.dtype), ko),
             )
-        planes, scalars = batched_features(states, planes_dtype=model.dtype)
+        planes, scalars = batched_features(states, include_ladders,
+                                           planes_dtype=model.dtype)
         out = net(planes, scalars)
         pi_logits = out.pi_logits
         if p_opt_weight > 0.0:

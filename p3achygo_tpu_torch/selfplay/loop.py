@@ -10,8 +10,10 @@ is the single-tier step (one search width for the batch, the whole step a
 selected or a fast one), which rl/slice.py drives. Finished games are
 scored by `final_scores` and replaced by `reset_finished`.
 
-Ported for `tier_groups=1`. The value-bias table (mcts/bias.py) rides
-along the tiered step and `reset_finished` when one is given.
+With `tier_groups` G > 1 the tier draw is independent per group of B/G
+consecutive boards, and every gather and scatter of the tiered step stays
+within a group. The value-bias table (mcts/bias.py) rides along the
+tiered step and `reset_finished` when one is given.
 
 Every random draw comes from the `generator` argument, or from a
 `StepDraws` / `SelfplayDraws` built beforehand, so tests can inject the JAX
@@ -165,14 +167,25 @@ def _zero_pre_stats(B: int, device) -> RootPreStats:
                         nn_uncertainty=z, prior_entropy=z)
 
 
+def tier_groups(B: int, cfg: SelfplayConfig) -> int:
+    """The number G of tier groups of a B-board step (B % G == 0, at least
+    two boards, one per tier, in each group)."""
+    G = max(1, min(cfg.tier_groups, B))
+    if B % G:
+        raise ValueError(f"tier_groups={G} does not divide the batch of {B}")
+    if B // G < 2:
+        raise ValueError(f"tier_groups={G} leaves {B // G} board(s) per group; "
+                         "need >= 2 (one per tier)")
+    return G
+
+
 def tier_sizes(B: int, cfg: SelfplayConfig):
-    """(selected, fast) sub-batch sizes of one step."""
-    if cfg.tier_groups != 1:
-        raise NotImplementedError("tier_groups > 1 is not ported")
-    if B < 2:
-        raise ValueError("need >= 2 boards, one per tier")
-    b_sel = min(max(int(round(B * cfg.trainable_move_prob)), 1), B - 1)
-    return b_sel, B - b_sel
+    """(selected, fast) sub-batch sizes of one step: round(B/G * p) selected
+    boards per group, at least one of each tier, times G groups."""
+    G = tier_groups(B, cfg)
+    Bg = B // G
+    b_sel_g = min(max(int(round(Bg * cfg.trainable_move_prob)), 1), Bg - 1)
+    return b_sel_g * G, B - b_sel_g * G
 
 
 class StepDraws(NamedTuple):
@@ -376,9 +389,10 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                          draws: Optional[StepDraws] = None,
                          bias_table: Optional[BiasTable] = None):
     """One lockstep move with per-board playout-cap randomization
-    (selfplay/loop.py:364-512 of the JAX package): a uniformly random subset
-    of round(B * trainable_move_prob) boards (force_sel boards first) runs
-    the selected search, the rest the fast one, each at its own width.
+    (selfplay/loop.py:364-512 of the JAX package): in each of the
+    `cfg.tier_groups` groups of boards, a uniformly random subset of
+    round(B/G * trainable_move_prob) boards (force_sel boards first) runs
+    the selected search, the rest the fast one, each tier at its own width.
     Each tier searches with its boards' rows of `bias_table` when its
     params have bias_lambda > 0.
 
@@ -387,12 +401,17 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     appended."""
     B = states.stones.shape[0]
     dev = states.stones.device
-    b_sel, _ = tier_sizes(B, cfg)
+    G = tier_groups(B, cfg)
+    Bg = B // G
+    b_sel_g = tier_sizes(B, cfg)[0] // G
     if draws is None:
         draws = draw_step(B, cfg, generator, dev)
-    keys = torch.where(aux.force_sel, draws.perm_u - 2.0, draws.perm_u)
-    perm = torch.sort(keys, stable=True).indices
-    inv = torch.sort(perm, stable=True).indices
+    # force_sel boards sort first within their group; group-local ranks.
+    keys = torch.where(aux.force_sel, draws.perm_u - 2.0, draws.perm_u).reshape(G, Bg)
+    perm_g = torch.argsort(keys, dim=1, stable=True)
+    inv_g = torch.argsort(perm_g, dim=1, stable=True)
+    base = torch.arange(G, device=dev)[:, None] * Bg
+    flat = lambda idx_g: (idx_g + base).reshape(-1)  # group-local -> board
     tau = tau_schedule(states.move_count, cfg)
 
     if reuse_tree is not None:
@@ -427,14 +446,18 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
             nn_q, nn_unc = take(pre.nn_q), take(pre.nn_uncertainty)
         return (res, move, sampling_raw, over, nn_q, nn_unc), ntree, bt
 
-    out_sel, tree_sel, bias_sel = run_tier(perm[:b_sel], params_sel, draws.sel_noise,
-                                           draws.sel_sample, draws.sel_raw)
-    out_fast, tree_fast, bias_fast = run_tier(perm[b_sel:], params_fast,
+    out_sel, tree_sel, bias_sel = run_tier(flat(perm_g[:, :b_sel_g]), params_sel,
+                                           draws.sel_noise, draws.sel_sample,
+                                           draws.sel_raw)
+    out_fast, tree_fast, bias_fast = run_tier(flat(perm_g[:, b_sel_g:]), params_fast,
                                               draws.fast_noise, draws.fast_sample,
                                               draws.fast_raw)
 
     def unperm(a, b_):
-        return torch.cat([a, b_], dim=0)[inv]
+        """Tier rows back to board order, group by group."""
+        merged = torch.cat([a.reshape(G, b_sel_g, *a.shape[1:]),
+                            b_.reshape(G, Bg - b_sel_g, *b_.shape[1:])], dim=1)
+        return merged.reshape(B, *a.shape[1:])[flat(inv_g)]
 
     res = map_state(unperm, out_sel[0], out_fast[0])
     move, sampling_raw, over, nn_q_root, nn_unc_root = (
@@ -444,7 +467,7 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     next_bias = (map_state(unperm, bias_sel, bias_fast)
                  if bias_sel is not None else None)
 
-    is_sel = inv < b_sel
+    is_sel = (inv_g < b_sel_g).reshape(-1)
     keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
         res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
     trainable = torch.where(

@@ -442,3 +442,41 @@ def test_bias_branch_launches_the_liberty_kernel(device, boards):
     torch.cuda.synchronize()
     assert tl.point_liberties_batch.launches > plain > 0
     assert int(table.used.sum()) > 0
+
+
+def test_full_legal_mask_on_card_equals_cpu(boards):
+    from p3achygo_tpu_torch.game.board import dry_run_status, full_legal_mask
+
+    sub = map_state(lambda t: t[:8], boards)
+    cpu = map_state(lambda t: t.cpu(), sub)
+    assert torch.equal(full_legal_mask(sub).cpu(), full_legal_mask(cpu))
+    act = torch.arange(8, device=sub.stones.device) * 45
+    assert torch.equal(dry_run_status(sub, act).cpu(), dry_run_status(cpu, act.cpu()))
+
+
+def test_laddered_stones_on_card_equal_cpu(boards):
+    from p3achygo_tpu_torch.game.ladder import laddered_stones
+
+    sub = map_state(lambda t: t[:256], boards)
+    got = laddered_stones(sub)
+    assert got.any()
+    assert torch.equal(got.cpu(), laddered_stones(map_state(lambda t: t.cpu(), sub)))
+    planes, _ = batched_features(sub, include_ladders=True)
+    cpu_planes, _ = batched_features(map_state(lambda t: t.cpu(), sub), include_ladders=True)
+    assert torch.equal(planes.cpu(), cpu_planes)
+
+
+def test_gtp_genmove_launches_the_liberty_kernel(device):
+    from p3achygo_tpu_torch.game.board import full_legal_mask
+    from p3achygo_tpu_torch.gtp import GtpConfig, GtpService, gtp_vertex_to_action
+    from p3achygo_tpu_torch.mcts.gumbel import SearchParams
+
+    model = seeded_model("tiny", device, torch.Generator().manual_seed(0))
+    svc = GtpService(make_eval_fn(model), GtpConfig(search=SearchParams(n=16, k=4)),
+                     device=device)
+    assert svc.handle("play b D4") == (True, "")
+    before = tl.point_liberties_batch.launches
+    ok, vertex = svc.handle("genmove w")
+    assert ok and tl.point_liberties_batch.launches > before
+    prev = svc._history[-1]  # the position genmove searched, white to move
+    assert bool(full_legal_mask(prev)[0, gtp_vertex_to_action(vertex)])

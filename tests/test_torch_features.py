@@ -29,6 +29,17 @@ def test_batched_features_exact(dtype, moves, pass_prob):
 
 
 def test_ladder_planes_not_ported():
-    js = random_jax_states(B=1, moves=3, seed=0)
-    with pytest.raises(NotImplementedError):
-        batched_features(state_to_torch(js), include_ladders=True)
+    """include_ladders=True (once unported) adds planes 13/14, the own and
+    opponent stones of laddered_stones (held against JAX in
+    tests/test_torch_ladder.py), and changes no other plane or scalar."""
+    from p3achygo_tpu_torch.game.ladder import laddered_stones
+
+    ts = state_to_torch(random_jax_states(B=4, moves=90, seed=3))
+    p0, s0 = batched_features(ts, include_ladders=False)
+    p1, s1 = batched_features(ts, include_ladders=True)
+    lad = laddered_stones(ts).reshape(4, 19, 19)
+    assert lad.any()
+    np.testing.assert_array_equal(p1[..., :13].numpy(), p0[..., :13].numpy())
+    np.testing.assert_array_equal(s1.numpy(), s0.numpy())
+    np.testing.assert_array_equal(p1[..., 13].numpy(), (lad & (p0[..., 0] > 0)).numpy())
+    np.testing.assert_array_equal(p1[..., 14].numpy(), (lad & (p0[..., 1] > 0)).numpy())

@@ -164,3 +164,58 @@ def tiny_pair(seed: int):
     load_flax_variables(tm, np_vars)
     return (jax_build(jax_get_config("tiny")),
             jax.tree_util.tree_map(jnp.asarray, np_vars), tm)
+
+
+def gumbel_rows(key, n: int) -> torch.Tensor:
+    """jax.random.gumbel(key, (n, 362)) as a CPU tensor."""
+    return torch.tensor(np.array(jax.random.gumbel(key, (n, 362))))
+
+
+def tiered_step_draws(key, B: int, b_sel: int):
+    """Every draw of one JAX selfplay_step_tiered call on `key`
+    (loop.py:394-499, gumbel.py:850-851, 1579-1584), as the port's
+    StepDraws."""
+    from p3achygo_tpu_torch.selfplay.loop import StepDraws
+
+    _, kperm, ks1, ks2, kr1, kr2, ksel = jax.random.split(key, 7)
+
+    def search(ks, n):
+        k1, knoise = jax.random.split(ks)
+        _, ksample = jax.random.split(k1)
+        return gumbel_rows(knoise, n), gumbel_rows(ksample, n)
+
+    sel_noise, sel_sample = search(ks1, b_sel)
+    fast_noise, fast_sample = search(ks2, B - b_sel)
+    u = lambda k: torch.tensor(np.array(jax.random.uniform(k, (B,))))
+    return StepDraws(perm_u=u(kperm), sel_noise=sel_noise, sel_sample=sel_sample,
+                     fast_noise=fast_noise, fast_sample=fast_sample,
+                     sel_raw=gumbel_rows(kr1, b_sel), fast_raw=gumbel_rows(kr2, B - b_sel),
+                     train_u=u(ksel))
+
+
+def table_evals(seed: int, rows: int = 251):
+    """(JAX evaluator, port evaluator) that look every output up in one
+    seeded table by hash lane 0 mod `rows`: exact in both frameworks."""
+    from p3achygo_tpu_torch.mcts import gumbel as tg
+
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 2, size=(rows, 362))
+    logp = (logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))).astype(np.float32)
+    tab = dict(logp=logp, v=rng.uniform(-0.9, 0.9, rows).astype(np.float32),
+               score=rng.normal(0, 10, rows).astype(np.float32),
+               var=rng.uniform(0, 50, rows).astype(np.float32))
+
+    def jax_eval(states):
+        idx = (states.hash[:, 0] % rows).astype(jnp.int32)
+        return jg.EvalOutput(log_priors=jnp.asarray(tab["logp"])[idx],
+                             outcome_value=jnp.asarray(tab["v"])[idx],
+                             score_est=jnp.asarray(tab["score"])[idx],
+                             score_var=jnp.asarray(tab["var"])[idx])
+
+    t = {k: torch.from_numpy(v) for k, v in tab.items()}
+
+    def torch_eval(states):
+        idx = states.hash[:, 0] % rows
+        return tg.EvalOutput(log_priors=t["logp"][idx], outcome_value=t["v"][idx],
+                             score_est=t["score"][idx], score_var=t["var"][idx])
+    return jax_eval, torch_eval
