@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's self-play, learning, generation, search and
-GTP paths once on an NVIDIA card.
+"""Drive the PyTorch port's self-play, learning, generation, search, GTP
+and store-bus paths once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -144,15 +144,48 @@ fallback):
              model_0001 with no --device answers `genmove b` and quits.
              (c) batched_features(include_ladders=True) on the card equal
              to the CPU's on the six positions of tests/test_ladder.py and
-             1,024 boards of phase 2; one make_eval_fn(include_ladders=
-             True) call finite; ms per featurizer call at B=1024 with and
-             without ladders, ladder syncs per call. (d) phase 4's mix at
+             the first 256 of 1,024 boards of phase 2 (LADDER_CPU_B); one
+             make_eval_fn(include_ladders=True) call finite; ms per
+             featurizer call at B=1024 with and without ladders, ladder
+             syncs per call. (d) phase 4's mix at
              B=256 with tier_groups=4 for 4 plies: every move legal and
              superko-clean, pi_improved summing to 1, B_sel/G selected
              boards in every group every ply.
 
-Phases 7, 8, 9 and 10 print {"learn": ...}, {"gen": ...}, {"search": ...}
-and {"gtp": ...} JSON lines of their measurements. Before the
+  11 bus    the data formats, the store bus and the workers, in phase 8's
+             directory, at phase 8's configuration and cuts plus BUS_CUTS
+             (games_per_gen 12); prints the tfrecord codec in use:
+             (a) in this process, on a LocalStore: the Learner publishes
+             gen 0; the SelfplayActor syncs it (a second sync returns
+             False), plays a B=128 round of 32-move games and publishes the
+             chunk; the learner ingests it (a second ingest adds 0), trains,
+             gates (phase 8's eval) and publishes model_0001; the actor
+             hot-swaps it (its golden equal to the learner's bit for bit,
+             loop.gen 1) and publishes a second chunk. Checks each chunk's
+             name against CHUNK_FORMAT and its .done, a payload without
+             .done unlisted, read_game_chunk equal to the games the actor
+             sank under the format's reconstruction rules (z, weight,
+             has_pi_aux_dist), the exported liberty planes equal to
+             point_liberties_reference's, and the liberty kernel launched
+             by the actor, the exporter and the learner; prints self-play
+             s, export ms per game, bytes per chunk, ingest ms.
+             (b) python -m p3achygo_tpu_torch.rl --role learner and --role
+             actor as two processes (no --device) on one store and a
+             config file with (a)'s cuts, --gens 1: both exit 0 within
+             BUS_ENTRY_TIMEOUT_S and the store holds model_0001.done.
+             (c) python -m p3achygo_tpu_torch.experiments visits_study on
+             (a)'s first chunk with phase 8's model_0001 (BUS_STUDY): every
+             KLD finite and >= 0, the report parses; play_games of 4 games
+             of at most 16 moves with a BiasCallback: scored, heaps dumped.
+             (d) build_sl_shards over phase 8's SGFs with 2 workers on the
+             card: the shards hold exactly the records of the lockstep
+             replay on the CPU, the .done report's counts match, four games
+             replayed alone on the card equal their lockstep examples, and
+             build_sl_replay feeds one prepare_batch. (e) anchor_match of
+             model_0001 against the published gen 0 (BUS_ANCHOR).
+
+Phases 7, 8, 9, 10 and 11 print {"learn": ...}, {"gen": ...}, {"search":
+...}, {"gtp": ...} and {"bus": ...} JSON lines of their measurements. Before the
 last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
 each input read once and each output written once, over 3.35 TB/s) and the
@@ -160,8 +193,10 @@ nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import re
@@ -180,9 +215,21 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from p3achygo_tpu_torch.constants import NUM_MOVES, PASS_MOVE
+from p3achygo_tpu_torch.data import tfrecord
+from p3achygo_tpu_torch.data.example import decode_example
+from p3achygo_tpu_torch.data.export import (CHUNK_FORMAT, examples_to_records,
+                                            read_game_chunk)
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
+from p3achygo_tpu_torch.data.replay import ReplayBuffer
+from p3achygo_tpu_torch.data.sl import (build_sl_replay, build_sl_shards, iter_sgf_dir,
+                                        sgf_to_examples)
+from p3achygo_tpu_torch.data.store import (SP_CHUNKS_DIR, LocalStore, list_done_chunks,
+                                           most_recent_model)
+from p3achygo_tpu_torch.data.tfrecord import read_records
+from p3achygo_tpu_torch.experiments.play_games import BiasCallback, play_games
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import (
+    compute_chains,
     from_stones,
     is_game_over,
     legal_mask_batch,
@@ -225,7 +272,11 @@ from p3achygo_tpu_torch.rl import loop as rl_loop
 from p3achygo_tpu_torch.rl import slice as rl_slice
 from p3achygo_tpu_torch.rl.config import parse as parse_run_config
 from p3achygo_tpu_torch.rl.loop import GenerationLoop
+from p3achygo_tpu_torch.rl import workers as rl_workers
 from p3achygo_tpu_torch.rl.slice import RLSlice, SliceConfig
+from p3achygo_tpu_torch.rl.strength_curve import anchor_match
+from p3achygo_tpu_torch.rl.workers import Learner, SelfplayActor
+from p3achygo_tpu_torch.selfplay.records import GameExamples
 from p3achygo_tpu_torch.selfplay.stats import compute_calibration
 from p3achygo_tpu_torch.sgf import extract_moves, parse_sgf
 from p3achygo_tpu_torch.selfplay.loop import (
@@ -333,6 +384,10 @@ GTP_PLAY_AFTER = (4, 8, 12)  # a `play` follows these genmoves
 # a 1 s budget needs a 2 s period (a 1 s period would mean an untimed search).
 GTP_BYOYOMI_S = 2
 LADDER_B = 1024
+# Boards of the LADDER_B batch that the CPU reference recomputes (a depth
+# cut from all 1024, whose CPU reference took 18-27 s, to keep the script
+# near half its time limit; each board's planes depend on that board alone).
+LADDER_CPU_B = 256
 # The six positions of tests/test_ladder.py as (black, white, to_move).
 LADDER_POSITIONS = (
     (((8, 9), (9, 8), (8, 10)), ((9, 9),), 1),
@@ -344,6 +399,18 @@ LADDER_POSITIONS = (
 )
 TIER_GROUPS = 4
 TIER_PLIES = 4
+# Phase 11: the bus (actor/learner over a LocalStore, the entry point's two
+# roles, the experiments, SL shards, an anchor match), phase 8's
+# configuration with its cuts. games_per_gen 512 -> 12: the learner waits for
+# games_per_gen * 60 = 720 examples, one or two chunks of B=128 (phase 8's
+# generation kept ~6.7 trainable examples per game of at most 32 moves).
+BUS_CUTS = dict(games_per_gen=12)
+BUS_ENTRY_TIMEOUT_S = 420
+BUS_STUDY = ["--num_examples", "16", "--gt_n", "256", "--n_values", "32,64",
+             "--seed_visits", "8"]
+BUS_PLAY = dict(num_games=4, visit_count=32, k=4, max_moves=16)
+BUS_SL_WORKERS = 2
+BUS_ANCHOR = dict(num_games=8, n=16, k=4, max_game_len=16)
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
@@ -1853,7 +1920,10 @@ def gtp_server(device, smi, ckpt: str, sgf_path: str, tmp: str):
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"phase 10 (a): failed checks {failed}; bad answers {bad[:4]}")
+        raise AssertionError(f"phase 10 (a): failed checks {failed}; bad answers {bad[:4]}; "
+                             f"byoyomi genmove {byo_ms:.1f} ms, budget {budget_ms} ms, "
+                             f"16-visit slice {slice16_ms:.1f} ms, slices (n, visits, ms, "
+                             f"root visits) {byo_slices}")
     info = {"genmove_ms_median": statistics.median(genmove_ms), "genmove_ms_max": max(genmove_ms),
             "genmove_ms": genmove_ms, "host_syncs_per_genmove": syncs,
             "syncs_by_cause": counts["syncs"],
@@ -1916,14 +1986,15 @@ def gtp_ladders(device, boards, model) -> tuple:
     sub = map_state(lambda t: t[:LADDER_B].contiguous(), boards)
     cpu = lambda st: map_state(lambda t: t.cpu(), st)
     equal, marked = [], 0
-    for st in (ladder_positions(device), sub):
+    for st, n in ((ladder_positions(device), len(LADDER_POSITIONS)), (sub, LADDER_CPU_B)):
         s0 = laddered_stones.syncs
         planes, scalars = batched_features(st, include_ladders=True)
         syncs = laddered_stones.syncs - s0
         t0 = time.perf_counter()
-        want = batched_features(cpu(st), include_ladders=True)
+        want = batched_features(cpu(map_state(lambda t: t[:n], st)), include_ladders=True)
         cpu_s = time.perf_counter() - t0
-        equal.append(torch.equal(planes.cpu(), want[0]) and torch.equal(scalars.cpu(), want[1]))
+        equal.append(torch.equal(planes[:n].cpu(), want[0])
+                     and torch.equal(scalars[:n].cpu(), want[1]))
         marked = int(planes[..., 13:].sum())
     out = make_eval_fn(model, include_ladders=True)(sub)
     launches = point_liberties_batch.launches
@@ -1935,13 +2006,14 @@ def gtp_ladders(device, boards, model) -> tuple:
                                 for _ in range(3))
     without_ms = wall_ms(lambda: batched_features(sub))
     busy_ms, kernels, _ = device_profile(lambda: batched_features(sub, include_ladders=True))
-    info = {"boards": LADDER_B, "featurize_ms_ladders": with_ms,
+    info = {"boards": LADDER_B, "cpu_boards": LADDER_CPU_B, "featurize_ms_ladders": with_ms,
             "featurize_ms_plain": without_ms, "ladder_syncs_per_call": syncs,
             "laddered_stones": marked, "liberty_launches": launches,
             "cpu_reference_s": cpu_s, "profiled_busy_ms": busy_ms, "profiled_kernels": kernels,
             "idle_share": 1 - busy_ms / with_ms}
     log(f"phase 10 (c): batched_features(include_ladders=True) card == CPU on the 6 ladder "
-        f"positions and {LADDER_B} random-play boards ({marked} laddered stones); "
+        f"positions and the first {LADDER_CPU_B} of {LADDER_B} random-play boards ({marked} "
+        f"laddered stones in all {LADDER_B}); "
         f"make_eval_fn(include_ladders=True) finite; at B={LADDER_B}: {with_ms:.2f} ms per call "
         f"with ladders ({busy_ms:.1f} ms device busy, {kernels:.0f} kernels, idle share "
         f"{info['idle_share']:.3f}), {without_ms:.3f} ms without; {syncs} host syncs per call; "
@@ -2021,6 +2093,377 @@ def phase_gtp(device, smi, gen_root: str, mix_model, boards, gen):
     return launches, info
 
 
+def bus_config():
+    """Phase 8's configuration (gen_config) with phase 11's cuts."""
+    return dataclasses.replace(gen_config(), **BUS_CUTS)
+
+
+@contextlib.contextmanager
+def measured(stats: dict, key: str, owner, name: str):
+    """While open, each call of `owner.name` appends its wall seconds (host
+    clock between synchronizes) and its liberty launches to stats[key]."""
+    real = getattr(owner, name)
+    own = name in vars(owner)
+
+    def fn(*a, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = point_liberties_batch.launches, time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        rec = stats.setdefault(key, {"s": [], "launches": 0})
+        rec["s"].append(time.perf_counter() - t0)
+        rec["launches"] += point_liberties_batch.launches - n0
+        return out
+
+    setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)
+
+
+def rebuilt_examples(games) -> GameExamples:
+    """The sunk games as one batch after the chunk format's reconstruction
+    rules: z = sign(margin), weight 1, has_pi_aux_dist = any(pi_aux_dist)."""
+    cat = GameExamples(**{f.name: np.concatenate([getattr(g, f.name) for g in games])
+                          for f in dataclasses.fields(GameExamples)})
+    cat.z = np.where(cat.score_margin > 0, 1.0, -1.0).astype(np.float32)
+    cat.weight = np.ones_like(cat.weight)
+    cat.has_pi_aux_dist = np.abs(cat.pi_aux_dist).sum(-1) > 0
+    return cat
+
+
+def check_exported_planes(path: str) -> int:
+    """The atari / two / three-liberty planes of each record of the chunk at
+    `path` equal those of point_liberties_reference on its board (CPU).
+    Returns the number of boards with a stone of at most three liberties."""
+    recs = [decode_example(r) for r in read_records(path)]
+    stones = torch.from_numpy(np.stack([np.frombuffer(d["board"], np.int8) for d in recs]))
+    libs = point_liberties_reference(stones, compute_chains(stones)).numpy()
+    s = stones.numpy()
+    for key, n in (("stones_atari", 1), ("stones_two_liberties", 2),
+                   ("stones_three_liberties", 3)):
+        got = np.stack([np.frombuffer(d[key], np.int8) for d in recs])
+        if not np.array_equal(got, np.where(libs == n, s, 0)):
+            raise AssertionError(f"phase 11 (a): exported {key} != the plain liberties'")
+    return int(((libs <= 3) & (s != 0)).any(axis=1).sum())
+
+
+def bus_round_trip(device, root: str) -> dict:
+    """Phase 11 (a): learner -> store -> actor -> chunk -> store -> learner
+    -> store -> actor, in this process."""
+    cfg = bus_config()
+    store = LocalStore(os.path.join(root, "bus"))
+    learner = Learner(cfg, store, run_dir=os.path.join(root, "learner"), seed=GEN_SEED,
+                      device=device)
+    learner.publish_golden()
+    actor = SelfplayActor(cfg, store, worker_id="w0", scratch_dir=os.path.join(root, "actor"),
+                          seed=GEN_SEED + 1, device=device)
+    first_sync, second_sync = actor.sync_model(), actor.sync_model()
+    sunk = []
+
+    def sink(ex):
+        sunk.append(ex)
+        actor._pending.append(ex)
+
+    actor.loop.game_sink = sink
+    stats, chunks = {}, []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(measured(stats, "actor_selfplay", actor.loop, "selfplay_games"))
+        stack.enter_context(measured(stats, "export", rl_workers, "write_game_chunk"))
+        stack.enter_context(measured(stats, "ingest", learner, "ingest_new_chunks"))
+        stack.enter_context(measured(stats, "learner_train_gate", learner.loop, "train_and_gate"))
+        chunks.append((actor.play_and_publish(cfg.games_per_gen), list(sunk)))
+        sunk.clear()
+        ingested = learner.ingest_new_chunks()
+        reingested = learner.ingest_new_chunks()
+        train = learner.train_generation()
+        swapped = actor.sync_model()
+        want = learner.loop.golden.state_dict()
+        have = actor.loop.golden.state_dict()
+        same_golden = (have.keys() == want.keys()
+                       and all(torch.equal(have[k], want[k]) for k in want))
+        chunks.append((actor.play_and_publish(cfg.games_per_gen), list(sunk)))
+
+    fmt = re.compile(r"gen(\d{3})_b(\d{3})_g(\d{3})_n(\d{5})_t\d+_w0\.tfrecord\.zz")
+    names_ok, decoded_ok, sizes, planes_boards = True, True, [], 0
+    for b, (name, games) in enumerate(chunks):
+        m = fmt.fullmatch(os.path.basename(name))
+        back = read_game_chunk(store.local_path(name))
+        names_ok &= (m is not None and store.is_done(name)
+                     and (int(m[1]), int(m[2]), int(m[3]), int(m[4]))
+                     == (b, b, len(games), len(back)))
+        want = rebuilt_examples(games)
+        decoded_ok &= all(np.array_equal(getattr(back, f.name), getattr(want, f.name))
+                          and getattr(back, f.name).dtype == getattr(want, f.name).dtype
+                          for f in dataclasses.fields(GameExamples))
+        sizes.append(os.path.getsize(store.local_path(name)))
+        planes_boards += check_exported_planes(store.local_path(name))
+    torn = f"{SP_CHUNKS_DIR}/" + CHUNK_FORMAT % (0, 99, 1, 1, 0, "w9")
+    store.write_bytes(torn, b"a payload with no .done marker")
+    listed = list_done_chunks(store)
+    games = [len(g) for _, g in chunks]
+    examples = [sum(len(g) for g in gs) for _, gs in chunks]
+    checks = {
+        "gen 0 synced, then nothing newer": first_sync and not second_sync,
+        "chunk names and .done": names_ok,
+        "chunks decode to the sunk games": decoded_ok,
+        "payload without .done unlisted": (os.path.basename(torn) not in listed
+                                           and all(os.path.basename(n) in listed
+                                                   for n, _ in chunks)),
+        "ingest = chunk 1's examples": ingested == examples[0],
+        "re-ingest adds 0": reingested == 0,
+        "model_0001 published": train["gen"] == 1 and most_recent_model(store) == 1,
+        "hot swap bitwise": swapped and same_golden and actor.loop.gen == 1,
+        "exporter launched the liberty kernel": stats["export"]["launches"] > 0,
+        "actor and learner launched it": (stats["actor_selfplay"]["launches"] > 0
+                                          and stats["learner_train_gate"]["launches"] > 0),
+        "liberty planes not all empty": planes_boards > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 11 (a): failed checks {bad}")
+    export_s = stats["export"]["s"]
+    return {
+        "chunks": [os.path.basename(n) for n, _ in chunks], "games": games,
+        "examples": examples, "chunk_bytes": sizes,
+        "actor_selfplay_s": stats["actor_selfplay"]["s"],
+        "export_ms_per_game": [1e3 * s / g for s, g in zip(export_s, games)],
+        "export_s": export_s, "ingest_ms": 1e3 * stats["ingest"]["s"][0],
+        "learner_train_gate_s": stats["learner_train_gate"]["s"][0],
+        "learner_elo": train["elo"], "learner_promoted": train["promoted"],
+        "launches": {k: v["launches"] for k, v in stats.items()},
+        "bus_dir": os.path.join(root, "bus"),
+    }
+
+
+def bus_entry_point(root: str) -> dict:
+    """Phase 11 (b): `python -m p3achygo_tpu_torch.rl --role learner` and
+    `--role actor`, two processes with no --device, one store, --gens 1."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cfg_path = os.path.join(root, "bus_cli.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(bus_config()), f)
+    store_dir = os.path.join(root, "bus_cli")
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for role in ("learner", "actor"):
+            logs[role] = (os.path.join(root, f"cli_{role}.out"),
+                          os.path.join(root, f"cli_{role}.err"))
+            with open(logs[role][0], "w") as out, open(logs[role][1], "w") as err:
+                procs[role] = subprocess.Popen(
+                    [sys.executable, "-m", "p3achygo_tpu_torch.rl", "--config", cfg_path,
+                     "--gens", "1", "--role", role, "--store", store_dir,
+                     "--run-dir", os.path.join(root, f"cli_{role}")],
+                    stdout=out, stderr=err, cwd=repo, env=env)
+        rcs = {}
+        for role, proc in procs.items():
+            left = BUS_ENTRY_TIMEOUT_S - (time.perf_counter() - t0)
+            rcs[role] = proc.wait(timeout=max(left, 1.0))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    out = {role: open(paths[0]).read() for role, paths in logs.items()}
+    lines = {role: [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+             for role, text in out.items()}
+    ok = (all(rc == 0 for rc in rcs.values())
+          and os.path.exists(os.path.join(store_dir, "models", "model_0001.done"))
+          and any(x.get("gen") == 1 for x in lines["learner"])
+          and any(x.get("chunk") for x in lines["actor"]))
+    if not ok:
+        raise AssertionError(f"phase 11 (b): rcs {rcs}, stdout {out}, stderr tails " + str(
+            {role: open(paths[1]).read()[-2000:] for role, paths in logs.items()}))
+    return {"wall_s": wall, "actor_chunks": sum(1 for x in lines["actor"] if x.get("chunk")),
+            "learner": lines["learner"][-1]}
+
+
+def parse_study_report(text: str) -> dict:
+    """The numbers of format_report's table: the prior line's four KLD
+    statistics and each N row's KLD(GT||N), KLD(N||prior), nats/visit."""
+    prior = re.search(r"KLD\(GT, prior\) -- mean: (\S+)  p75: (\S+)  p95: (\S+)  max: (\S+)",
+                      text)
+    rows = re.findall(r"^(\d+) +(\S+) +(\S+) +(\S+) *$", text, re.MULTILINE)
+    examples = re.search(r"^Examples: +(\d+)$", text, re.MULTILINE)
+    if prior is None or not rows or examples is None:
+        raise AssertionError(f"phase 11 (c): the report does not parse: {text!r}")
+    return {"examples": int(examples[1]), "prior": [float(x) for x in prior.groups()],
+            "rows": [[int(r[0])] + [float(x) for x in r[1:]] for r in rows]}
+
+
+def bus_experiments(device, gen_root: str, chunk: str) -> dict:
+    """Phase 11 (c): the visits study as a subprocess on (a)'s first chunk
+    with phase 8's model_0001; play_games in this process."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cfg = bus_config()
+    ckpt = os.path.join(gen_root, "model_0001")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "p3achygo_tpu_torch.experiments", "visits_study",
+         "--model_path", ckpt, "--model_config", cfg.model_config, "--chunk_path", chunk,
+         *BUS_STUDY], capture_output=True, text=True, timeout=600, cwd=repo, env=env)
+    study_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11 (c): visits_study rc {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    report = parse_study_report(proc.stdout)
+    klds = report["prior"] + [x for r in report["rows"] for x in r[1:3]]
+    flag = lambda name: BUS_STUDY[BUS_STUDY.index(name) + 1]
+    n_values = [int(x) for x in flag("--n_values").split(",")]
+    if not (report["examples"] == int(flag("--num_examples"))
+            and [r[0] for r in report["rows"]] == n_values
+            and all(np.isfinite(x) and x >= 0 for x in klds)
+            and all(np.isfinite(r[3]) for r in report["rows"])):
+        raise AssertionError(f"phase 11 (c): bad study report {report}")
+
+    model = load_model(cfg.model_config, ckpt, device)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n0 = point_liberties_batch.launches
+    results = play_games(make_eval_fn(model), BUS_PLAY["num_games"], BUS_PLAY["visit_count"],
+                         True, [BiasCallback(out=out)], k=BUS_PLAY["k"],
+                         max_moves=BUS_PLAY["max_moves"], seed=GEN_SEED, device=device)
+    torch.cuda.synchronize()
+    play_s = time.perf_counter() - t0
+    text = out.getvalue()
+    ok = (len(results) == BUS_PLAY["num_games"]
+          and all(r.winner in (1, -1) and np.isfinite([r.bscore, r.wscore]).all()
+                  and 1 <= r.num_moves <= BUS_PLAY["max_moves"] for r in results)
+          and text.count("Game Result:") == BUS_PLAY["num_games"]
+          and "Dumping Most Biased Positions for Episode" in text
+          and point_liberties_batch.launches > n0)
+    if not ok:
+        raise AssertionError(f"phase 11 (c): play_games {results}, {text[-500:]!r}")
+    return {"study_s": study_s, "study": report, "play_games_s": play_s,
+            "play_results": [str(r) for r in results],
+            "play_moves": [r.num_moves for r in results]}
+
+
+def bus_sl(device, root: str, gen_root: str) -> dict:
+    """Phase 11 (d): SL shards from phase 8's SGFs, two workers on the card,
+    against the lockstep replay on the CPU; build_sl_replay feeds one
+    prepare_batch on the card."""
+    sgf_dir = os.path.join(gen_root, "sgf")
+    out_dir = os.path.join(root, "sl")
+    t0 = time.perf_counter()
+    rep = build_sl_shards(sgf_dir, out_dir, num_workers=BUS_SL_WORKERS, device=str(device))
+    shards_s = time.perf_counter() - t0
+    files = sorted(os.path.join(sgf_dir, n) for n in os.listdir(sgf_dir) if n.endswith(".sgf"))
+    t0 = time.perf_counter()
+    mem = list(iter_sgf_dir(sgf_dir, device="cpu"))
+    want = [r for ex in mem for r in examples_to_records(ex, device="cpu")]
+    cpu_s = time.perf_counter() - t0
+    got = [r for name in rep["shards"] for r in read_records(os.path.join(out_dir, name))]
+    with open(os.path.join(out_dir, "sl_shards.done")) as f:
+        done = json.load(f)
+    alone = [sgf_to_examples(open(p).read(), device=device) for p in files[:4]]
+    replay = ReplayBuffer(capacity=1 << 16)
+    n_games = build_sl_replay(sgf_dir, replay, device=device)
+    n0 = point_liberties_batch.launches
+    planes, scalars, _ = prepare_batch(replay.sample(LEARN_TRAIN_B), device=device)
+    checks = {
+        "shards == in-memory examples": sorted(got) == sorted(want),
+        "report counts": ((rep["files"], rep["games"], rep["examples"], rep["workers"])
+                          == (len(files), len(mem), len(want), BUS_SL_WORKERS)),
+        ".done report": done == rep,
+        "one game alone == its lockstep replay": all(
+            a is not None and all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+                                  for f in dataclasses.fields(GameExamples))
+            for a, b in zip(alone, mem[:4])),
+        "build_sl_replay": n_games == len(mem) and len(replay) == len(want),
+        "prepare_batch": (bool(torch.isfinite(planes).all()) and bool(torch.isfinite(scalars).all())
+                          and point_liberties_batch.launches > n0),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 11 (d): failed checks {bad}; report {rep}")
+    return {"shards_s": shards_s, "cpu_reference_s": cpu_s, "report": rep}
+
+
+def bus_anchor(device, gen_root: str, bus_dir: str) -> dict:
+    """Phase 11 (e): anchor_match of phase 8's model_0001 against the gen-0
+    weights the learner published (seed GEN_SEED, phase 8's initial ones)."""
+    name = bus_config().model_config
+    cand = load_model(name, os.path.join(gen_root, "model_0001"), device)
+    cur = load_model(name, os.path.join(bus_dir, "models", "model_0000"), device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = anchor_match(cand, cur, seed=GEN_SEED, **BUS_ANCHOR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (res.num_games == BUS_ANCHOR["num_games"]
+            and 0 <= res.cand_wins <= res.num_games and np.isfinite(res.elo)):
+        raise AssertionError(f"phase 11 (e): anchor match {res}")
+    return {"wall_s": wall, "cand_wins": res.cand_wins, "games": res.num_games,
+            "elo": res.elo}
+
+
+def phase_bus(device, smi, gen_root: str):
+    """Phase 11 (see the module docstring), in phase 8's directory. Returns
+    (liberty launches of the phase in this process, {part: launches}, the
+    {"bus": ...} measurements)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(gen_root, "bus_phase")
+    os.makedirs(root)
+    codec = "native" if tfrecord.using_native() else "python"
+    log(f"phase 11: tfrecord codec {codec} ({smi})")
+    for k in KERNELS:
+        k.launches = 0
+    info, parts_s = {"codec": codec}, {}
+    for key, fn in (("round_trip", lambda: bus_round_trip(device, root)),
+                    ("entry_point", lambda: bus_entry_point(root)),
+                    ("experiments", lambda: bus_experiments(
+                        device, gen_root, os.path.join(info["round_trip"]["bus_dir"],
+                                                       SP_CHUNKS_DIR,
+                                                       info["round_trip"]["chunks"][0]))),
+                    ("sl", lambda: bus_sl(device, root, gen_root)),
+                    ("anchor", lambda: bus_anchor(device, gen_root,
+                                                  info["round_trip"]["bus_dir"]))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info[key] = fn()
+        torch.cuda.synchronize()
+        parts_s[key] = time.perf_counter() - t0
+    launches = point_liberties_batch.launches
+    rt = info["round_trip"]
+    log(f"phase 11 (a): bus round trip at {bus_config().model_config} bf16, B="
+        f"{bus_config().selfplay_batch_size}: chunks {rt['chunks']} ({rt['games']} games, "
+        f"{rt['examples']} examples, {rt['chunk_bytes']} bytes); actor self-play "
+        + ", ".join(f"{s:.2f}" for s in rt["actor_selfplay_s"]) + " s; export "
+        + ", ".join(f"{x:.2f}" for x in rt["export_ms_per_game"]) + " ms per game; ingest "
+        f"{rt['ingest_ms']:.1f} ms; learner train + gate {rt['learner_train_gate_s']:.2f} s; "
+        f"liberty launches by part {rt['launches']}; every check held ({smi})")
+    ep, ex = info["entry_point"], info["experiments"]
+    log(f"phase 11 (b): --role learner + --role actor (no --device), --gens 1: both rc 0, "
+        f"model_0001.done on the store, {ep['actor_chunks']} actor chunks, "
+        f"{ep['wall_s']:.1f} s wall with start-up ({smi})")
+    log(f"phase 11 (c): visits_study subprocess {ex['study_s']:.1f} s, report {ex['study']}; "
+        f"play_games {ex['play_results']} in {ex['play_games_s']:.2f} s ({smi})")
+    sl, an = info["sl"], info["anchor"]
+    log(f"phase 11 (d): SL shards {sl['report']['games']} games, {sl['report']['examples']} "
+        f"examples in {len(sl['report']['shards'])} shards by {BUS_SL_WORKERS} workers on the "
+        f"card in {sl['shards_s']:.1f} s (CPU reference {sl['cpu_reference_s']:.1f} s) ({smi})")
+    log(f"phase 11 (e): anchor_match model_0001 vs gen 0: {an['cand_wins']:.1f} wins of "
+        f"{an['games']}, elo {an['elo']:.1f}, {an['wall_s']:.2f} s ({smi})")
+    info["parts_s"] = parts_s
+    info["liberty_launches"] = launches
+    info["phase_wall_s"] = time.perf_counter() - t_phase
+    info["card"] = smi
+    log(f"phase 11: wall {info['phase_wall_s']:.1f} s: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in zip("abcde", parts_s.values()))
+        + f"; liberty launches {launches} ({smi})")
+    return launches, rt["launches"], info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2095,6 +2538,9 @@ def main() -> int:
         gtp_launches, gtp_info = phase_gtp(device, smi, gen_root, model, boards, gen)
         print(json.dumps({"gtp": gtp_info}), flush=True)
 
+        bus_launches, bus_parts, bus_info = phase_bus(device, smi, gen_root)
+        print(json.dumps({"bus": bus_info}), flush=True)
+
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
@@ -2113,6 +2559,8 @@ def main() -> int:
         "launches_phase9": search_launches,
         "launches_phase10": gtp_launches["server"],
         "launches_phase10_parts": gtp_launches,
+        "launches_phase11": bus_launches,
+        "launches_phase11_parts": bus_parts,
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],

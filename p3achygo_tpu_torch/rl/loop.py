@@ -171,6 +171,9 @@ class GenerationLoop:
         self._eval_n = None
         self._eval_runner: Optional[EvalRunner] = None
         self._np_rng = np.random.default_rng(seed + 2)
+        # Optional tap on finalized games, called after the replay add (the
+        # actor exports them to the store bus; rl/workers.py).
+        self.game_sink = None
 
     # ---------------- selfplay ----------------
     def _bind_selfplay(self):
@@ -253,6 +256,8 @@ class GenerationLoop:
                     self.val_replay.add_game(ex)
                 else:
                     self.replay.add_game(ex)
+                if self.game_sink is not None:
+                    self.game_sink(ex)
             # Per-move diagnostics for the .stats pipeline
             # (tf_recorder.cc RecordGame move_stats accumulation).
             self._move_stats.append(MoveStatsBatch(

@@ -480,3 +480,60 @@ def test_gtp_genmove_launches_the_liberty_kernel(device):
     assert ok and tl.point_liberties_batch.launches > before
     prev = svc._history[-1]  # the position genmove searched, white to move
     assert bool(full_legal_mask(prev)[0, gtp_vertex_to_action(vertex)])
+
+
+def test_exporter_liberty_planes_on_card_equal_cpu(boards):
+    """The chunk exporter's liberty planes: one kernel launch per game on
+    the card, the plain version's integers on the CPU, the same records."""
+    from p3achygo_tpu_torch.data.export import liberty_planes
+
+    stones = boards.stones[:96].cpu().numpy()
+    before = tl.point_liberties_batch.launches
+    got = liberty_planes(stones, device=boards.stones.device)
+    assert tl.point_liberties_batch.launches == before + 1
+    np.testing.assert_array_equal(got, liberty_planes(stones, device="cpu"))
+    assert ((got == 1) & (stones != 0)).any()
+
+
+def test_actor_learner_round_trip_on_card(device, tmp_path):
+    """One chunk over a local store bus at `tiny` on the card: the actor's
+    chunk decodes to the games it sank, the learner ingests it once,
+    trains, publishes gen 1, and the actor's hot-swapped golden equals the
+    learner's bit for bit."""
+    import dataclasses
+
+    from p3achygo_tpu_torch.data.export import read_game_chunk
+    from p3achygo_tpu_torch.data.store import make_store, most_recent_model
+    from p3achygo_tpu_torch.rl.workers import Learner, SelfplayActor
+    from p3achygo_tpu_torch.selfplay.records import GameExamples
+
+    cfg = RunConfig(model_config="tiny", num_generations=1, games_per_gen=4,
+                    selfplay_batch_size=8, train_batch_size=16, selfplay_max_game_len=12,
+                    eval_max_game_len=12, eval_games=4, eval_n=4, eval_k=2,
+                    min_train_selected_n=4, max_train_selected_n=4, min_train_selected_k=2,
+                    max_train_selected_k=2, min_train_default_n=4, max_train_default_n=4,
+                    min_train_default_k=2, max_train_default_k=2, bn_recompute_passes=1,
+                    val_batches=1, val_game_frac=0.0, replay_capacity=1 << 12)
+    store = make_store(str(tmp_path / "bus"))
+    learner = Learner(cfg, store, run_dir=str(tmp_path / "learner"), device=device)
+    learner.publish_golden()
+    actor = SelfplayActor(cfg, store, scratch_dir=str(tmp_path / "actor"), seed=1,
+                          device=device)
+    assert actor.sync_model() and not actor.sync_model()
+    sunk = []
+    actor.loop.game_sink = lambda ex: (sunk.append(ex), actor._pending.append(ex))
+    before = tl.point_liberties_batch.launches
+    name = actor.play_and_publish(cfg.games_per_gen)
+    assert tl.point_liberties_batch.launches > before
+    back = read_game_chunk(store.local_path(name))
+    for f in dataclasses.fields(GameExamples):
+        want = np.concatenate([getattr(e, f.name) for e in sunk])
+        if f.name == "weight":
+            want = np.ones_like(want)
+        np.testing.assert_array_equal(getattr(back, f.name), want, err_msg=f.name)
+    assert learner.wait_for_examples(1, timeout_s=5.0) == len(back)
+    assert learner.ingest_new_chunks() == 0
+    assert learner.train_generation()["gen"] == 1 and most_recent_model(store) == 1
+    assert actor.sync_model() and actor.loop.gen == 1
+    want, have = learner.loop.golden.state_dict(), actor.loop.golden.state_dict()
+    assert all(torch.equal(have[k], want[k]) for k in want)

@@ -21,6 +21,8 @@ from p3achygo_tpu_torch.models.model import build_model
 from p3achygo_tpu_torch.rl.config import RunConfig
 from p3achygo_tpu_torch.rl.loop import GenerationLoop
 from p3achygo_tpu_torch.rl.slice import RLSlice, SliceConfig
+from p3achygo_tpu_torch.rl.workers import Learner, SelfplayActor
+from p3achygo_tpu_torch.data.store import LocalStore
 from p3achygo_tpu_torch.selfplay.loop import SelfplayConfig, make_aux, make_game_buffer
 
 
@@ -41,6 +43,14 @@ def _generation_loop(**kw):
                               root_dir=root, **kw)
 
 
+def _worker(cls, **kw):
+    cfg = RunConfig(model_config="tiny", selfplay_batch_size=2, selfplay_max_game_len=4,
+                    replay_capacity=64)
+    with tempfile.TemporaryDirectory() as root:
+        where = {"scratch_dir" if cls is SelfplayActor else "run_dir": root}
+        return cls(cfg, LocalStore(root), **where, **kw)
+
+
 CONSTRUCTORS = {
     "new_state": (new_state, lambda **kw: new_state(2, **kw)),
     "make_tree": (make_tree, lambda **kw: make_tree(2, 4, **kw)),
@@ -55,6 +65,8 @@ CONSTRUCTORS = {
     "from_stones": (from_stones, lambda **kw: from_stones(np.zeros((2, 361), np.int8), **kw)),
     "board_from_dsl": (board_from_dsl, lambda **kw: board_from_dsl("x o", **kw)),
     "GenerationLoop": (GenerationLoop, _generation_loop),
+    "SelfplayActor": (SelfplayActor, lambda **kw: _worker(SelfplayActor, **kw)),
+    "Learner": (Learner, lambda **kw: _worker(Learner, **kw)),
 }
 
 
@@ -63,6 +75,8 @@ def _a_tensor(out) -> torch.Tensor:
         return out
     if isinstance(out, torch.nn.Module):
         return next(out.parameters())
+    if isinstance(out, (SelfplayActor, Learner)):
+        out = out.loop
     if isinstance(out, (RLSlice, GenerationLoop)):
         return out.states.stones
     return next(t for t in out if isinstance(t, torch.Tensor))

@@ -535,7 +535,8 @@ def test_main_runs_one_generation(tmp_path, capsys):
     # A second call resumes at gen 1 and has nothing left to run.
     main(["--config", str(path), "--gens", "1", "--run-dir", str(run_dir), "--device", "cpu"])
     assert json.loads(capsys.readouterr().out.splitlines()[0]) == {"resumed_at_gen": 1}
+    # The distributed roles run over a store bus: without --store, an error.
     for role in ("actor", "learner"):
         with pytest.raises(SystemExit):
             main(["--config", str(path), "--role", role, "--device", "cpu"])
-        assert "rl/workers.py" in capsys.readouterr().err
+        assert "requires --store" in capsys.readouterr().err
