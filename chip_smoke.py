@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's self-play, learning, generation, search, GTP
-and store-bus paths once on an NVIDIA card.
+"""Drive the PyTorch port's self-play, learning, generation, search, GTP,
+store-bus, transformer and scale-out paths once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -184,8 +184,27 @@ fallback):
              build_sl_replay feeds one prepare_batch. (e) anchor_match of
              model_0001 against the published gen 0 (BUS_ANCHOR).
 
-Phases 7, 8, 9, 10 and 11 print {"learn": ...}, {"gen": ...}, {"search":
-...}, {"gtp": ...} and {"bus": ...} JSON lines of their measurements. Before the
+  12 transformer  b14d96h3_transformer at its published widths (14
+             blocks, embed 96, 3 heads of 32), seeded: (a) float32 on the
+             card against float32 on the CPU at B=256 (max |d pi_logits|
+             <= TRANSFORMER_F32_TOL), bf16 on the card against it (max |d
+             value| <= TRANSFORMER_VALUE_TOL, top-1 >= TRANSFORMER_TOP1_MIN,
+             every output finite), ms per bf16 forward at N=2880 and the
+             attention's share of its device time (a profiler range per
+             attention call); (b) phase 8's generation with model_config
+             b14d96h3_transformer (the config file unedited) and phase 8's
+             checks, resumed bitwise, the liberty kernel launched; (c) 4
+             genmoves through GtpService over (b)'s model_0001, each legal.
+
+  13 scale-out  python -m p3achygo_tpu_torch.parallel --nproc 1 (NCCL, one
+             rank: NCCL takes no two ranks on one card) as a subprocess:
+             the dry run's train-step loss equal to one process's within
+             relative 1e-3, its sharded self-play's stones and moves equal
+             and pi within 1e-4.
+
+Phases 7, 8, 9, 10, 11, 12 and 13 print {"learn": ...}, {"gen": ...},
+{"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...} and
+{"scale_out": ...} JSON lines of their measurements. Before the
 last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
 each input read once and each output written once, over 3.35 TB/s) and the
@@ -256,6 +275,7 @@ from p3achygo_tpu_torch.models.blocks import BatchNorm
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.losses import LossCoeffs, compute_losses
 from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
+from p3achygo_tpu_torch.models.transformer import MultiHeadDotProductAttention
 from p3achygo_tpu_torch.nn.serve import ServeNet
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn, trunk_reference
 from p3achygo_tpu_torch.nn.trunk_kernel2 import build_trunk_fn_v2
@@ -411,6 +431,24 @@ BUS_STUDY = ["--num_examples", "16", "--gt_n", "256", "--n_values", "32,64",
 BUS_PLAY = dict(num_games=4, visit_count=32, k=4, max_moves=16)
 BUS_SL_WORKERS = 2
 BUS_ANCHOR = dict(num_games=8, n=16, k=4, max_game_len=16)
+# Phase 12: the transformer trunk at full width (embed 96, 3 heads of 32,
+# 14 blocks). (a) float32 on the card against float32 on the CPU (TF32 off:
+# only summation order differs), bf16 on the card against float32 on the
+# CPU at B=256 (bf16 rounds every product, the softmax and the residual
+# stream over 14 blocks: the bounds leave room over what the same
+# comparison gives between bf16 and float32 on the CPU), the policy output
+# kernel sharpened so the top move is not a near-tie of a random network;
+# (b) phase 8's generation at this network; (c) genmoves over (b)'s
+# model_0001.
+TRANSFORMER = "b14d96h3_transformer"
+TRANSFORMER_B = 256
+TRANSFORMER_SHARPEN = 30.0
+TRANSFORMER_F32_TOL = 1e-3
+TRANSFORMER_VALUE_TOL = 0.1
+TRANSFORMER_TOP1_MIN = 0.7
+TRANSFORMER_GENMOVES = 4
+# Phase 13: the multi-rank dry run as one NCCL rank.
+SCALE_OUT_TIMEOUT_S = 300
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
@@ -1154,10 +1192,11 @@ def phase_learn(device, smi):
     return launches, learn
 
 
-def gen_config():
-    """config/b12-onegen.json with phase 8's cuts (GEN_CUTS)."""
+def gen_config(**changes):
+    """config/b12-onegen.json with phase 8's cuts (GEN_CUTS), and `changes`
+    (phase 12 (b): the model configuration)."""
     cfg = parse_run_config(GEN_CONFIG)
-    return dataclasses.replace(cfg, **GEN_CUTS)
+    return dataclasses.replace(cfg, **GEN_CUTS, **changes)
 
 
 class GenSpies:
@@ -1285,7 +1324,7 @@ class GenSpies:
         return sum(self.seconds.get(key, ()))
 
 
-def check_gen_sgfs(spies: GenSpies, B: int, max_len: int) -> int:
+def check_gen_sgfs(spies: GenSpies, B: int, max_len: int, label: str = "phase 8") -> int:
     """Each SGF the harvests wrote parses back with the port's parser into
     the moves its board played since its game began, and each file on disk
     is one of them. Returns the number of games checked.
@@ -1308,7 +1347,7 @@ def check_gen_sgfs(spies: GenSpies, B: int, max_len: int) -> int:
                 played = played[:rows - 1] + played[-1:] if rows else []
             if moves[int(init_mv[b]):] != played:
                 raise AssertionError(
-                    f"phase 8: board {b}'s SGF (from move {init_mv[b]}: "
+                    f"{label}: board {b}'s SGF (from move {init_mv[b]}: "
                     f"{moves[int(init_mv[b]):][:8]}..., {len(moves)} rows) != the "
                     f"{len(played)} moves it played ({played[:8]}...)")
             checked += 1
@@ -1317,17 +1356,17 @@ def check_gen_sgfs(spies: GenSpies, B: int, max_len: int) -> int:
         with open(os.path.join(spies.loop.sgf_dir, name)) as f:
             on_disk.add(f.read())
     if not on_disk or not on_disk <= set(spies.sgfs):
-        raise AssertionError("phase 8: an SGF on disk is none of the games written")
+        raise AssertionError(f"{label}: an SGF on disk is none of the games written")
     return checked
 
 
-def check_resume(loop: GenerationLoop, cfg, root: str, device):
+def check_resume(loop: GenerationLoop, cfg, root: str, device, label: str = "phase 8"):
     """A second loop on the same directory resumes bitwise: gen, golden,
     train params and BN statistics, optimizer state, step, generators,
     sel_mult base and both replay rings."""
     again = GenerationLoop(cfg, root_dir=root, seed=GEN_SEED, device=device)
     if not again.try_resume():
-        raise AssertionError("phase 8: try_resume found nothing")
+        raise AssertionError(f"{label}: try_resume found nothing")
     same = lambda a, b: a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
     ts, ts2 = loop.train_state, again.train_state
     checks = {
@@ -1350,16 +1389,18 @@ def check_resume(loop: GenerationLoop, cfg, root: str, device):
                         and all(np.array_equal(r2._data[f][:n], a[:n]) for f, a in r._data.items()))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"phase 8: resume is not bitwise for {bad}")
+        raise AssertionError(f"{label}: resume is not bitwise for {bad}")
     return again
 
 
-def phase_gen(device, smi, root):
+def phase_gen(device, smi, root, model_config=None):
     """Phase 8 (see the module docstring), in the empty directory `root`,
-    which keeps model_0001 and the SGFs for phase 10. Returns (liberty
+    which keeps model_0001 and the SGFs for phase 10; with `model_config`,
+    phase 12 (b): the same generation at that network. Returns (liberty
     launches of the generation, the {"gen": ...} measurements)."""
     t_phase = time.perf_counter()
-    cfg = gen_config()
+    label = "phase 8" if model_config is None else "phase 12 (b)"
+    cfg = gen_config() if model_config is None else gen_config(model_config=model_config)
     B = cfg.selfplay_batch_size
     loop = GenerationLoop(cfg, root_dir=root, seed=GEN_SEED, device=device)
     loop.sgf_dir = os.path.join(root, "sgf")
@@ -1376,8 +1417,8 @@ def phase_gen(device, smi, root):
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
 
     for ply, check in enumerate(spies.plies):
-        check_ply(*check, f"phase 8 self-play ply {ply}")
-    games = check_gen_sgfs(spies, B, cfg.selfplay_max_game_len)
+        check_ply(*check, f"{label} self-play ply {ply}")
+    games = check_gen_sgfs(spies, B, cfg.selfplay_max_game_len, label)
     stats = os.listdir(loop.stats_dir)
     res, wins, losses = spies.finals[-1]
     checks = {
@@ -1395,12 +1436,12 @@ def phase_gen(device, smi, root):
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"phase 8: failed checks {bad}")
+        raise AssertionError(f"{label}: failed checks {bad}")
     restarts = spies.restarts
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    check_resume(loop, cfg, root, device)
+    check_resume(loop, cfg, root, device, label)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
 
@@ -1414,17 +1455,19 @@ def phase_gen(device, smi, root):
         "eval_s": spies.total("eval"), "eval_plies": spies.eval_plies,
         "checkpoint_s": spies.total("checkpoint"), "resume_s": resume_s,
     }
-    log(f"phase 8: GenerationLoop(config/b12-onegen.json, bf16) with cuts {cuts}: "
+    log(f"{label}: GenerationLoop(config/b12-onegen.json, {cfg.model_config} bf16) with "
+        f"cuts {cuts}: "
         f"{games} games harvested and checked ({restarts} GoExploit/fork restarts), "
         f"every move legal and superko-clean, every SGF parses back into its moves; "
         f"eval {res.cand_wins:.0f} wins + {losses} losses of {res.num_games}, elo "
         f"{res.elo:.1f}; replay {len(loop.replay)} rows, val {len(loop.val_replay)}, reuse "
         f"buffer {len(loop.reuse)}; resume bitwise")
-    log("phase 8: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+    log(f"{label}: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                                 for k, v in parts.items())
         + f"; generation {gen_s:.2f} s; liberty launches {launches}; peak memory "
         f"{peak_gb:.2f} GB; phase wall {time.perf_counter() - t_phase:.1f} s ({smi})")
-    gen = {"config": "config/b12-onegen.json", "cuts": GEN_CUTS, "seed": GEN_SEED,
+    gen = {"config": "config/b12-onegen.json", "model_config": cfg.model_config,
+           "cuts": GEN_CUTS, "seed": GEN_SEED,
            "generation_s": gen_s, **parts, "games_checked": games, "restarts": restarts,
            "eval_elo": res.elo, "eval_cand_wins": res.cand_wins,
            "replay_rows": len(loop.replay), "liberty_launches": launches,
@@ -2464,6 +2507,160 @@ def phase_bus(device, smi, gen_root: str):
     return launches, rt["launches"], info
 
 
+def attention_profile(model, planes, scalars):
+    """(device ms of one forward, device ms of its attention, attention
+    calls) from one profiled forward: every MultiHeadDotProductAttention
+    call runs inside a record_function range named "attention", whose
+    device time is the kernels launched inside it (the host-side range:
+    on the card the profiler also mirrors each range onto the device's
+    timeline as an event of its own, a span, which both sums leave out)."""
+    forward = MultiHeadDotProductAttention.forward
+
+    def labelled(self, x):
+        with torch.profiler.record_function("attention"):
+            return forward(self, x)
+
+    with torch.no_grad():
+        model(planes, scalars)
+    torch.cuda.synchronize()
+    MultiHeadDotProductAttention.forward = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                model(planes, scalars)
+            torch.cuda.synchronize()
+    finally:
+        MultiHeadDotProductAttention.forward = forward
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA and e.key != "attention")
+    attn = [e for e in events if e.key == "attention" and e.device_type == DeviceType.CPU]
+    return (total / 1e3, sum(e.device_time_total for e in attn) / 1e3,
+            sum(e.count for e in attn))
+
+
+def transformer_forward(device, boards, gen):
+    """Phase 12 (a): b14d96h3_transformer at full width with seeded weights
+    (policy sharpened), float32 and bf16 on the card against float32 on the
+    CPU; ms per bf16 forward at the widest leaf batch; the attention's
+    share of the forward's device time."""
+    model = seeded_model(TRANSFORMER, device, gen)
+    with torch.no_grad():
+        model.policy_head.output_moves.weight.mul_(TRANSFORMER_SHARPEN)
+    cpu = build_model(get_config(TRANSFORMER), torch.float32, "cpu")
+    cpu.load_state_dict(model.state_dict())
+    sub = type(boards)(*[t[:TRANSFORMER_B] for t in boards])
+    planes, scalars = batched_features(sub, planes_dtype=torch.float32)
+    t0 = time.perf_counter()
+    ref = cpu(planes.cpu(), scalars.cpu())
+    cpu_s = time.perf_counter() - t0
+    f32 = model(planes, scalars)
+    d32 = float((f32.pi_logits.cpu() - ref.pi_logits).abs().max())
+    model.dtype = torch.bfloat16
+    b16 = model(planes, scalars)
+    check_finite(b16, ModelOutputs._fields, "transformer bf16")
+    value = lambda o: (o.outcome_probs[:, 1] - o.outcome_probs[:, 0]).float().cpu()
+    dv = float((value(b16) - value(ref)).abs().max())
+    top1 = float((b16.pi_logits.argmax(-1).cpu() == ref.pi_logits.argmax(-1)).float().mean())
+    checks = {f"float32 card vs CPU: max |d pi_logits| {d32:.2e} <= {TRANSFORMER_F32_TOL}":
+              d32 <= TRANSFORMER_F32_TOL,
+              f"bf16 card vs float32 CPU: max |d value| {dv:.4f} <= {TRANSFORMER_VALUE_TOL}":
+              dv <= TRANSFORMER_VALUE_TOL,
+              f"bf16 top-1 agreement {top1:.4f} >= {TRANSFORMER_TOP1_MIN}":
+              top1 >= TRANSFORMER_TOP1_MIN}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 12 (a): failed checks {bad}")
+
+    n = max(TRUNK_TIMED)
+    wide = type(boards)(*[t[:n] for t in boards])
+    wp, ws = batched_features(wide, planes_dtype=torch.bfloat16)
+    fwd = lambda: model(wp, ws)
+    ms, wall = device_ms(fwd, calls=5), wall_ms(fwd, reps=3, inner=3)
+    busy, attn, calls = attention_profile(model, wp, ws)
+    if calls != get_config(TRANSFORMER).blocks:
+        raise AssertionError(f"phase 12 (a): {calls} attention ranges in a profiled forward")
+    info = {"config": TRANSFORMER, "B": TRANSFORMER_B, "f32_max_abs_d_pi_logits": d32,
+            "bf16_max_abs_d_value": dv, "bf16_top1_agreement": top1, "cpu_reference_s": cpu_s,
+            "forward_N": n, "forward_device_ms": ms, "forward_wall_ms": wall,
+            "profiled_forward_ms": busy, "attention_ms": attn, "attention_share": attn / busy}
+    log(f"phase 12 (a): {TRANSFORMER} seeded (policy x{TRANSFORMER_SHARPEN}) at B="
+        f"{TRANSFORMER_B}: float32 card vs CPU max |d pi_logits| {d32:.2e}; bf16 card vs "
+        f"float32 CPU max |d value| {dv:.4f}, top-1 agreement {top1:.4f}; bf16 forward at "
+        f"N={n}: {ms:.2f} ms device, {wall:.2f} ms wall; attention {attn:.2f} of {busy:.2f} "
+        f"device ms ({attn / busy:.3f})")
+    return info
+
+
+def transformer_gtp(device, ckpt: str):
+    """Phase 12 (c): GtpService over (b)'s model_0001 at the transformer's
+    width, TRANSFORMER_GENMOVES genmoves alternating colours; every answer
+    a success and every move legal by full_legal_mask. Returns (liberty
+    launches, measurements)."""
+    svc = GtpService(make_eval_fn(load_model(TRANSFORMER, ckpt, device)),
+                     GtpConfig(search=SearchParams(**GTP_SEARCH)), device=device)
+    point_liberties_batch.launches = 0
+    genmove_ms, bad = [], []
+    for i in range(TRANSFORMER_GENMOVES):
+        color = 1 if i % 2 == 0 else -1
+        legal = full_legal_mask(svc._as_mover(svc.state, color))[0]
+        t0 = time.perf_counter()
+        ok, resp = svc.handle(f"genmove {'b' if color == 1 else 'w'}")
+        torch.cuda.synchronize()
+        genmove_ms.append(1e3 * (time.perf_counter() - t0))
+        if not ok or not bool(legal[gtp_vertex_to_action(resp.strip())]):
+            bad.append(resp)
+    launches = point_liberties_batch.launches
+    if bad or launches <= 0:
+        raise AssertionError(f"phase 12 (c): bad genmoves {bad}, liberty launches {launches}")
+    log(f"phase 12 (c): GtpService({TRANSFORMER} bf16, model_0001 of (b), n="
+        f"{GTP_SEARCH['n']} k={GTP_SEARCH['k']}): {TRANSFORMER_GENMOVES} legal genmoves, "
+        f"median {statistics.median(genmove_ms):.1f} ms, max {max(genmove_ms):.1f} ms; "
+        f"liberty launches {launches}")
+    return launches, {"genmove_ms": genmove_ms, "liberty_launches": launches}
+
+
+def phase_transformer(device, smi, boards, gen):
+    """Phase 12 (see the module docstring). Returns ({part: liberty
+    launches}, the {"transformer": ...} measurements)."""
+    t_phase = time.perf_counter()
+    info = {"forward": transformer_forward(device, boards, gen)}
+    with tempfile.TemporaryDirectory() as root:
+        gen_launches, info["generation"] = phase_gen(device, smi, root,
+                                                     model_config=TRANSFORMER)
+        gtp_launches, info["gtp"] = transformer_gtp(device, os.path.join(root, "model_0001"))
+    info["phase_wall_s"] = time.perf_counter() - t_phase
+    info["card"] = smi
+    log(f"phase 12: wall {info['phase_wall_s']:.1f} s ({smi})")
+    return {"generation": gen_launches, "gtp": gtp_launches}, info
+
+
+def phase_scale_out(smi):
+    """Phase 13: `python -m p3achygo_tpu_torch.parallel --nproc 1` as a
+    subprocess on the card (NCCL, no --device): the dry run's train-step
+    and self-play parity checks pass. Returns the {"scale_out": ...}
+    measurements."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "p3achygo_tpu_torch.parallel", "--nproc", "1"],
+                          capture_output=True, text=True, env=env, cwd=root,
+                          timeout=SCALE_OUT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"dryrun_multichip"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"phase 13: the dry run failed (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    summary = json.loads(lines[0])["dryrun_multichip"]
+    if summary["backend"] != "nccl" or summary["n_devices"] != 1:
+        raise AssertionError(f"phase 13: not one NCCL rank: {summary}")
+    log(f"phase 13: python -m p3achygo_tpu_torch.parallel --nproc 1 on NCCL: train loss "
+        f"{summary['loss']:.6f} (one process {summary['loss_one_process']:.6f}), self-play "
+        f"stones and moves equal, max |d pi| {summary['selfplay_pi_max_abs_err']:.2e}; "
+        f"{wall:.1f} s with start-up ({smi})")
+    return {**summary, "wall_s": wall, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2541,6 +2738,11 @@ def main() -> int:
         bus_launches, bus_parts, bus_info = phase_bus(device, smi, gen_root)
         print(json.dumps({"bus": bus_info}), flush=True)
 
+    transformer_launches, transformer_info = phase_transformer(device, smi, boards, cpu_gen)
+    print(json.dumps({"transformer": transformer_info}), flush=True)
+
+    print(json.dumps({"scale_out": phase_scale_out(smi)}), flush=True)
+
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
@@ -2561,6 +2763,7 @@ def main() -> int:
         "launches_phase10_parts": gtp_launches,
         "launches_phase11": bus_launches,
         "launches_phase11_parts": bus_parts,
+        "launches_phase12": transformer_launches,
         "max_abs_err": max_err,
         "ms": times[t_big][0],
         "plain_ms": times[t_big][1],

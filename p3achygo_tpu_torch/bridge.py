@@ -9,9 +9,12 @@ the flax tree); the leaves map as:
 
   params  .../kernel  4-D HWIO conv kernel -> .../weight OIHW
   params  .../kernel  2-D [in, out] Dense  -> .../weight [out, in]
-  params  .../bias                          -> .../bias
-  params  .../scale   BatchNorm             -> .../weight
+  params  .../kernel  3-D attention kernel  -> .../weight, as it is
+          (query/key/value [C, H, D], out [H, D, C])
+  params  .../bias    any shape             -> .../bias, as it is
+  params  .../scale   BatchNorm, LayerNorm  -> .../weight
   params  value_head/score_pre_s            -> value_head.score_pre_s
+  params  pos_embed/pos_embed [19, 19, C]   -> pos_embed.pos_embed
   batch_stats .../mean, .../var             -> .../running_mean, running_var
 
 `state_dict_to_flax` is the inverse (tests compare parameters and BN
@@ -43,10 +46,10 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     for path, arr in _leaves(variables["params"]):
         *mod, leaf = path
         t = torch.tensor(np.asarray(arr, np.float32))
-        if leaf == "kernel" and t.dim() in (2, 4):
+        if leaf == "kernel" and t.dim() in (2, 3, 4):
             name = ".".join(mod + ["weight"])
             t = from_flax_layout(t, name).contiguous()
-        elif leaf in ("scale", "bias", "score_pre_s"):
+        elif leaf in ("scale", "bias", "score_pre_s", "pos_embed"):
             name = ".".join(mod + ["weight" if leaf == "scale" else leaf])
         else:
             raise KeyError(f"unmapped flax param {'/'.join(path)}")
@@ -59,22 +62,29 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_dims(dim: int, name: str) -> Tuple[int, ...]:
+    """The permutation p with to_flax_layout(t, name) == t.permute(p) for a
+    parameter `name` of `dim` dimensions: an OIHW conv weight goes to HWIO
+    and an [out, in] Dense weight to [in, out]; every other leaf (biases
+    of any shape, the 3-D attention kernels and the positional embedding,
+    already in flax's layout, `score_pre_s` [1, c_val] on both sides, 1-D
+    leaves) stays as it is."""
+    if dim == 4:
+        return (2, 3, 1, 0)
+    if dim == 2 and name.endswith(".weight"):
+        return (1, 0)
+    return tuple(range(dim))
+
+
 def to_flax_layout(t: torch.Tensor, name: str) -> torch.Tensor:
-    """Parameter `name` in the flax layout: OIHW conv weight -> HWIO,
-    [out, in] Dense weight -> [in, out]; `score_pre_s` ([1, c_val] on both
-    sides) and 1-D leaves as they are."""
-    if t.dim() == 4:
-        return t.permute(2, 3, 1, 0)
-    if t.dim() == 2 and not name.endswith("score_pre_s"):
-        return t.t()
-    return t
+    """Parameter `name` in the flax layout (see `flax_dims`)."""
+    return t.permute(flax_dims(t.dim(), name))
 
 
 def from_flax_layout(t: torch.Tensor, name: str) -> torch.Tensor:
     """Inverse of `to_flax_layout`."""
-    if t.dim() == 4:
-        return t.permute(3, 2, 0, 1)
-    return to_flax_layout(t, name)
+    perm = flax_dims(t.dim(), name)
+    return t.permute(tuple(perm.index(i) for i in range(len(perm))))
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
@@ -97,7 +107,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             put(params, mod + ["scale"], arr.numpy())
         elif leaf == "weight":
             put(params, mod + ["kernel"], to_flax_layout(arr, name).contiguous().numpy())
-        elif leaf in ("bias", "score_pre_s"):
+        elif leaf in ("bias", "score_pre_s", "pos_embed"):
             put(params, mod + [leaf], arr.numpy())
         else:
             raise KeyError(f"unmapped state dict entry {name}")

@@ -92,7 +92,7 @@ from p3achygo_tpu_torch.mcts.tree import (
     welford_m3_delta,
 )
 from p3achygo_tpu_torch.ops.liberties import point_liberties_batch
-from p3achygo_tpu_torch.nn.serve import ServeNet
+from p3achygo_tpu_torch.nn.serve import ServeNet, serve_supported
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn, trunk_supported
 
 _BIG_NEG = -1e9
@@ -213,11 +213,13 @@ def make_eval_fn(model, symmetrize: bool = True, include_ladders: bool = False,
     the optimistic policy head into the priors in probability space,
     (1-w)*softmax(pi) + w*softmax(pi_opt) (JAX gumbel.py:289-295).
     `serve_fold` runs the folded, head-pruned `nn/serve.py` forward, built
-    once here. `use_fused_trunk` runs the trunk in the hand-written
-    kernels (`nn/trunk_kernel.py`, folded once here) for btl networks; as
-    in the JAX package, `serve_fold` takes precedence over it."""
+    once here, where `serve_supported` (not for the transformer trunk,
+    which falls back to the plain forward). `use_fused_trunk` runs the
+    trunk in the hand-written kernels (`nn/trunk_kernel.py`, folded once
+    here) for btl networks and is ignored for others; as in the JAX
+    package, a folded `serve_fold` takes precedence over it."""
     trunk_fn = None
-    if serve_fold:
+    if serve_fold and serve_supported(model.config):
         net = ServeNet(model, want_optimistic=p_opt_weight > 0.0)
     else:
         if use_fused_trunk and trunk_supported(model.config):

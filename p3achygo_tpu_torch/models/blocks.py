@@ -13,7 +13,9 @@ statistics in float32 whatever the compute dtype, the variance as
 E[x^2] - E[x]^2 clipped at 0, and the running statistics updated in place
 to 0.99 * running + 0.01 * batch, the variance term being that biased batch
 variance. `torch.nn.BatchNorm2d` differs on the last two points, hence the
-functional form here.
+functional form here. Under data parallelism (`BatchNorm.group`) the batch
+mean and E[x^2] are averaged over the data-parallel ranks first, as XLA's
+SPMD takes them over the global batch.
 """
 from __future__ import annotations
 
@@ -50,10 +52,24 @@ def mish_f32(x: torch.Tensor) -> torch.Tensor:
     return x * torch.where(x >= 0, pos, neg)
 
 
+def group_mean(t: torch.Tensor, group) -> torch.Tensor:
+    """Mean of `t` over the ranks of a torch.distributed `group`, with the
+    gradient all-reduced back (torch.distributed.nn's autograd-aware
+    all_reduce), so a loss computed from it differentiates through every
+    rank's share."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=group) / torch.distributed.get_world_size(group)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over channel axis 1: a*x + b per channel from the running
     statistics, or normalised by the batch statistics with `train=True`
-    (which also updates the running statistics)."""
+    (which also updates the running statistics). `group`, set by a
+    data-parallel train step for its duration, is the process group whose
+    ranks' batches make up the batch (None: this process's batch)."""
+
+    group = None
 
     def __init__(self, channels: int):
         super().__init__()
@@ -74,8 +90,10 @@ class BatchNorm(nn.Module):
             return x * a.to(x.dtype).reshape(shape) + b.to(x.dtype).reshape(shape)
         dims = [0] + list(range(2, x.dim()))
         xf = x.float()
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        mean, mean_sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+        if self.group is not None:
+            mean, mean_sq = group_mean(torch.stack([mean, mean_sq]), self.group)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                     + (1.0 - BN_MOMENTUM) * mean)

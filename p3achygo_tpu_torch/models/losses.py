@@ -12,6 +12,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from p3achygo_tpu_torch.models.blocks import group_mean
+
 
 @dataclasses.dataclass(frozen=True)
 class LossCoeffs:
@@ -88,11 +90,13 @@ def _huber(target, pred, delta=1.0):
     return torch.where(a <= delta, 0.5 * err * err, delta * (a - 0.5 * delta))
 
 
-def compute_losses(outputs, targets: GroundTruth, w: LossCoeffs
+def compute_losses(outputs, targets: GroundTruth, w: LossCoeffs, group=None
                    ) -> Dict[str, torch.Tensor]:
-    """Total + per-component losses (model.py:1297-1448 + v1_loss_terms)."""
+    """Total + per-component losses (model.py:1297-1448 + v1_loss_terms).
+    With a data-parallel process `group` (ranks holding equal shares of
+    the batch), every batch mean is the mean over the whole batch."""
     eps = 1e-6
-    mean = torch.mean
+    mean = torch.mean if group is None else (lambda x: group_mean(torch.mean(x), group))
 
     # Policy: KLD(target, softmax(pi_logits)).
     policy_loss = mean(_kld(targets.policy, torch.softmax(outputs.pi_logits, dim=-1)))

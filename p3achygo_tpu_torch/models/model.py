@@ -1,8 +1,10 @@
 """P3achyGo network (port of p3achygo_tpu/models/model.py; reference
 python/model.py P3achyGoModel :1063-1295): 15-plane board input + 8 game
 scalars, init conv (conv_size+2) + game-state bias, a trunk of
-classic/btl/nbt blocks with a broadcast block every `broadcast_interval`,
-then policy and value heads. `forward(..., train=True)` is the training
+classic/btl/nbt blocks with a broadcast block every `broadcast_interval`
+(or, for a transformer config, an `embed` Dense, a positional embedding
+and transformer blocks over the 361 points, models/transformer.py), then
+policy and value heads. `forward(..., train=True)` is the training
 forward: BatchNorm from batch statistics (running statistics updated in
 place, models/blocks.py) and gradients recorded; otherwise BatchNorm reads
 the running statistics and no graph is built.
@@ -33,6 +35,14 @@ from p3achygo_tpu_torch.models.blocks import (
 )
 from p3achygo_tpu_torch.models.config import ModelConfig
 from p3achygo_tpu_torch.models.heads import PolicyHead, ValueHead
+from p3achygo_tpu_torch.models.transformer import (
+    POS_EMBED_STD,
+    FlaxDense,
+    LayerNorm,
+    PositionalEmbedding,
+    Projection,
+    TransformerBlock,
+)
 
 
 class ModelOutputs(NamedTuple):
@@ -72,6 +82,8 @@ def is_broadcast_block(cfg: ModelConfig, i: int) -> bool:
 
 def block_name(cfg: ModelConfig, i: int) -> str:
     """The flax module name of trunk block i."""
+    if cfg.is_transformer:
+        return f"transformer_{i}"
     if is_broadcast_block(cfg, i):
         return f"broadcast_res_{i}"
     prefix = {"btl": "bottleneck_res", "classic": "classic_res",
@@ -86,17 +98,22 @@ class P3achyGoModel(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.is_transformer:
-            raise NotImplementedError("the transformer trunk is not ported yet")
         self.config = config
         self.dtype = dtype
         cfg = config
         C = cfg.channels
         self.init_board_conv = Conv(NUM_INPUT_PLANES, C, cfg.conv_size + 2)
         self.init_game_layer = Dense(NUM_INPUT_FEATURES, C)
+        if cfg.is_transformer:
+            # The heads read the embedding width (JAX model.py:90-96).
+            self.embed = FlaxDense(C, cfg.embed_dim)
+            self.pos_embed = PositionalEmbedding(cfg.embed_dim)
+            C = cfg.embed_dim
         for i in range(cfg.blocks):
             name = block_name(cfg, i)
-            if is_broadcast_block(cfg, i):
+            if cfg.is_transformer:
+                blk = TransformerBlock(C, cfg.embed_dim, cfg.num_heads)
+            elif is_broadcast_block(cfg, i):
                 blk = BroadcastResidualBlock(C, NUM_LOCS)
             elif cfg.trunk_block_type == "btl":
                 blk = BottleneckResidualBlock(C, cfg.bottleneck_channels,
@@ -128,11 +145,22 @@ class P3achyGoModel(nn.Module):
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             return self._forward(board_state, game_state, trunk_fn, train)
 
+    def transformer_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW stem output -> embed, positional embedding and the
+        transformer blocks over tokens h * 19 + w -> NCHW [N, E, 19, 19]."""
+        n, _, h, w = x.shape
+        t = self.pos_embed(self.embed(x.flatten(2).transpose(1, 2)))
+        for i in range(self.config.blocks):
+            t = getattr(self, block_name(self.config, i))(t)
+        return t.transpose(1, 2).reshape(n, -1, h, w)
+
     def _forward(self, board_state, game_state, trunk_fn, train) -> ModelOutputs:
         x = self.stem(board_state, game_state)
         if trunk_fn is not None:
             x = trunk_fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             x = x.to(self.dtype).contiguous()
+        elif self.config.is_transformer:
+            x = self.transformer_trunk(x)
         else:
             for i in range(self.config.blocks):
                 x = getattr(self, block_name(self.config, i))(x, train)
@@ -169,17 +197,24 @@ def build_model(config: ModelConfig, dtype: torch.dtype = torch.float32,
 @torch.no_grad()
 def init_params(model: P3achyGoModel, generator: torch.Generator) -> None:
     """Random weights from `generator` (a CPU generator), in place:
-    lecun-normal conv and dense kernels (std 1/sqrt(fan_in)), zero biases,
-    identity BatchNorm, zero `gamma_output` kernel — flax's initializers
+    lecun-normal conv, dense and attention kernels (std 1/sqrt(fan_in)),
+    zero biases, identity BatchNorm and LayerNorm, a normal(0.02)
+    positional embedding, zero `gamma_output` kernel — flax's initializers
     without the truncation."""
+    randn = lambda t: torch.randn(t.shape, generator=generator)
     for name, mod in model.named_modules():
-        if isinstance(mod, (Conv, Dense)):
+        if isinstance(mod, (Conv, Dense, Projection)):
             w = mod.weight
-            fan_in = w[0].numel()
-            draw = torch.randn(w.shape, generator=generator) / fan_in ** 0.5
-            w.copy_(draw.to(w.device))
-            if isinstance(mod, Dense):
+            fan_in = mod.fan_in if isinstance(mod, Projection) else w[0].numel()
+            w.copy_((randn(w) / fan_in ** 0.5).to(w.device))
+            if not isinstance(mod, Conv):
                 mod.bias.zero_()
+        elif isinstance(mod, PositionalEmbedding):
+            mod.pos_embed.copy_((randn(mod.pos_embed) * POS_EMBED_STD).to(
+                mod.pos_embed.device))
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
         elif isinstance(mod, BatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

@@ -35,6 +35,12 @@ _Conv = Tuple[torch.Tensor, Optional[torch.Tensor], int]  # weight, bias, pad
 _Chain = Tuple[torch.Tensor, torch.Tensor, List[_Conv]]  # head a, head b, convs
 
 
+def serve_supported(config) -> bool:
+    """Conv-family trunks only (classic/btl/nbt + broadcast); the
+    transformer trunk serves through the plain forward (JAX serve.py:50)."""
+    return not getattr(config, "is_transformer", False)
+
+
 def _channel(v: torch.Tensor) -> torch.Tensor:
     return v[None, :, None, None]
 

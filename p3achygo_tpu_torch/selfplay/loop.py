@@ -379,6 +379,15 @@ def selfplay_step(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     return states, buf, aux
 
 
+class BatchShard(NamedTuple):
+    """The rows a data-parallel rank holds of a tiered step: boards
+    `offset` .. offset + B - 1 of a step over the whole batch, whose
+    `force_sel` [B_all] flags are given (the tier draw reads them all)."""
+
+    offset: int
+    force_sel: torch.Tensor  # bool[B_all]
+
+
 def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                          eval_fn: EvalFn, params_sel: SearchParams,
                          params_fast: SearchParams, cfg: SelfplayConfig,
@@ -387,7 +396,8 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
                          reuse_capacity: int = 0, calib=None,
                          sel_mult_base=None,
                          draws: Optional[StepDraws] = None,
-                         bias_table: Optional[BiasTable] = None):
+                         bias_table: Optional[BiasTable] = None,
+                         shard: Optional[BatchShard] = None):
     """One lockstep move with per-board playout-cap randomization
     (selfplay/loop.py:364-512 of the JAX package): in each of the
     `cfg.tier_groups` groups of boards, a uniformly random subset of
@@ -396,22 +406,38 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     Each tier searches with its boards' rows of `bias_table` when its
     params have bias_lambda > 0.
 
+    With `shard`, the call plays its rank's rows of the whole batch's step
+    (parallel/dryrun.py): the tier draw and `draws` are the whole batch's,
+    and each board gets the rows of the draws it gets in one process, so
+    the rows equal those of the unsharded step.
+
     Returns (states, buf, aux, next_tree) with `reuse_tree`, else
     (states, buf, aux); with a bias table in use, the updated table is
     appended."""
     B = states.stones.shape[0]
     dev = states.stones.device
-    G = tier_groups(B, cfg)
-    Bg = B // G
-    b_sel_g = tier_sizes(B, cfg)[0] // G
+    lo, force_sel = (0, aux.force_sel) if shard is None else shard
+    B_all = force_sel.shape[0]
+    G = tier_groups(B_all, cfg)
+    Bg = B_all // G
+    b_sel_g = tier_sizes(B_all, cfg)[0] // G
     if draws is None:
-        draws = draw_step(B, cfg, generator, dev)
+        draws = draw_step(B_all, cfg, generator, dev)
     # force_sel boards sort first within their group; group-local ranks.
-    keys = torch.where(aux.force_sel, draws.perm_u - 2.0, draws.perm_u).reshape(G, Bg)
+    keys = torch.where(force_sel, draws.perm_u - 2.0, draws.perm_u).reshape(G, Bg)
     perm_g = torch.argsort(keys, dim=1, stable=True)
     inv_g = torch.argsort(perm_g, dim=1, stable=True)
     base = torch.arange(G, device=dev)[:, None] * Bg
     flat = lambda idx_g: (idx_g + base).reshape(-1)  # group-local -> board
+    tiers = [(flat(perm_g[:, :b_sel_g]), params_sel, draws.sel_noise,
+              draws.sel_sample, draws.sel_raw),
+             (flat(perm_g[:, b_sel_g:]), params_fast, draws.fast_noise,
+              draws.fast_sample, draws.fast_raw)]
+    if shard is not None:
+        # This rank's boards of each tier, with their rows of the draws.
+        mine = lambda idx: (idx >= lo) & (idx < lo + B)
+        tiers = [(idx[mine(idx)] - lo, p, *(d[mine(idx)] for d in ds))
+                 for idx, p, *ds in tiers]
     tau = tau_schedule(states.move_count, cfg)
 
     if reuse_tree is not None:
@@ -446,33 +472,31 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
             nn_q, nn_unc = take(pre.nn_q), take(pre.nn_uncertainty)
         return (res, move, sampling_raw, over, nn_q, nn_unc), ntree, bt
 
-    out_sel, tree_sel, bias_sel = run_tier(flat(perm_g[:, :b_sel_g]), params_sel,
-                                           draws.sel_noise, draws.sel_sample,
-                                           draws.sel_raw)
-    out_fast, tree_fast, bias_fast = run_tier(flat(perm_g[:, b_sel_g:]), params_fast,
-                                              draws.fast_noise, draws.fast_sample,
-                                              draws.fast_raw)
+    # A shard may hold no board of a tier.
+    tiers = [t for t in tiers if t[0].numel() > 0]
+    outs = [run_tier(*t) for t in tiers]
 
-    def unperm(a, b_):
-        """Tier rows back to board order, group by group."""
-        merged = torch.cat([a.reshape(G, b_sel_g, *a.shape[1:]),
-                            b_.reshape(G, Bg - b_sel_g, *b_.shape[1:])], dim=1)
-        return merged.reshape(B, *a.shape[1:])[flat(inv_g)]
+    def unperm(*parts):
+        """Tier rows back to board order."""
+        merged = parts[0].new_empty((B,) + parts[0].shape[1:])
+        for (idx, *_), part in zip(tiers, parts):
+            merged[idx] = part
+        return merged
 
-    res = map_state(unperm, out_sel[0], out_fast[0])
+    res = map_state(unperm, *(o[0][0] for o in outs))
     move, sampling_raw, over, nn_q_root, nn_unc_root = (
-        unperm(a, b_) for a, b_ in zip(out_sel[1:], out_fast[1:]))
-    next_tree = (map_state(unperm, tree_sel, tree_fast)
+        unperm(*parts) for parts in zip(*(o[0][1:] for o in outs)))
+    next_tree = (map_state(unperm, *(o[1] for o in outs))
                  if reuse_tree is not None else None)
-    next_bias = (map_state(unperm, bias_sel, bias_fast)
-                 if bias_sel is not None else None)
+    next_bias = (map_state(unperm, *(o[2] for o in outs))
+                 if outs[0][2] is not None else None)
 
-    is_sel = (inv_g < b_sel_g).reshape(-1)
+    is_sel = (inv_g < b_sel_g).reshape(-1)[lo:lo + B]
     keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
         res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
     trainable = torch.where(
         aux.force_sel, ~sampling_raw,
-        is_sel & ~sampling_raw & (draws.train_u < keep_prob * sel_mult))
+        is_sel & ~sampling_raw & (draws.train_u[lo:lo + B] < keep_prob * sel_mult))
     states, buf = _record_and_advance(states, buf, res, move, sampling_raw,
                                       over, pre, nn_q_root, nn_unc_root,
                                       trainable, keep_prob, sel_modifier, cfg)

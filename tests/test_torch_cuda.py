@@ -537,3 +537,51 @@ def test_actor_learner_round_trip_on_card(device, tmp_path):
     assert actor.sync_model() and actor.loop.gen == 1
     want, have = learner.loop.golden.state_dict(), actor.loop.golden.state_dict()
     assert all(torch.equal(have[k], want[k]) for k in want)
+
+
+def test_transformer_forward_on_card_matches_cpu(device, boards):
+    """b14d96h3_transformer (14 blocks, embed 96, 3 heads) with seeded
+    weights: float32 on the card (TF32 off) against float32 on the CPU on
+    all 25 outputs to 1e-3; the bf16 forward finite, its value within 0.1
+    of float32's. serve_fold falls back to this plain forward."""
+    from p3achygo_tpu_torch.models.model import ModelOutputs
+    from p3achygo_tpu_torch.nn.serve import serve_supported
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        m = seeded_model("b14d96h3_transformer", device, torch.Generator().manual_seed(7))
+        m_cpu = seeded_model("b14d96h3_transformer", "cpu", torch.Generator().manual_seed(7))
+        assert not serve_supported(m.config)
+        planes, scalars = batched_features(map_state(lambda t: t[:64], boards),
+                                           planes_dtype=torch.float32)
+        card = m(planes, scalars)
+        cpu = m_cpu(planes.cpu(), scalars.cpu())
+        for f in ModelOutputs._fields:
+            d = float((getattr(card, f).cpu() - getattr(cpu, f)).abs().max())
+            assert d <= 1e-3, (f, d)
+        m.dtype = torch.bfloat16
+        b16 = m(planes, scalars)
+        assert all(bool(torch.isfinite(getattr(b16, f)).all()) for f in ModelOutputs._fields)
+        value = lambda o: (o.outcome_probs[:, 1] - o.outcome_probs[:, 0]).cpu()
+        assert float((value(b16) - value(cpu)).abs().max()) <= 0.1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_parallel_dry_run_one_nccl_rank(device):
+    """`python -m p3achygo_tpu_torch.parallel --nproc 1` on the card: one
+    NCCL rank passes the dry run's train-step and self-play parity checks."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "p3achygo_tpu_torch.parallel", "--nproc", "1"],
+                         capture_output=True, text=True, timeout=300, cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith('{"dryrun_multichip"'))
+    summary = json.loads(line)["dryrun_multichip"]
+    assert summary["backend"] == "nccl" and summary["n_devices"] == 1, summary

@@ -18,6 +18,8 @@ from p3achygo_tpu_torch.mcts.tree import make_mcgs_table, make_tree
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.heads import score_bins
 from p3achygo_tpu_torch.models.model import build_model
+from p3achygo_tpu_torch.parallel.__main__ import parse_args as parallel_args
+from p3achygo_tpu_torch.parallel.distributed import init_multihost
 from p3achygo_tpu_torch.rl.config import RunConfig
 from p3achygo_tpu_torch.rl.loop import GenerationLoop
 from p3achygo_tpu_torch.rl.slice import RLSlice, SliceConfig
@@ -59,6 +61,8 @@ CONSTRUCTORS = {
     "make_game_buffer": (make_game_buffer, lambda **kw: make_game_buffer(2, 3, **kw)),
     "make_aux": (make_aux, lambda **kw: make_aux(2, **kw)),
     "build_model": (build_model, lambda **kw: build_model(get_config("tiny"), **kw)),
+    "build_model[transformer]": (build_model, lambda **kw: build_model(
+        get_config("b14d96h3_transformer"), **kw)),
     "score_bins": (score_bins, lambda **kw: score_bins(**kw)),
     "prepare_batch": (prepare_batch, lambda **kw: prepare_batch(_rows(), **kw)),
     "RLSlice": (RLSlice, _slice),
@@ -98,3 +102,17 @@ def test_constructor_without_device(name):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             call()
+
+
+def test_scale_out_entry_points_default_to_the_card():
+    """init_multihost and `python -m p3achygo_tpu_torch.parallel` take NCCL
+    on the card unless asked for the CPU (gloo); without a card the default
+    raises, and more than one device per rank is refused on the card."""
+    assert inspect.signature(init_multihost).parameters["device"].default == "cuda"
+    assert parallel_args(["--nproc", "1"]).device == "cuda"
+    assert parallel_args(["--nproc", "1", "--device", "cpu"]).device == "cpu"
+    with pytest.raises(ValueError):
+        init_multihost("localhost:1", 1, 0, local_device_count=4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            init_multihost("localhost:1", 1, 0)
