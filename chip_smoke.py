@@ -1,5 +1,6 @@
 """Drive the PyTorch port's self-play, learning, generation, search, GTP,
-store-bus, transformer and scale-out paths once on an NVIDIA card.
+store-bus, transformer, scale-out and int8-serving paths once on an NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,9 @@ fallback):
   0 device   needs torch.cuda; prints the card's name and power limit and
              the TF32 switches (both off).
   1 build    compiles the liberty kernel (csrc/liberties.cu), the broadcast
-             kernel (csrc/trunk_broadcast.cu) and the segment kernel
-             (csrc/trunk_segment.cu) with one nvcc each, started together;
+             kernel (csrc/trunk_broadcast.cu), the segment kernel
+             (csrc/trunk_segment.cu) and the int8 conv kernel
+             (csrc/conv_i8.cu) with one nvcc each, started together;
              prints each build's seconds, ptxas' register/spill lines and
              each trunk kernel's count of HGMMA (wgmma) and of all SASS
              instructions from `cuobjdump -sass`: every width of both trunk kernels must be
@@ -202,13 +204,39 @@ fallback):
              relative 1e-3, its sharded self-play's stones and moves equal
              and pi within 1e-4.
 
-Phases 7, 8, 9, 10, 11, 12 and 13 print {"learn": ...}, {"gen": ...},
-{"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...} and
-{"scale_out": ...} JSON lines of their measurements. Before the
-last line it prints the kernels JSON line (every kernel with
-its bound: the larger of its operations over 989 TFLOP/s bf16 and its bytes,
-each input read once and each output written once, over 3.35 TB/s) and the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+  14 serve_q  the int8-activation serving graph (nn/serve_q.py over the
+             conv_i8 kernel) with phase 3's b12c128btl3 in bf16, about a
+             minute and a half: (a) conv_i8 against its plain version at
+             the conv sites of b12c128btl3 (SERVE_Q_SITES: 1x1 128->64 and
+             3x3 64->64 in-chain, 1x1 64->128 and the broadcast block's
+             1x1 128->128 chain-last) at N in {1, 7, 512, 2880}, and at the
+             other conv configs' widths at N=64: the int32 sums (raw mode),
+             the float32 and the int8 outputs must be equal; (b) calibration
+             on bench.py's protocol (1,024 boards after 60 random legal
+             plies), the card's scales against the CPU's on the first 256
+             boards, the same sites, float32 within rtol 1e-4 and bf16
+             within 1e-3 (SERVE_Q_CALIB_*); (c) serve_q_forward native
+             against emulated on 512 positions (max |d pi_logits| <= 1e-4),
+             every output finite, and against ServeNet's bf16 forward (pi
+             correlation, top-1, value; informative); (d) phase 4's loop
+             with make_eval_fn(serve_q_scales=): phase 4's checks, the
+             liberty and conv_i8 kernels both launched, plies/s and
+             moves/s beside phase 4's; (e) at N = 512 and 2880 the serve_q
+             and ServeNet forwards (device and wall ms), and for each site
+             the kernel's device ms, int8 operations, bound (int8 ops over
+             1,979 TOP/s or bytes over 3.35 TB/s) and share of it, beside
+             torch._int_mm on an int8 im2col (the im2col timed apart) and
+             a bf16 F.conv2d of the same shape, yardsticks the port never
+             calls.
+
+Phases 7, 8, 9, 10, 11, 12, 13 and 14 print {"learn": ...}, {"gen": ...},
+{"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...},
+{"scale_out": ...} and {"serve_q": ...} JSON lines of their measurements.
+Before the last line it prints the kernels JSON line (every kernel with
+its bound: the larger of its operations over 989 TFLOP/s bf16, or 1,979
+TOP/s int8 for conv_i8, and its bytes, each input read once and each output
+written once, over 3.35 TB/s) and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -277,8 +305,10 @@ from p3achygo_tpu_torch.models.losses import LossCoeffs, compute_losses
 from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
 from p3achygo_tpu_torch.models.transformer import MultiHeadDotProductAttention
 from p3achygo_tpu_torch.nn.serve import ServeNet
+from p3achygo_tpu_torch.nn.serve_q import ServeQNet, calibrate
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn, trunk_reference
 from p3achygo_tpu_torch.nn.trunk_kernel2 import build_trunk_fn_v2
+from p3achygo_tpu_torch.ops import conv_i8 as conv_ops
 from p3achygo_tpu_torch.ops import cuda_build
 from p3achygo_tpu_torch.ops import liberties as lib_ops
 from p3achygo_tpu_torch.ops import trunk as trunk_ops
@@ -449,11 +479,47 @@ TRANSFORMER_TOP1_MIN = 0.7
 TRANSFORMER_GENMOVES = 4
 # Phase 13: the multi-rank dry run as one NCCL rank.
 SCALE_OUT_TIMEOUT_S = 300
+# Phase 14: the int8-activation serving graph at b12c128btl3 width, bf16.
+# (a) the conv sites of b12c128btl3 as (site, k, Cin, Cout, in-chain) at
+# SERVE_Q_BATCHES, and every other conv-family config's widths at N = 64;
+# the kernel's int32 sums, float32 and int8 outputs equal to the plain
+# version's (the same IEEE operations in the same order). (b) bench.py's
+# calibration protocol (bench.py:88-105); the card's scales against the
+# CPU's on the first SERVE_Q_CALIB_CPU_B boards: float32 at rtol 1e-4
+# (record mode is float32 with TF32 off: only summation orders differ) and
+# bf16 at 1e-3, since the broadcast mix's bf16 product rounds differently
+# where its float32 sums run in another order, which moved the percentiles
+# of the blocks after it by up to 1.2e-4 (PERF.md §6). (c) native
+# against emulated at JAX's tolerance for that check. (d) phase 4's loop
+# with make_eval_fn(serve_q_scales=). (e) times at SERVE_Q_TIMED.
+SERVE_Q_SITES = (("reduce 1x1 128->64", 1, 128, 64, True),
+                 ("inner 3x3 64->64", 3, 64, 64, True),
+                 ("expand 1x1 64->128", 1, 64, 128, False),
+                 ("broadcast 1x1 128->128", 1, 128, 128, False))
+SERVE_Q_BATCHES = (1, 7, 512, 2880)
+SERVE_Q_TIMED = (512, 2880)
+SERVE_Q_WIDTHS = tuple(
+    (cfg, k, cin, cout, chain)
+    for cfg, c, cb in (("tiny", 16, 8), ("b8c64", 64, 32), ("b12c256btl3", 256, 128),
+                       ("b14c384btl3", 384, 192))
+    for k, cin, cout, chain in ((1, c, cb, True), (3, cb, cb, True), (1, cb, c, False),
+                                (1, c, c, False))) + (
+    ("b15c192_classic", 3, 192, 192, True), ("b15c192_classic", 3, 192, 192, False))
+SERVE_Q_CALIB_B = 1024
+SERVE_Q_CALIB_PLIES = 60
+SERVE_Q_CALIB_CPU_B = 256
+SERVE_Q_CALIB_RTOL = 1e-4
+SERVE_Q_CALIB_BF16_RTOL = 1e-3
+SERVE_Q_FORWARD_B = 512
+SERVE_Q_NATIVE_TOL = 1e-4  # JAX's test_native_matches_emulated_when_supported
+# Published dense int8 tensor rate of one H100 SXM, for the int8 bound.
+PEAK_INT8_OPS = 1979e12
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
     ("segment kernel", ("trunk_segment_kernel",)),
     ("broadcast kernel", ("trunk_broadcast_kernel",)),
     ("liberty kernel", ("point_liberties_kernel",)),
+    ("int8 conv kernel", ("conv_i8_kernel",)),
     ("cuDNN/cuBLAS convs and GEMMs", ("gemm", "conv", "cutlass", "xmma", "cudnn", "sm90_")),
     ("index/gather/scatter", ("index", "gather", "scatter")),
     ("reductions, sorts, softmax", ("reduce", "sort", "softmax", "scan", "radix")),
@@ -635,9 +701,10 @@ def rel_err(got, want):
     return d, d / float(want.float().abs().max())
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least time on the card in ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(least time on the card in ms, "operations" or "bytes"), the
+    operations at `peak` per second."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -885,9 +952,9 @@ def check_ply(prev, active, move, pi, after, what: str) -> None:
         raise AssertionError(f"{what}: pi_improved sums off by {err}")
 
 
-def phase_selfplay(device, model, gen, eval_fn, plies, phase):
+def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS):
     """`plies` plies of the tiered self-play step with resets; returns
-    (launches of each kernel in KERNELS during the run, plies/s, moves/s)."""
+    (launches of each kernel in `kernels` during the run, plies/s, moves/s)."""
     B = BENCH_B
     cfg = SelfplayConfig(batch_size=B)
     params_sel = SearchParams(n=128, k=8, noise_scale=1.0, max_depth=24,
@@ -902,7 +969,7 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase):
     tree = make_tree(B, reuse_capacity, device)
     b = torch.arange(B, device=device)
 
-    for k in KERNELS:
+    for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -927,7 +994,7 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase):
             resets += 1
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in kernels}
 
     for ply, check in enumerate(checks):
         check_ply(*check, f"phase {phase} ply {ply}")
@@ -2661,6 +2728,212 @@ def phase_scale_out(smi):
     return {**summary, "wall_s": wall, "card": smi}
 
 
+def conv_i8_case(k: int, cin: int, cout: int, n: int, in_chain: bool, device, gen):
+    """Random int8 activations and weights of one conv site, from `gen` (a
+    generator on the card), with scales that put y = acc * s_in * s_w near
+    unit size and, in-chain, mish(y) / s_next into the int8 range with a
+    few clips: (x8, w8, s_in, s_w, bias, s_next)."""
+    r = lambda *shape: torch.randint(-127, 128, shape, generator=gen, device=device,
+                                     dtype=torch.int8)
+    x8, w8 = r(n, 19, 19, cin), r(cout, k, k, cin)
+    acc_std = (k * k * cin) ** 0.5 * 127 * 127 / 3
+    u = lambda m: torch.rand(m, generator=gen, device=device)
+    s_w = (0.5 + u(cout)) * (50.0 / acc_std)
+    s_in = torch.full((), 0.02, device=device)
+    if not in_chain:
+        return x8, w8, s_in, s_w, None, None
+    return x8, w8, s_in, s_w, 0.6 * (u(cout) - 0.5), torch.full((), 3.0 / 127, device=device)
+
+
+def check_conv_i8(case, what: str) -> float:
+    """conv_i8 and conv_i8_acc against their plain versions on the card:
+    the int32 sums and the output (float32 or int8) must be equal. Returns
+    max |d| of the output (0.0)."""
+    x8, w8 = case[:2]
+    acc, acc_ref = conv_ops.conv_i8_acc(x8, w8), conv_ops.conv_i8_acc_reference(x8, w8)
+    got, want = conv_ops.conv_i8(*case), conv_ops.conv_i8_reference(*case)
+    torch.cuda.synchronize()
+    if not torch.equal(acc, acc_ref):
+        raise AssertionError(f"phase 14 (a) {what}: int32 sums differ in "
+                             f"{int((acc != acc_ref).sum())} of {acc.numel()}")
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"phase 14 (a) {what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        d = (got.float() - want.float()).abs()
+        raise AssertionError(f"phase 14 (a) {what}: output differs in {int((d > 0).sum())} "
+                             f"of {d.numel()}, max |d| {float(d.max())}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def conv_i8_work(k: int, cin: int, cout: int, n: int, in_chain: bool):
+    """(int8 operations, bytes) of one conv_i8 call: 2 per multiply-add; x8
+    and w8 read once, the output (int8 or float32) written once, the scales
+    and bias read once."""
+    ops = 2 * n * 361 * cout * k * k * cin
+    nbytes = (n * 361 * cin + cout * k * k * cin + n * 361 * cout * (1 if in_chain else 4)
+              + 4 * (cout * (2 if in_chain else 1) + 2))
+    return ops, nbytes
+
+
+def im2col_i8(x8: torch.Tensor, k: int) -> torch.Tensor:
+    """[N, 19, 19, C] int8 -> the [N*361, k*k*C] rows of a 'SAME' conv, tap
+    by tap, channels innermost (w8.reshape(Cout, -1)'s order)."""
+    if k == 1:
+        return x8.reshape(-1, x8.shape[3])
+    xp = F.pad(x8, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, dy:dy + 19, dx:dx + 19] for dy in range(3) for dx in range(3)],
+                     dim=3).reshape(-1, 9 * x8.shape[3])
+
+
+def conv_i8_row(name: str, k: int, cin: int, cout: int, in_chain: bool, n: int, device, gen,
+                with_plain: bool):
+    """Times of one conv site at n boards: the kernel (device ms per call),
+    its work and bound at the int8 tensor rate, and two yardsticks the port
+    never calls: torch._int_mm on an int8 im2col of the same conv (the
+    im2col timed apart) and a bf16 F.conv2d of the same shape."""
+    case = conv_i8_case(k, cin, cout, n, in_chain, device, gen)
+    x8, w8 = case[:2]
+    ms = device_ms(lambda: conv_ops.conv_i8(*case), 10)
+    ops, nbytes = conv_i8_work(k, cin, cout, n, in_chain)
+    b_ms, b_by = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+    a = im2col_i8(x8, k)
+    wm = w8.reshape(cout, -1).t()
+    xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    row = {"site": name, "n": n, "ms": ms, "gops": ops / 1e9, "tops": ops / ms / 1e9,
+           "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+           "im2col_ms": device_ms(lambda: im2col_i8(x8, k), 10) if k > 1 else 0.0,
+           "int_mm_ms": device_ms(lambda: torch._int_mm(a, wm), 10),
+           "bf16_conv_ms": device_ms(lambda: F.conv2d(xb, wb, padding=k // 2), 10)}
+    if with_plain:
+        row["plain_ms"] = device_ms(lambda: conv_ops.conv_i8_reference(*case), 5)
+    log(f"phase 14 (e): {name} N={n}: kernel {ms:.4f} ms, {row['gops']:.1f} G int8 ops, "
+        f"{row['tops']:.1f} TOP/s; bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * row['share_of_bound']:.1f}% of it; yardsticks: _int_mm {row['int_mm_ms']:.4f} "
+        f"ms + im2col {row['im2col_ms']:.4f} ms, bf16 conv2d {row['bf16_conv_ms']:.4f} ms"
+        + (f"; plain {row['plain_ms']:.4f} ms" if with_plain else ""))
+    return row
+
+
+def calibration_boards(B: int, plies: int, device, gen):
+    """bench.py's calibration positions (bench.py:88-105): B games after
+    `plies` moves drawn uniformly from the legal ones, pass included."""
+    states = new_state(B, 7.5, device=device)
+    for _ in range(plies):
+        legal = legal_mask_batch(states)
+        score = torch.rand(legal.shape, generator=gen, device=device)
+        states, _ = step(states, torch.where(legal, score, -1.0).argmax(dim=1))
+    return states
+
+
+def phase_serve_q(device, smi, model, gen, fold_rates):
+    """Phase 14 (see the module docstring) on phase 3's bf16 b12c128btl3.
+    Returns (launches of the liberty and int8 conv kernels by the self-play
+    slice, the {"serve_q": ...} measurements)."""
+    t_phase = time.perf_counter()
+    info = {"card": smi, "model": "b12c128btl3 bf16 seeded"}
+    # (a) the kernel against its plain version.
+    max_err, checked = 0.0, 0
+    for N in SERVE_Q_BATCHES:
+        for name, k, cin, cout, chain in SERVE_Q_SITES:
+            max_err = max(max_err, check_conv_i8(conv_i8_case(k, cin, cout, N, chain, device,
+                                                              gen), f"{name} N={N}"))
+            checked += 1
+    for cfg, k, cin, cout, chain in SERVE_Q_WIDTHS:
+        max_err = max(max_err, check_conv_i8(conv_i8_case(k, cin, cout, 64, chain, device, gen),
+                                             f"{cfg} {k}x{k} {cin}->{cout} N=64"))
+        checked += 1
+    log(f"phase 14 (a): conv_i8 == plain (int32 sums, float32 and int8 outputs) on "
+        f"{checked} cases: b12c128btl3's sites at N in {list(SERVE_Q_BATCHES)}, the other "
+        f"configs' widths at N=64")
+    info["kernel_cases"], info["max_abs_err"] = checked, max_err
+
+    # (b) calibration on bench.py's protocol, card against CPU.
+    states = calibration_boards(SERVE_Q_CALIB_B, SERVE_Q_CALIB_PLIES, device, gen)
+    planes, scalars = batched_features(states, planes_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = calibrate(model, planes, scalars)
+    torch.cuda.synchronize()
+    info["calibrate_s"] = time.perf_counter() - t0
+    nc = SERVE_Q_CALIB_CPU_B
+    m32 = copy.deepcopy(model)
+    m32.dtype = torch.float32
+    info["sites"], info["calib_max_rel"] = len(scales), {}
+    for m, dt, bound in ((m32, "float32", SERVE_Q_CALIB_RTOL),
+                         (model, "bf16", SERVE_Q_CALIB_BF16_RTOL)):
+        card = calibrate(m, planes[:nc], scalars[:nc])
+        t0 = time.perf_counter()
+        cpu = calibrate(copy.deepcopy(m).cpu(), planes[:nc].cpu(), scalars[:nc].cpu())
+        info[f"calibrate_cpu_{dt}_s"] = time.perf_counter() - t0
+        if set(card) != set(cpu) or set(card) != set(scales):
+            raise AssertionError(f"phase 14 (b): site sets differ: {set(card) ^ set(cpu)}")
+        rel, site = max((abs(float(card[k]) - float(cpu[k])) / float(cpu[k]), k) for k in cpu)
+        if not rel <= bound:
+            raise AssertionError(f"phase 14 (b): {dt} card scales vs CPU: max relative {rel} "
+                                 f"at {site} (bound {bound})")
+        info["calib_max_rel"][dt] = rel
+        log(f"phase 14 (b): {dt}: card vs CPU scales on the first {nc} boards: max relative "
+            f"{rel:.2e} at {site} (bound {bound})")
+    log(f"phase 14 (b): calibrated {len(scales)} sites on {SERVE_Q_CALIB_B} boards after "
+        f"{SERVE_Q_CALIB_PLIES} random legal plies in {info['calibrate_s']:.2f} s")
+
+    # (c) native against emulated, and against ServeNet's bf16 forward.
+    net, fold = ServeQNet(model), ServeNet(model)
+    p, sc = planes[:SERVE_Q_FORWARD_B], scalars[:SERVE_Q_FORWARD_B]
+    nat, emu, ref = net(p, sc, scales, True), net(p, sc, scales, False), fold(p, sc)
+    torch.cuda.synchronize()
+    served = ("pi_logits", "outcome_probs", "score_probs", "q6_err", "gamma")
+    for out, what in ((nat, "native"), (emu, "emulated")):
+        check_finite(out, served, f"phase 14 (c) serve_q {what}")
+    d_nat = float((nat.pi_logits - emu.pi_logits).abs().max())
+    if not d_nat <= SERVE_Q_NATIVE_TOL:
+        raise AssertionError(f"phase 14 (c): native vs emulated max |d pi_logits| {d_nat}")
+    value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
+    info["native_vs_emulated"] = d_nat
+    info["vs_servenet"] = {
+        "pi_corr": float(np.corrcoef(nat.pi_logits.float().cpu().numpy().ravel(),
+                                     ref.pi_logits.float().cpu().numpy().ravel())[0, 1]),
+        "top1": float((nat.pi_logits.argmax(-1) == ref.pi_logits.argmax(-1)).float().mean()),
+        "value_max_abs_d": float((value(nat) - value(ref)).abs().max())}
+    log(f"phase 14 (c): native vs emulated on {SERVE_Q_FORWARD_B} positions: max |d "
+        f"pi_logits| {d_nat:.3e} (bound {SERVE_Q_NATIVE_TOL}); vs ServeNet bf16 "
+        f"(informative): {info['vs_servenet']}")
+
+    # (d) the slice: phase 4's loop through the int8 graph.
+    launches, plies_s, moves_s = phase_selfplay(
+        device, model, gen, make_eval_fn(model, serve_q_scales=scales), PLIES, 14,
+        kernels=(point_liberties_batch, conv_ops.conv_i8))
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched by the serve_q self-play slice")
+    info["selfplay"] = {"plies_s": plies_s, "moves_s": moves_s, "launches": launches,
+                        "conv_i8_launches_per_ply": launches["conv_i8"] / PLIES,
+                        "serve_fold_plies_s": fold_rates[0], "serve_fold_moves_s": fold_rates[1]}
+    log(f"phase 14 (d): {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} through "
+        f"serve_q (phase 4, serve_fold: {fold_rates[0]:.3f} plies/s, {fold_rates[1]:.1f} "
+        f"moves/s; informative; {smi})")
+
+    # (e) times.
+    info["forward"], info["convs"] = {}, []
+    for N in SERVE_Q_TIMED:
+        st = calibration_boards(N, SERVE_Q_CALIB_PLIES, device, gen)
+        p_n, s_n = batched_features(st, planes_dtype=torch.bfloat16)
+        for row, fn in (("serve_q", lambda: net(p_n, s_n, scales)),
+                        ("servenet", lambda: fold(p_n, s_n))):
+            t = info["forward"][f"{row}@{N}"] = {"ms": device_ms(fn, 10),
+                                                 "wall_ms": wall_ms(fn, 3, 5)}
+            log(f"phase 14 (e): N={N} {row} forward: device {t['ms']:.3f} ms, wall "
+                f"{t['wall_ms']:.3f} ms per call")
+        for name, k, cin, cout, chain in SERVE_Q_SITES:
+            info["convs"].append(conv_i8_row(name, k, cin, cout, chain, N, device, gen,
+                                             with_plain=N == max(SERVE_Q_TIMED)))
+    info["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: wall {info['phase_wall_s']:.1f} s ({smi})")
+    return launches, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2675,7 +2948,7 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    sources = (lib_ops.SOURCE, trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE)
+    sources = (lib_ops.SOURCE, trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE, conv_ops.SOURCE)
     t0 = time.perf_counter()
     cuda_build.build_libraries(sources)
     log(f"phase 1: built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
@@ -2700,6 +2973,12 @@ def main() -> int:
             f"SASS instructions per kernel: {size}")
         if any(counts.get(k, 0) <= 0 for k in kernel_widths):
             raise AssertionError(f"{src}: a kernel of {kernel_widths} has no wgmma: {counts}")
+    for line in cuda_build.build_log(conv_ops.SOURCE).splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"phase 1: {line.strip()}")
+    found = sass_counts(conv_ops.SOURCE)
+    log(f"phase 1: {conv_ops.SOURCE}: SASS instructions per kernel: "
+        f"{found[1] if found else 'not counted (cuobjdump not found)'}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     boards, max_err, times = phase_kernel(device, gen)
@@ -2742,6 +3021,9 @@ def main() -> int:
     print(json.dumps({"transformer": transformer_info}), flush=True)
 
     print(json.dumps({"scale_out": phase_scale_out(smi)}), flush=True)
+
+    q_launches, q_info = phase_serve_q(device, smi, model, gen, (plies_s, moves_s))
+    print(json.dumps({"serve_q": q_info}), flush=True)
 
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
@@ -2801,6 +3083,29 @@ def main() -> int:
             "by_batch": {k: v for k, v in kernel_rows.items() if k.startswith(name + "@")},
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
+    rows = {(r["site"], r["n"]): r for r in q_info["convs"]}
+    main_row = rows[(SERVE_Q_SITES[1][0], max(SERVE_Q_TIMED))]
+    kernels.append({
+        "name": "conv_i8",
+        "route": "cuda",
+        "source": f"p3achygo_tpu_torch/csrc/{conv_ops.SOURCE}",
+        "replaces": "p3achygo_tpu/nn/serve_q.py:68 (not a TPU kernel: XLA's int32 "
+                    "convolution and the output fusion of _chain_q, serve_q.py:100-133)",
+        "launches": q_launches["conv_i8"],
+        "launches_from": "phase 14 (d) (serve_q self-play)",
+        "launches_per_ply": q_launches["conv_i8"] / PLIES,
+        "max_abs_err": q_info["max_abs_err"],
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+        "timed_shape": f"{main_row['site']}, N={main_row['n']}",
+        "timing": "device time per call from profiler kernel records",
+        "library_yardsticks": "int_mm_ms (+ im2col_ms) and bf16_conv_ms per site; no "
+                              "single PyTorch call computes an int8 conv with its epilogue",
+        "by_site": q_info["convs"],
+    })
     kernels[1]["trunk_b12c128btl3"] = trunk_by_n
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -119,3 +119,10 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     buffer must be covered and every flax leaf used."""
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
+
+
+def scales_from_jax(scales: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
+    """The JAX package's serve_q scale dict (site -> scalar array) as the
+    port's: site -> 0-d float32 tensor on `device` (nn/serve_q.py)."""
+    return {site: torch.tensor(np.asarray(v, np.float32).reshape(()), device=device)
+            for site, v in scales.items()}

@@ -93,6 +93,7 @@ from p3achygo_tpu_torch.mcts.tree import (
 )
 from p3achygo_tpu_torch.ops.liberties import point_liberties_batch
 from p3achygo_tpu_torch.nn.serve import ServeNet, serve_supported
+from p3achygo_tpu_torch.nn.serve_q import ServeQNet, q_supported
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn, trunk_supported
 
 _BIG_NEG = -1e9
@@ -200,7 +201,7 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 def make_eval_fn(model, symmetrize: bool = True, include_ladders: bool = False,
                  p_opt_weight: float = 0.0, use_fused_trunk: bool = False,
-                 serve_fold: bool = False) -> EvalFn:
+                 serve_fold: bool = False, serve_q_scales=None) -> EvalFn:
     """NN eval adapter: featurize, run the network, reduce its outputs.
 
     With `symmetrize`, each position is evaluated under the D4 symmetry
@@ -216,11 +217,18 @@ def make_eval_fn(model, symmetrize: bool = True, include_ladders: bool = False,
     once here, where `serve_supported` (not for the transformer trunk,
     which falls back to the plain forward). `use_fused_trunk` runs the
     trunk in the hand-written kernels (`nn/trunk_kernel.py`, folded once
-    here) for btl networks and is ignored for others; as in the JAX
-    package, a folded `serve_fold` takes precedence over it."""
+    here) for btl networks and is ignored for others. `serve_q_scales` (a
+    site -> scale dict from `nn/serve_q.py calibrate`) runs the
+    int8-activation `ServeQNet`, built once here, where `q_supported`. As
+    in the JAX package (gumbel.py:216-247), serve_q takes precedence over
+    `serve_fold`, which takes precedence over the fused trunk."""
     trunk_fn = None
-    if serve_fold and serve_supported(model.config):
-        net = ServeNet(model, want_optimistic=p_opt_weight > 0.0)
+    want_optimistic = p_opt_weight > 0.0
+    if serve_q_scales is not None and q_supported(model.config):
+        qnet = ServeQNet(model, want_optimistic)
+        net = lambda planes, scalars: qnet(planes, scalars, serve_q_scales)
+    elif serve_fold and serve_supported(model.config):
+        net = ServeNet(model, want_optimistic)
     else:
         if use_fused_trunk and trunk_supported(model.config):
             trunk_fn = build_trunk_fn(model.config, model)

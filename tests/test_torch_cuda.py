@@ -6,18 +6,25 @@ but no JAX (the repo's conftest imports JAX, hence `--noconftest`):
 
     python -m pytest -o addopts= --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KERNEL_TOL, random_boards, rel_err, seeded_model
+from chip_smoke import (KERNEL_TOL, SERVE_Q_CALIB_BF16_RTOL, SERVE_Q_CALIB_RTOL,
+                        SERVE_Q_NATIVE_TOL, SERVE_Q_SITES, SERVE_Q_WIDTHS, calibration_boards,
+                        check_conv_i8, conv_i8_case, random_boards, rel_err, seeded_model)
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import from_stones, legal_mask_batch, map_state
 from p3achygo_tpu_torch.game.scoring import compute_pass_alive
 from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
+from p3achygo_tpu_torch.models.blocks import mish
 from p3achygo_tpu_torch.models.losses import LossCoeffs
+from p3achygo_tpu_torch.nn.serve_q import ServeQNet, calibrate
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
+from p3achygo_tpu_torch.ops import conv_i8 as ci
 from p3achygo_tpu_torch.ops import liberties as tl
 from p3achygo_tpu_torch.ops import trunk as tk
 from p3achygo_tpu_torch.mcts.tree import make_tree
@@ -585,3 +592,129 @@ def test_parallel_dry_run_one_nccl_rank(device):
     line = next(ln for ln in out.stdout.splitlines() if ln.startswith('{"dryrun_multichip"'))
     summary = json.loads(line)["dryrun_multichip"]
     assert summary["backend"] == "nccl" and summary["n_devices"] == 1, summary
+
+
+CONV_CASES = [(name, k, cin, cout, chain) for name, k, cin, cout, chain in SERVE_Q_SITES] + [
+    (f"{cfg} {k}x{k} {cin}->{cout}", k, cin, cout, chain)
+    for cfg, k, cin, cout, chain in SERVE_Q_WIDTHS]
+
+
+@pytest.mark.parametrize("N", [1, 7, 64])
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_conv_i8_equals_plain(device, case, N):
+    """The int32 sums, and the float32 (chain-last) or int8 (in-chain)
+    output, equal the plain version's: the same operations in the same
+    order."""
+    name, k, cin, cout, chain = case
+    gen = torch.Generator(device=device).manual_seed(N + cin)
+    before = ci.conv_i8.launches
+    assert check_conv_i8(conv_i8_case(k, cin, cout, N, chain, device, gen), name) == 0.0
+    assert ci.conv_i8.launches == before + 1
+
+
+def test_conv_i8_both_modes_of_one_site(device):
+    gen = torch.Generator(device=device).manual_seed(1)
+    x8, w8, s_in, s_w, bias, s_next = conv_i8_case(3, 64, 64, 5, True, device, gen)
+    q = ci.conv_i8(x8, w8, s_in, s_w, bias, s_next)
+    y = ci.conv_i8(x8, w8, s_in, s_w, bias)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and y.dtype == torch.float32
+    assert torch.equal(q, ci.quantize(mish(y), s_next))
+
+
+def test_conv_i8_launch_counts(device):
+    gen = torch.Generator(device=device).manual_seed(2)
+    case = conv_i8_case(1, 64, 32, 3, True, device, gen)
+    before = ci.conv_i8.launches
+    for i in range(1, 4):
+        ci.conv_i8(*case)
+        assert ci.conv_i8.launches == before + i
+    empty = (torch.zeros((0, 19, 19, 64), dtype=torch.int8, device=device),) + case[1:]
+    assert ci.conv_i8(*empty).shape == (0, 19, 19, 32)
+    assert ci.conv_i8.launches == before + 3
+    torch.cuda.synchronize()
+
+
+def test_conv_i8_rejects_what_it_cannot_run(device):
+    """Non-contiguous input, widths the kernel does not take: the wrapper
+    raises and launches nothing; it never falls back to the plain version."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    x8, w8, s_in, s_w, bias, s_next = conv_i8_case(1, 64, 32, 2, True, device, gen)
+    before = ci.conv_i8.launches
+    wide = torch.cat([x8, x8], dim=3)[..., ::2]
+    with pytest.raises(ValueError):
+        ci.conv_i8(wide, w8, s_in, s_w, bias, s_next)
+    big = conv_i8_case(3, 384, 384, 1, False, device, gen)
+    with pytest.raises(ValueError, match="Cin=384"):
+        ci.conv_i8(*big)
+    odd = conv_i8_case(1, 64, 12, 1, False, device, gen)
+    with pytest.raises(ValueError, match="Cout=12"):
+        ci.conv_i8(*odd)
+    assert ci.conv_i8.launches == before
+
+
+@pytest.fixture(scope="module")
+def serve_q_net(device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = seeded_model("b8c64", device, torch.Generator().manual_seed(8))
+    m.dtype = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(8)
+    states = calibration_boards(128, 60, device, gen)
+    planes, scalars = batched_features(states, planes_dtype=torch.bfloat16)
+    return m, states, planes, scalars, calibrate(m, planes, scalars)
+
+
+def test_serve_q_native_equals_emulated_on_card(serve_q_net):
+    m, _, planes, scalars, scales = serve_q_net
+    net = ServeQNet(m)
+    before = ci.conv_i8.launches
+    nat, emu = net(planes, scalars, scales, True), net(planes, scalars, scales, False)
+    torch.cuda.synchronize()
+    assert ci.conv_i8.launches > before
+    assert float((nat.pi_logits - emu.pi_logits).abs().max()) <= SERVE_Q_NATIVE_TOL
+    assert bool(torch.isfinite(nat.pi_logits).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serve_q_calibration_on_card_agrees_with_cpu(serve_q_net, dtype):
+    """Record mode runs float32 with TF32 off, so only summation orders
+    differ; in bf16 the broadcast mix's product also rounds where its sums
+    differ (chip_smoke.SERVE_Q_CALIB_* says how far that moves a scale)."""
+    m, _, planes, scalars, _ = serve_q_net
+    m = copy.deepcopy(m)
+    m.dtype = dtype
+    card = calibrate(m, planes, scalars)
+    cpu = calibrate(copy.deepcopy(m).cpu(), planes.cpu(), scalars.cpu())
+    bound = SERVE_Q_CALIB_RTOL if dtype == torch.float32 else SERVE_Q_CALIB_BF16_RTOL
+    assert set(card) == set(cpu)
+    for k, s in card.items():
+        assert abs(float(s) - float(cpu[k])) <= bound * float(cpu[k]), k
+
+
+def test_serve_q_on_card_agrees_with_cpu(serve_q_net):
+    """The card's forward against the CPU's with the same scales. mish's
+    exp differs in the last bit between the card and the CPU, which can
+    move an int8 value across a rounding boundary, and a random network
+    carries such a flip on: they agree on the policy's top-1 and the
+    value."""
+    m, _, planes, scalars, scales = serve_q_net
+    m_cpu = copy.deepcopy(m).cpu()
+    p_cpu, s_cpu = planes.cpu(), scalars.cpu()
+    card = ServeQNet(m)(planes, scalars, scales)
+    cpu = ServeQNet(m_cpu)(p_cpu, s_cpu, {k: v.cpu() for k, v in scales.items()})
+    top1 = (card.pi_logits.argmax(-1).cpu() == cpu.pi_logits.argmax(-1)).float().mean()
+    assert float(top1) >= 0.9, float(top1)
+    value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
+    assert float((value(card).cpu() - value(cpu)).abs().max()) < 0.1
+
+
+def test_serve_q_eval_launches_its_kernels(serve_q_net, device):
+    m, states, _, _, scales = serve_q_net
+    sub = map_state(lambda t: t[:32], states)
+    before = (ci.conv_i8.launches, tl.point_liberties_batch.launches)
+    out = make_eval_fn(m, serve_q_scales=scales)(sub)
+    torch.cuda.synchronize()
+    assert ci.conv_i8.launches > before[0]
+    assert tl.point_liberties_batch.launches > before[1]
+    assert bool(torch.isfinite(out.log_priors).all())
