@@ -16,7 +16,9 @@ fallback):
              each trunk kernel's count of HGMMA (wgmma) and of all SASS
              instructions from `cuobjdump -sass`: every width of both trunk kernels must be
              there with a count > 0, each source held to its own counts
-             (where cuobjdump is missing the line says so).
+             (where cuobjdump is missing the line says so); for conv_i8
+             every mode's count of IMMA and GMMA (s8 tensor-core)
+             instructions must be > 0 and of IDP4A 0.
   2 kernel   boards from random legal play with the port's `step`; the
              liberty kernel must equal its plain PyTorch version exactly at
              B in {1, 7, 64, 192, 1024, 2048, 2880, 8192}; times both at
@@ -205,29 +207,37 @@ fallback):
              and pi within 1e-4.
 
   14 serve_q  the int8-activation serving graph (nn/serve_q.py over the
-             conv_i8 kernel) with phase 3's b12c128btl3 in bf16, about a
-             minute and a half: (a) conv_i8 against its plain version at
-             the conv sites of b12c128btl3 (SERVE_Q_SITES: 1x1 128->64 and
-             3x3 64->64 in-chain, 1x1 64->128 and the broadcast block's
-             1x1 128->128 chain-last) at N in {1, 7, 512, 2880}, and at the
-             other conv configs' widths at N=64: the int32 sums (raw mode),
-             the float32 and the int8 outputs must be equal; (b) calibration
-             on bench.py's protocol (1,024 boards after 60 random legal
-             plies), the card's scales against the CPU's on the first 256
-             boards, the same sites, float32 within rtol 1e-4 and bf16
-             within 1e-3 (SERVE_Q_CALIB_*); (c) serve_q_forward native
-             against emulated on 512 positions (max |d pi_logits| <= 1e-4),
-             every output finite, and against ServeNet's bf16 forward (pi
-             correlation, top-1, value; informative); (d) phase 4's loop
-             with make_eval_fn(serve_q_scales=): phase 4's checks, the
-             liberty and conv_i8 kernels both launched, plies/s and
-             moves/s beside phase 4's; (e) at N = 512 and 2880 the serve_q
-             and ServeNet forwards (device and wall ms), and for each site
-             the kernel's device ms, int8 operations, bound (int8 ops over
-             1,979 TOP/s or bytes over 3.35 TB/s) and share of it, beside
-             torch._int_mm on an int8 im2col (the im2col timed apart) and
-             a bf16 F.conv2d of the same shape, yardsticks the port never
-             calls.
+             conv_i8 kernel) with phase 3's b12c128btl3 in bf16, about two
+             minutes: (a) conv_i8 against its plain version at the conv
+             sites of b12c128btl3 (SERVE_Q_SITES: 1x1 128->64 and 3x3
+             64->64 in-chain, 1x1 64->128 and the broadcast block's 1x1
+             128->128 chain-last) at N in {1, 7, 512, 2880}, and at the
+             other conv configs' widths at N=64, in every epilogue mode
+             (EPILOGUE_MODES: the site's own, float32 or int8, the residual
+             RES with and without the next head, MISH in bf16 and float32):
+             the int32 sums (raw mode) and every output must be equal; (b)
+             calibration on bench.py's protocol (1,024 boards after 60
+             random legal plies), the card's scales against the CPU's on
+             the first 256 boards, the same sites, float32 within rtol 1e-4
+             and bf16 within 1e-3 (SERVE_Q_CALIB_*); (c) serve_q_forward
+             native against emulated on 512 positions (max |d pi_logits|
+             <= 1e-4), the fused graph (int8 stream between blocks) against
+             the plain graph (float32 stream, plain ops) on the same
+             positions (last int8 stream and pi_logits equal), every output
+             finite, and against ServeNet's bf16 forward (pi correlation,
+             top-1, value; informative); (d) phase 4's loop with
+             make_eval_fn(serve_q_scales=): phase 4's checks, the liberty
+             and conv_i8 kernels both launched, conv_i8 in its I8, RES and
+             MISH modes and never in F32, plies/s and moves/s beside phase
+             4's; (e) at N = 512 and 2880 the fused and plain serve_q and
+             ServeNet forwards (device and wall ms), the fused forward's
+             device time by kernel class from a profile (conv_i8 by mode,
+             elementwise, GEMMs and convs, copies), and for each site and
+             the modes it runs in (SERVE_Q_TIMED_MODES) the kernel's device
+             ms, int8 operations, bound (int8 ops over 1,979 TOP/s or bytes
+             over 3.35 TB/s) and share of it, beside torch._int_mm on an
+             int8 im2col (the im2col timed apart) and a bf16 F.conv2d of
+             the same shape, yardsticks the port never calls.
 
 Phases 7, 8, 9, 10, 11, 12, 13 and 14 print {"learn": ...}, {"gen": ...},
 {"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...},
@@ -505,6 +515,16 @@ SERVE_Q_WIDTHS = tuple(
     for k, cin, cout, chain in ((1, c, cb, True), (3, cb, cb, True), (1, cb, c, False),
                                 (1, c, c, False))) + (
     ("b15c192_classic", 3, 192, 192, True), ("b15c192_classic", 3, 192, 192, False))
+# Epilogue modes held against the plain version in (a): the site's own
+# (float32 chain-last or int8 in-chain), RES with the next chain's head and
+# without it (the last block), MISH in bf16 and float32.
+EPILOGUE_MODES = ("site", "res", "res_last", "mish_bf16", "mish_f32")
+# The modes each site runs in b12c128btl3's fused graph, timed in (e), and
+# F32, the chain-last mode the graph ran before RES and MISH.
+SERVE_Q_TIMED_MODES = {"reduce 1x1 128->64": ("site",),
+                       "inner 3x3 64->64": ("site",),
+                       "expand 1x1 64->128": ("res", "site"),
+                       "broadcast 1x1 128->128": ("res", "mish_bf16", "site")}
 SERVE_Q_CALIB_B = 1024
 SERVE_Q_CALIB_PLIES = 60
 SERVE_Q_CALIB_CPU_B = 256
@@ -766,9 +786,9 @@ def segment_library_products(w, x):
     return run
 
 
-def sass_counts(source: str):
-    """({kernel<widths>: HGMMA instructions}, {kernel<widths>: SASS
-    instructions}) in the built library of `source`, from `cuobjdump
+def sass_counts(source: str, ops=("HGMMA",)):
+    """({kernel<widths>: instructions naming one of `ops`}, {kernel<widths>:
+    SASS instructions}) in the built library of `source`, from `cuobjdump
     -sass`; None where cuobjdump is missing. The second says how much code
     a kernel streams through the instruction cache."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -777,18 +797,19 @@ def sass_counts(source: str):
         return None
     sass = subprocess.run([tool, "-sass", cuda_build.built_path(source)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    hgmma, size, name = {}, {}, None
+    counts, size, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(trunk_(?:segment|broadcast)_kernel)I((?:Li\d+E)+)", line)
+            m = re.search(r"(trunk_(?:segment|broadcast)_kernel|conv_i8_kernel)I((?:Li\d+E)+)",
+                          line)
             widths = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
             name = (f"{m.group(1)}<{widths}>" if m
                     else line.split("Function :")[1].strip())
-            hgmma[name] = size[name] = 0
+            counts[name] = size[name] = 0
         elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+[@A-Z]", line):
             size[name] += 1
-            hgmma[name] += "HGMMA" in line
-    return hgmma, size
+            counts[name] += any(op in line for op in ops)
+    return counts, size
 
 
 def stem_activations(model, boards, n: int) -> torch.Tensor:
@@ -2745,34 +2766,80 @@ def conv_i8_case(k: int, cin: int, cout: int, n: int, in_chain: bool, device, ge
     return x8, w8, s_in, s_w, 0.6 * (u(cout) - 0.5), torch.full((), 3.0 / 127, device=device)
 
 
-def check_conv_i8(case, what: str) -> float:
+def epilogue_case(k: int, cin: int, cout: int, n: int, in_chain: bool, mode: str, device,
+                  gen):
+    """(conv_i8's positional arguments, its epilogue keywords) of one site
+    in one of EPILOGUE_MODES: "site" is the site's own (int8 in-chain,
+    float32 chain-last); RES adds a random int8 stream at a scale that puts
+    the sum r = q_prev * s_prev + y into the int8 range with a few clips,
+    and "res" the next head's affine and scale; MISH takes a chain-last
+    site's inputs."""
+    if mode == "site":
+        return conv_i8_case(k, cin, cout, n, in_chain, device, gen), {}
+    case = conv_i8_case(k, cin, cout, n, False, device, gen)
+    if mode.startswith("mish"):
+        return case, {"mish_dtype": torch.bfloat16 if mode == "mish_bf16" else torch.float32}
+    u = lambda m: torch.rand(m, generator=gen, device=device)
+    full = lambda v: torch.full((), v, device=device)
+    kw = {"q_prev": torch.randint(-127, 128, (n, 19, 19, cout), generator=gen, device=device,
+                                  dtype=torch.int8),
+          "s_prev": full(0.02), "s_res": full(3.5 / 127)}
+    if mode == "res":
+        kw.update(a0=0.5 + u(cout), b0=0.6 * (u(cout) - 0.5), s_head=full(3.0 / 127))
+    return case, kw
+
+
+def check_conv_i8(case, what: str, epilogue=None) -> float:
     """conv_i8 and conv_i8_acc against their plain versions on the card:
-    the int32 sums and the output (float32 or int8) must be equal. Returns
-    max |d| of the output (0.0)."""
+    the int32 sums and every output (float32, int8 or bf16) must be equal.
+    Returns max |d| of the outputs (0.0)."""
+    epilogue = epilogue or {}
     x8, w8 = case[:2]
     acc, acc_ref = conv_ops.conv_i8_acc(x8, w8), conv_ops.conv_i8_acc_reference(x8, w8)
-    got, want = conv_ops.conv_i8(*case), conv_ops.conv_i8_reference(*case)
+    got = conv_ops.conv_i8(*case, **epilogue)
+    want = conv_ops.conv_i8_reference(*case, **epilogue)
     torch.cuda.synchronize()
     if not torch.equal(acc, acc_ref):
         raise AssertionError(f"phase 14 (a) {what}: int32 sums differ in "
                              f"{int((acc != acc_ref).sum())} of {acc.numel()}")
-    if got.dtype != want.dtype or got.shape != want.shape:
-        raise AssertionError(f"phase 14 (a) {what}: {got.dtype} {tuple(got.shape)} vs "
-                             f"{want.dtype} {tuple(want.shape)}")
-    if not torch.equal(got, want):
-        d = (got.float() - want.float()).abs()
-        raise AssertionError(f"phase 14 (a) {what}: output differs in {int((d > 0).sum())} "
-                             f"of {d.numel()}, max |d| {float(d.max())}")
-    return float((got.float() - want.float()).abs().max())
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    err = 0.0
+    for i, (g, w) in enumerate(pairs):
+        if g is None and w is None:
+            continue
+        if g is None or w is None or g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"phase 14 (a) {what} output {i}: "
+                                 f"{None if g is None else (g.dtype, tuple(g.shape))} vs "
+                                 f"{None if w is None else (w.dtype, tuple(w.shape))}")
+        if not torch.equal(g, w):
+            d = (g.float() - w.float()).abs()
+            raise AssertionError(f"phase 14 (a) {what} output {i}: differs in "
+                                 f"{int((d > 0).sum())} of {d.numel()}, max |d| "
+                                 f"{float(d.max())}")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    return err
 
 
-def conv_i8_work(k: int, cin: int, cout: int, n: int, in_chain: bool):
+def site_mode(mode: str, in_chain: bool) -> str:
+    """conv_i8's epilogue name (ops/conv_i8.py MODES) of an EPILOGUE_MODES
+    entry."""
+    if mode == "site":
+        return "i8" if in_chain else "f32"
+    return "res" if mode.startswith("res") else "mish"
+
+
+def conv_i8_work(k: int, cin: int, cout: int, n: int, in_chain: bool, mode: str = "site"):
     """(int8 operations, bytes) of one conv_i8 call: 2 per multiply-add; x8
-    and w8 read once, the output (int8 or float32) written once, the scales
-    and bias read once."""
+    and w8 read once, every output written once, the previous stream (RES)
+    read once, the scales, bias and affines read once."""
     ops = 2 * n * 361 * cout * k * k * cin
-    nbytes = (n * 361 * cin + cout * k * k * cin + n * 361 * cout * (1 if in_chain else 4)
-              + 4 * (cout * (2 if in_chain else 1) + 2))
+    points = n * 361 * cout
+    per_point = {"site": 1 if in_chain else 4, "res": 3, "res_last": 2, "mish_bf16": 2,
+                 "mish_f32": 4}[mode]
+    vectors = {"site": 2 if in_chain else 1, "res": 3, "res_last": 1, "mish_bf16": 1,
+               "mish_f32": 1}[mode]
+    nbytes = (n * 361 * cin + cout * k * k * cin + points * per_point
+              + 4 * (cout * vectors + 4))
     return ops, nbytes
 
 
@@ -2787,33 +2854,99 @@ def im2col_i8(x8: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def conv_i8_row(name: str, k: int, cin: int, cout: int, in_chain: bool, n: int, device, gen,
-                with_plain: bool):
-    """Times of one conv site at n boards: the kernel (device ms per call),
-    its work and bound at the int8 tensor rate, and two yardsticks the port
-    never calls: torch._int_mm on an int8 im2col of the same conv (the
-    im2col timed apart) and a bf16 F.conv2d of the same shape."""
-    case = conv_i8_case(k, cin, cout, n, in_chain, device, gen)
+                with_plain: bool, mode: str = "site", yardsticks: bool = True):
+    """Times of one conv site at n boards in one epilogue mode: the kernel
+    (device ms per call), its work and bound at the int8 tensor rate, and
+    (with `yardsticks`) the kernel's raw mode (int32 sums, no epilogue) and
+    two yardsticks the port never calls: torch._int_mm on an int8 im2col of
+    the same conv (the im2col timed apart) and a bf16 F.conv2d of the same
+    shape."""
+    case, kw = epilogue_case(k, cin, cout, n, in_chain, mode, device, gen)
     x8, w8 = case[:2]
-    ms = device_ms(lambda: conv_ops.conv_i8(*case), 10)
-    ops, nbytes = conv_i8_work(k, cin, cout, n, in_chain)
+    ms = device_ms(lambda: conv_ops.conv_i8(*case, **kw), 10)
+    ops, nbytes = conv_i8_work(k, cin, cout, n, in_chain, mode)
     b_ms, b_by = bound_ms(ops, nbytes, PEAK_INT8_OPS)
-    a = im2col_i8(x8, k)
-    wm = w8.reshape(cout, -1).t()
-    xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)
-    wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    row = {"site": name, "n": n, "ms": ms, "gops": ops / 1e9, "tops": ops / ms / 1e9,
-           "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
-           "im2col_ms": device_ms(lambda: im2col_i8(x8, k), 10) if k > 1 else 0.0,
-           "int_mm_ms": device_ms(lambda: torch._int_mm(a, wm), 10),
-           "bf16_conv_ms": device_ms(lambda: F.conv2d(xb, wb, padding=k // 2), 10)}
+    row = {"site": name, "mode": site_mode(mode, in_chain) + ("_last" if mode == "res_last"
+                                                              else ""),
+           "n": n, "ms": ms, "gops": ops / 1e9, "tops": ops / ms / 1e9,
+           "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+    text = ""
+    if yardsticks:
+        a = im2col_i8(x8, k)
+        wm = w8.reshape(cout, -1).t()
+        xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = w8.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        row.update(im2col_ms=device_ms(lambda: im2col_i8(x8, k), 10) if k > 1 else 0.0,
+                   int_mm_ms=device_ms(lambda: torch._int_mm(a, wm), 10),
+                   bf16_conv_ms=device_ms(lambda: F.conv2d(xb, wb, padding=k // 2), 10),
+                   acc_ms=device_ms(lambda: conv_ops.conv_i8_acc(x8, w8), 10))
+        text = (f"; raw int32 sums (no epilogue) {row['acc_ms']:.4f} ms; yardsticks: _int_mm "
+                f"{row['int_mm_ms']:.4f} ms + im2col {row['im2col_ms']:.4f} ms, bf16 conv2d "
+                f"{row['bf16_conv_ms']:.4f} ms")
     if with_plain:
-        row["plain_ms"] = device_ms(lambda: conv_ops.conv_i8_reference(*case), 5)
-    log(f"phase 14 (e): {name} N={n}: kernel {ms:.4f} ms, {row['gops']:.1f} G int8 ops, "
-        f"{row['tops']:.1f} TOP/s; bound {b_ms:.4f} ms ({b_by}), "
-        f"{100 * row['share_of_bound']:.1f}% of it; yardsticks: _int_mm {row['int_mm_ms']:.4f} "
-        f"ms + im2col {row['im2col_ms']:.4f} ms, bf16 conv2d {row['bf16_conv_ms']:.4f} ms"
-        + (f"; plain {row['plain_ms']:.4f} ms" if with_plain else ""))
+        row["plain_ms"] = device_ms(lambda: conv_ops.conv_i8_reference(*case, **kw), 5)
+        text += f"; plain {row['plain_ms']:.4f} ms"
+    log(f"phase 14 (e): {name} {row['mode']} N={n}: kernel {ms:.4f} ms, {row['gops']:.1f} G "
+        f"int8 ops, {row['tops']:.1f} TOP/s; bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * row['share_of_bound']:.1f}% of it" + text)
     return row
+
+
+def conv_i8_sass():
+    """Phase 1's tensor-core count of the conv_i8 library: IMMA (mma.sync
+    s8) and GMMA (wgmma) instructions per kernel<K, mode>, which must be
+    > 0 in every kernel, and IDP4A, which must be 0 (no dp4a main loop)."""
+    for line in cuda_build.build_log(conv_ops.SOURCE).splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"phase 1: {line.strip()}")
+    found = sass_counts(conv_ops.SOURCE, ("IMMA", "GMMA"))
+    if found is None:
+        log(f"phase 1: {conv_ops.SOURCE}: cuobjdump not found, tensor-core instructions "
+            f"not counted")
+        return None
+    tc, size = found
+    dp4a = sass_counts(conv_ops.SOURCE, ("IDP4A",))[0]
+    tc = {k: v for k, v in tc.items() if k.startswith("conv_i8_kernel")}
+    log(f"phase 1: {conv_ops.SOURCE}: IMMA/GMMA (s8 tensor-core) instructions per "
+        f"kernel<K,mode>: {tc}; IDP4A: {sum(dp4a.values())}; SASS instructions per "
+        f"kernel: {size}")
+    if len(tc) != 12 or any(v <= 0 for v in tc.values()):
+        raise AssertionError(f"{conv_ops.SOURCE}: a conv_i8 kernel has no s8 tensor-core "
+                             f"instruction: {tc}")
+    if any(dp4a.values()):
+        raise AssertionError(f"{conv_ops.SOURCE}: IDP4A instructions left: {dp4a}")
+    return {"tensor_core_instructions": tc, "idp4a": sum(dp4a.values()),
+            "sass_instructions": {k: v for k, v in size.items() if k in tc}}
+
+
+CONV_MODE_NAMES = ("acc", "f32", "i8", "res", "mish_f32", "mish_bf16")
+
+
+def forward_classes(fn, calls: int = 3):
+    """({class: device ms per call}, kernels per call) of `calls` calls of
+    `fn`, the conv_i8 kernel split by its mode (the second template
+    argument of conv_i8_kernel<K, mode>)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_class, kernels = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        kernels += e.count
+        name = e.key.lower()
+        m = re.search(r"conv_i8_kernel<(\d+), ?(\d+)>", name)
+        if m:
+            cls = f"conv_i8 {m.group(1)}x{m.group(1)} {CONV_MODE_NAMES[int(m.group(2))]}"
+        else:
+            cls = next((c for c, keys in CLASSES if any(k in name for k in keys)),
+                       "other, copies")
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3 / calls
+    return by_class, kernels / calls
 
 
 def calibration_boards(B: int, plies: int, device, gen):
@@ -2833,20 +2966,20 @@ def phase_serve_q(device, smi, model, gen, fold_rates):
     slice, the {"serve_q": ...} measurements)."""
     t_phase = time.perf_counter()
     info = {"card": smi, "model": "b12c128btl3 bf16 seeded"}
-    # (a) the kernel against its plain version.
+    # (a) the kernel against its plain version, every epilogue mode.
     max_err, checked = 0.0, 0
-    for N in SERVE_Q_BATCHES:
-        for name, k, cin, cout, chain in SERVE_Q_SITES:
-            max_err = max(max_err, check_conv_i8(conv_i8_case(k, cin, cout, N, chain, device,
-                                                              gen), f"{name} N={N}"))
+    cases = [(f"{name} N={N}", k, cin, cout, chain, N) for N in SERVE_Q_BATCHES
+             for name, k, cin, cout, chain in SERVE_Q_SITES]
+    cases += [(f"{cfg} {k}x{k} {cin}->{cout} N=64", k, cin, cout, chain, 64)
+              for cfg, k, cin, cout, chain in SERVE_Q_WIDTHS]
+    for what, k, cin, cout, chain, N in cases:
+        for mode in EPILOGUE_MODES:
+            case, kw = epilogue_case(k, cin, cout, N, chain, mode, device, gen)
+            max_err = max(max_err, check_conv_i8(case, f"{what} {mode}", kw))
             checked += 1
-    for cfg, k, cin, cout, chain in SERVE_Q_WIDTHS:
-        max_err = max(max_err, check_conv_i8(conv_i8_case(k, cin, cout, 64, chain, device, gen),
-                                             f"{cfg} {k}x{k} {cin}->{cout} N=64"))
-        checked += 1
-    log(f"phase 14 (a): conv_i8 == plain (int32 sums, float32 and int8 outputs) on "
+    log(f"phase 14 (a): conv_i8 == plain (int32 sums, float32, int8 and bf16 outputs) on "
         f"{checked} cases: b12c128btl3's sites at N in {list(SERVE_Q_BATCHES)}, the other "
-        f"configs' widths at N=64")
+        f"configs' widths at N=64, each in the modes {list(EPILOGUE_MODES)}")
     info["kernel_cases"], info["max_abs_err"] = checked, max_err
 
     # (b) calibration on bench.py's protocol, card against CPU.
@@ -2890,6 +3023,18 @@ def phase_serve_q(device, smi, model, gen, fold_rates):
     d_nat = float((nat.pi_logits - emu.pi_logits).abs().max())
     if not d_nat <= SERVE_Q_NATIVE_TOL:
         raise AssertionError(f"phase 14 (c): native vs emulated max |d pi_logits| {d_nat}")
+    plain = net(p, sc, scales, fused=False)
+    stream_f, stream_p = net.stream(p, sc, scales), net.stream(p, sc, scales, fused=False)
+    torch.cuda.synchronize()
+    if not torch.equal(stream_f, stream_p) or not torch.equal(nat.pi_logits, plain.pi_logits):
+        raise AssertionError(
+            f"phase 14 (c): the fused graph differs from the plain graph: last stream in "
+            f"{int((stream_f != stream_p).sum())} of {stream_f.numel()}, max |d pi_logits| "
+            f"{float((nat.pi_logits - plain.pi_logits).abs().max())}")
+    info["fused_equals_plain"] = True
+    log(f"phase 14 (c): fused graph (int8 stream between blocks) == plain graph (float32 "
+        f"stream, plain ops) on {SERVE_Q_FORWARD_B} positions: last int8 stream and "
+        f"pi_logits equal")
     value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
     info["native_vs_emulated"] = d_nat
     info["vs_servenet"] = {
@@ -2902,12 +3047,18 @@ def phase_serve_q(device, smi, model, gen, fold_rates):
         f"(informative): {info['vs_servenet']}")
 
     # (d) the slice: phase 4's loop through the int8 graph.
+    conv_ops.reset_launches()
     launches, plies_s, moves_s = phase_selfplay(
         device, model, gen, make_eval_fn(model, serve_q_scales=scales), PLIES, 14,
         kernels=(point_liberties_batch, conv_ops.conv_i8))
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{k} was not launched by the serve_q self-play slice")
+    by_mode = dict(conv_ops.conv_i8.mode_launches)
+    if min(by_mode["i8"], by_mode["res"], by_mode["mish"]) <= 0 or by_mode["f32"] != 0:
+        raise AssertionError(f"phase 14 (d): conv_i8 launches by mode {by_mode}: want I8, "
+                             f"RES and MISH, and no float32 stream")
+    launches["conv_i8_by_mode"] = by_mode
     info["selfplay"] = {"plies_s": plies_s, "moves_s": moves_s, "launches": launches,
                         "conv_i8_launches_per_ply": launches["conv_i8"] / PLIES,
                         "serve_fold_plies_s": fold_rates[0], "serve_fold_moves_s": fold_rates[1]}
@@ -2916,19 +3067,27 @@ def phase_serve_q(device, smi, model, gen, fold_rates):
         f"moves/s; informative; {smi})")
 
     # (e) times.
-    info["forward"], info["convs"] = {}, []
+    info["forward"], info["convs"], info["forward_classes"] = {}, [], {}
     for N in SERVE_Q_TIMED:
         st = calibration_boards(N, SERVE_Q_CALIB_PLIES, device, gen)
         p_n, s_n = batched_features(st, planes_dtype=torch.bfloat16)
         for row, fn in (("serve_q", lambda: net(p_n, s_n, scales)),
+                        ("serve_q_plain_graph", lambda: net(p_n, s_n, scales, fused=False)),
                         ("servenet", lambda: fold(p_n, s_n))):
             t = info["forward"][f"{row}@{N}"] = {"ms": device_ms(fn, 10),
                                                  "wall_ms": wall_ms(fn, 3, 5)}
             log(f"phase 14 (e): N={N} {row} forward: device {t['ms']:.3f} ms, wall "
                 f"{t['wall_ms']:.3f} ms per call")
+        classes, per_call = forward_classes(lambda: net(p_n, s_n, scales))
+        info["forward_classes"][str(N)] = {"ms": classes, "kernels_per_call": per_call}
+        log(f"phase 14 (e): N={N} serve_q forward by kernel class (device ms per call, "
+            f"{per_call:.0f} kernels): " + ", ".join(
+                f"{c} {v:.3f}" for c, v in sorted(classes.items(), key=lambda kv: -kv[1])))
         for name, k, cin, cout, chain in SERVE_Q_SITES:
-            info["convs"].append(conv_i8_row(name, k, cin, cout, chain, N, device, gen,
-                                             with_plain=N == max(SERVE_Q_TIMED)))
+            for j, mode in enumerate(SERVE_Q_TIMED_MODES[name]):
+                info["convs"].append(conv_i8_row(
+                    name, k, cin, cout, chain, N, device, gen,
+                    with_plain=N == max(SERVE_Q_TIMED), mode=mode, yardsticks=j == 0))
     info["phase_wall_s"] = time.perf_counter() - t_phase
     log(f"phase 14: wall {info['phase_wall_s']:.1f} s ({smi})")
     return launches, info
@@ -2976,9 +3135,7 @@ def main() -> int:
     for line in cuda_build.build_log(conv_ops.SOURCE).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"phase 1: {line.strip()}")
-    found = sass_counts(conv_ops.SOURCE)
-    log(f"phase 1: {conv_ops.SOURCE}: SASS instructions per kernel: "
-        f"{found[1] if found else 'not counted (cuobjdump not found)'}")
+    conv_sass = conv_i8_sass()
 
     gen = torch.Generator(device=device).manual_seed(0)
     boards, max_err, times = phase_kernel(device, gen)
@@ -3083,8 +3240,8 @@ def main() -> int:
             "by_batch": {k: v for k, v in kernel_rows.items() if k.startswith(name + "@")},
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
-    rows = {(r["site"], r["n"]): r for r in q_info["convs"]}
-    main_row = rows[(SERVE_Q_SITES[1][0], max(SERVE_Q_TIMED))]
+    rows = {(r["site"], r["n"], r["mode"]): r for r in q_info["convs"]}
+    main_row = rows[(SERVE_Q_SITES[1][0], max(SERVE_Q_TIMED), "i8")]
     kernels.append({
         "name": "conv_i8",
         "route": "cuda",
@@ -3104,6 +3261,14 @@ def main() -> int:
         "timing": "device time per call from profiler kernel records",
         "library_yardsticks": "int_mm_ms (+ im2col_ms) and bf16_conv_ms per site; no "
                               "single PyTorch call computes an int8 conv with its epilogue",
+        "tensor_cores": "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 (IMMA) with "
+                        "ldmatrix fragments; implicit GEMM over a haloed board plane",
+        "sass": conv_sass,
+        "launches_by_mode": q_launches["conv_i8_by_mode"],
+        "by_mode": {f"{r['site']} {r['mode']}": {
+            key: r.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "share_of_bound")}
+            for r in q_info["convs"] if r["n"] == max(SERVE_Q_TIMED)},
         "by_site": q_info["convs"],
     })
     kernels[1]["trunk_b12c128btl3"] = trunk_by_n

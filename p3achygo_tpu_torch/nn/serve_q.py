@@ -20,13 +20,26 @@ The trunk's streams between convolutions are stored in int8:
   has XLA's int32 convolution and the output fusion XLA makes of the chain
   after it. `native=False` is the JAX package's emulation instead: a
   float32 convolution of the int8 values, rounded, exact only while
-  fan_in * 127^2 < 2^24 (3x3 up to 64 channels).
+  fan_in * 127^2 < 2^24 (3x3 up to 64 channels); its epilogues are the
+  same plain ops the CPU runs.
 * The stem, the broadcast mix and the heads stay in the compute dtype
   (`nn/serve.py FoldedStem`, `FoldedHeads`).
 
 The trunk runs NHWC ([N, 19, 19, C], channels innermost, as the kernel
-reads them); the residual stream is float32 between blocks, holding
-quantized values times their scale with `residual_int8`, as in JAX.
+reads them). Serving with `residual_int8` (the default) keeps the residual
+stream int8 in device memory between blocks, (q8, its `res{i}` scale):
+each block's last conv adds the stream, requantizes it and runs the next
+block's first chain head in its epilogue (conv_i8's RES mode), and a
+broadcast block's conv_first writes mish in the compute dtype in the
+[N, C, 361] layout the mix reads (MISH). Still plain PyTorch there: the
+head of the first chain after the stem (`res_in`, once a forward), the
+head of each broadcast block's last chain (after the mix), the mix itself
+(`dense_rounded`) and the nbt block's inner residual add. Each
+quantization still happens once per JAX site in JAX's order (`res{i}`,
+then the next `b{i+1}...u0`). Record mode and `residual_int8=False` keep
+the float32 stream between blocks (JAX's values times their scale),
+through the F32 epilogue and plain ops; so does `fused=False`, which gives
+the same numbers as the fused graph.
 `ServeQNet` folds and quantizes the weights once and takes the scale dict
 as an argument, so one net serves every calibration (JAX passes the scales
 as traced arguments for the same reason). The scales stay on the device:
@@ -192,32 +205,43 @@ class ServeQNet:
                     _q_chain(expand, f"{site}.e"))))
 
     @staticmethod
-    def _chain(x: torch.Tensor, chain: _QChain, ctx: _Ctx) -> torch.Tensor:
-        """A ConvBlock chain on NHWC x: the head affine and mish in float32,
-        every conv input quantized at its site's scale, each in-chain conv's
-        output requantized for the next; the last conv's output in float32."""
-        u = mish(x.float() * chain.a0 + chain.b0)
-        if ctx.record:
-            # Calibration runs the fold math in float32, unquantized.
-            for i, c in enumerate(chain.convs):
-                ctx.scale(f"{chain.site}.u{i}", u)
-                y = _conv_nhwc(u, c.w, c.pad)
-                if c.bias is not None:
-                    y = y + c.bias
-                if i + 1 < len(chain.convs):
-                    u = mish(y)
-            return y
-        u8 = _quant_a(u, ctx.scales[f"{chain.site}.u0"])
+    def _head(x: torch.Tensor, chain: _QChain, ctx: _Ctx) -> torch.Tensor:
+        """A chain's head on NHWC x in plain ops: the BN affine and mish in
+        float32, quantized at the chain's first site."""
+        return _quant_a(mish(x.float() * chain.a0 + chain.b0), ctx.scales[f"{chain.site}.u0"])
+
+    @staticmethod
+    def _convs(u8: torch.Tensor, chain: _QChain, ctx: _Ctx, **last):
+        """A chain's convolutions from its head's int8 output: each in-chain
+        conv's output requantized for the next, the last conv's epilogue
+        chosen by `last` (`conv_i8`'s keywords; float32 when empty)."""
         for i, c in enumerate(chain.convs):
             s_in = ctx.scales[f"{chain.site}.u{i}"]
-            s_next = (ctx.scales[f"{chain.site}.u{i + 1}"] if i + 1 < len(chain.convs)
-                      else None)
+            epilogue = (dict(s_next=ctx.scales[f"{chain.site}.u{i + 1}"])
+                        if i + 1 < len(chain.convs) else last)
             if ctx.native:
-                u8 = conv_i8(u8, c.w8, s_in, c.s_w, c.bias, s_next)
+                u8 = conv_i8(u8, c.w8, s_in, c.s_w, c.bias, **epilogue)
             else:
                 u8 = epilogue_reference(_conv_i8(u8, c.w8, False), s_in, c.s_w, c.bias,
-                                        s_next)
-        return u8  # the last conv's float32 output
+                                        **epilogue)
+        return u8
+
+    @classmethod
+    def _chain(cls, x: torch.Tensor, chain: _QChain, ctx: _Ctx) -> torch.Tensor:
+        """A ConvBlock chain on NHWC x: the head, every conv input quantized
+        at its site's scale; the last conv's output in float32."""
+        if not ctx.record:
+            return cls._convs(cls._head(x, chain, ctx), chain, ctx)
+        # Calibration runs the fold math in float32, unquantized.
+        u = mish(x.float() * chain.a0 + chain.b0)
+        for i, c in enumerate(chain.convs):
+            ctx.scale(f"{chain.site}.u{i}", u)
+            y = _conv_nhwc(u, c.w, c.pad)
+            if c.bias is not None:
+                y = y + c.bias
+            if i + 1 < len(chain.convs):
+                u = mish(y)
+        return y
 
     def _residual(self, x: torch.Tensor, site: str, ctx: _Ctx,
                   residual_int8: bool) -> torch.Tensor:
@@ -229,30 +253,97 @@ class ServeQNet:
             return x
         return _quant_a(x, s_x).float() * s_x
 
+    def _mix(self, m: torch.Tensor, mix) -> torch.Tensor:
+        """The broadcast mix on [N, C, 361] in the compute dtype -> NHWC.
+        The product reads m contiguous in both graphs: cuBLAS picks another
+        kernel, which rounds differently, for the strided view the plain
+        graph's permute gives."""
+        n, c, _ = m.shape
+        z = dense_rounded(m.contiguous(), *mix)
+        return z.reshape(n, c, 19, 19).permute(0, 2, 3, 1).contiguous()
+
+    def _block(self, x: torch.Tensor, kind: str, p, ctx: _Ctx) -> torch.Tensor:
+        """One block's residual branch d on the float32 stream x."""
+        if kind == "chain":
+            return self._chain(x, p, ctx)
+        if kind == "broadcast":
+            first, mix, last = p
+            m = mish(self._chain(x, first, ctx)).to(self.dtype)
+            n, h, w, c = m.shape
+            return self._chain(self._mix(m.permute(0, 3, 1, 2).reshape(n, c, h * w), mix),
+                               last, ctx)
+        reduce, res, expand = p
+        h_ = self._chain(x, reduce, ctx)
+        for r in res:
+            h_ = h_ + self._chain(h_, r, ctx)
+        return self._chain(h_, expand, ctx)
+
+    @staticmethod
+    def _first_chain(kind: str, p) -> _QChain:
+        return p if kind == "chain" else p[0]
+
+    def _fused_trunk(self, x: torch.Tensor, ctx: _Ctx) -> torch.Tensor:
+        """The trunk with the int8 residual stream (q8, its scale) between
+        blocks: each block's last conv adds the stream, requantizes it at
+        `res{i}` and runs the next block's first chain head (conv_i8's RES
+        epilogue), and a broadcast block's conv_first writes mish in the
+        compute dtype as the mix reads it (MISH). Returns the last
+        stream, dequantized."""
+        s = ctx.scales["res_in"]
+        q = _quant_a(x, s)
+        u8 = None  # the block's first chain head, when the last boundary fused it
+        for i, (kind, p) in enumerate(self.blocks):
+            if u8 is None:
+                u8 = self._head(q.float() * s, self._first_chain(kind, p), ctx)
+            s_res = ctx.scales[f"res{i}"]
+            res = dict(q_prev=q, s_prev=s, s_res=s_res)
+            if i + 1 < len(self.blocks):
+                nxt = self._first_chain(*self.blocks[i + 1])
+                res.update(a0=nxt.a0, b0=nxt.b0, s_head=ctx.scales[f"{nxt.site}.u0"])
+            if kind == "chain":
+                q, u8 = self._convs(u8, p, ctx, **res)
+            elif kind == "broadcast":
+                first, mix, last = p
+                z = self._mix(self._convs(u8, first, ctx, mish_dtype=self.dtype), mix)
+                q, u8 = self._convs(self._head(z, last, ctx), last, ctx, **res)
+            else:
+                reduce, inner, expand = p
+                h_ = self._convs(u8, reduce, ctx)
+                for r in inner:
+                    h_ = h_ + self._chain(h_, r, ctx)
+                q, u8 = self._convs(self._head(h_, expand, ctx), expand, ctx, **res)
+            s = s_res
+        return q.float() * s
+
+    def _trunk(self, board_state: torch.Tensor, game_state: torch.Tensor, ctx: _Ctx,
+               residual_int8: bool, fused: bool) -> torch.Tensor:
+        """Stem and trunk: the float32 NHWC stream the heads read."""
+        x = self.stem(board_state, game_state).permute(0, 2, 3, 1).contiguous().float()
+        if residual_int8 and fused and not ctx.record:
+            return self._fused_trunk(x, ctx)
+        x = self._residual(x, "res_in", ctx, residual_int8)
+        for i, (kind, p) in enumerate(self.blocks):
+            x = self._residual(x + self._block(x, kind, p, ctx), f"res{i}", ctx,
+                               residual_int8)
+        return x
+
+    @torch.no_grad()
+    def stream(self, board_state: torch.Tensor, game_state: torch.Tensor, scales: Scales,
+               native: bool = True, fused: bool = True) -> torch.Tensor:
+        """The trunk's last residual stream (int8 values times their scale,
+        float32 NHWC), as the heads read it."""
+        return self._trunk(board_state, game_state, _Ctx(scales, native), True, fused)
+
     @torch.no_grad()
     def __call__(self, board_state: torch.Tensor, game_state: torch.Tensor,
                  scales: Optional[Scales] = None, native: bool = True,
-                 residual_int8: bool = True):
+                 residual_int8: bool = True, fused: bool = True):
+        """The forward; `fused` (serving with `residual_int8`) keeps the
+        stream int8 between blocks through conv_i8's RES and MISH
+        epilogues, and without it the same values come from its F32
+        epilogue and plain ops."""
         ctx = _Ctx(scales, native)
-        x = self.stem(board_state, game_state).permute(0, 2, 3, 1).contiguous().float()
-        x = self._residual(x, "res_in", ctx, residual_int8)
-        for i, (kind, p) in enumerate(self.blocks):
-            if kind == "chain":
-                d = self._chain(x, p, ctx)
-            elif kind == "broadcast":
-                first, mix, last = p
-                m = mish(self._chain(x, first, ctx)).to(self.dtype)
-                n, h, w, c = m.shape
-                z = dense_rounded(m.permute(0, 3, 1, 2).reshape(n, c, h * w), *mix)
-                d = self._chain(z.reshape(n, c, h, w).permute(0, 2, 3, 1).contiguous(), last,
-                                ctx)
-            else:
-                reduce, res, expand = p
-                h_ = self._chain(x, reduce, ctx)
-                for r in res:
-                    h_ = h_ + self._chain(h_, r, ctx)
-                d = self._chain(h_, expand, ctx)
-            x = self._residual(x + d, f"res{i}", ctx, residual_int8)
+        x = self._trunk(board_state, game_state, ctx, residual_int8, fused)
         out = self.heads(x.to(self.dtype).permute(0, 3, 1, 2).contiguous())
         return (out, ctx.scales) if ctx.record else out
 

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (KERNEL_TOL, SERVE_Q_CALIB_BF16_RTOL, SERVE_Q_CALIB_RTOL,
+from chip_smoke import (EPILOGUE_MODES, KERNEL_TOL, SERVE_Q_CALIB_BF16_RTOL, SERVE_Q_CALIB_RTOL,
                         SERVE_Q_NATIVE_TOL, SERVE_Q_SITES, SERVE_Q_WIDTHS, calibration_boards,
-                        check_conv_i8, conv_i8_case, random_boards, rel_err, seeded_model)
+                        check_conv_i8, conv_i8_case, epilogue_case, random_boards, rel_err,
+                        seeded_model)
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import from_stones, legal_mask_batch, map_state
@@ -599,16 +600,19 @@ CONV_CASES = [(name, k, cin, cout, chain) for name, k, cin, cout, chain in SERVE
     for cfg, k, cin, cout, chain in SERVE_Q_WIDTHS]
 
 
+@pytest.mark.parametrize("mode", EPILOGUE_MODES)
 @pytest.mark.parametrize("N", [1, 7, 64])
 @pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
-def test_conv_i8_equals_plain(device, case, N):
-    """The int32 sums, and the float32 (chain-last) or int8 (in-chain)
-    output, equal the plain version's: the same operations in the same
-    order."""
+def test_conv_i8_equals_plain(device, case, N, mode):
+    """The int32 sums and every output of each epilogue mode (the site's
+    float32 chain-last or int8 in-chain, the residual with and without the
+    next head, mish in bf16 and float32) equal the plain version's: the
+    same operations in the same order."""
     name, k, cin, cout, chain = case
     gen = torch.Generator(device=device).manual_seed(N + cin)
     before = ci.conv_i8.launches
-    assert check_conv_i8(conv_i8_case(k, cin, cout, N, chain, device, gen), name) == 0.0
+    args, kw = epilogue_case(k, cin, cout, N, chain, mode, device, gen)
+    assert check_conv_i8(args, f"{name} {mode}", kw) == 0.0
     assert ci.conv_i8.launches == before + 1
 
 
@@ -623,6 +627,8 @@ def test_conv_i8_both_modes_of_one_site(device):
 
 
 def test_conv_i8_launch_counts(device):
+    """One launch counted per call, in the total and under its mode; none
+    for an empty batch."""
     gen = torch.Generator(device=device).manual_seed(2)
     case = conv_i8_case(1, 64, 32, 3, True, device, gen)
     before = ci.conv_i8.launches
@@ -632,6 +638,17 @@ def test_conv_i8_launch_counts(device):
     empty = (torch.zeros((0, 19, 19, 64), dtype=torch.int8, device=device),) + case[1:]
     assert ci.conv_i8(*empty).shape == (0, 19, 19, 32)
     assert ci.conv_i8.launches == before + 3
+    for mode, name in (("res", "res"), ("res_last", "res"), ("mish_bf16", "mish"),
+                       ("site", "f32")):
+        args, kw = epilogue_case(1, 64, 32, 3, False, mode, device, gen)
+        total, by_mode = ci.conv_i8.launches, dict(ci.conv_i8.mode_launches)
+        ci.conv_i8(*args, **kw)
+        assert ci.conv_i8.launches == total + 1
+        assert ci.conv_i8.mode_launches[name] == by_mode[name] + 1
+        empty = (torch.zeros((0, 19, 19, 64), dtype=torch.int8, device=device),) + args[1:]
+        kw0 = {k: (v[:0] if k == "q_prev" else v) for k, v in kw.items()}
+        ci.conv_i8(*empty, **kw0)
+        assert ci.conv_i8.launches == total + 1
     torch.cuda.synchronize()
 
 
@@ -650,6 +667,19 @@ def test_conv_i8_rejects_what_it_cannot_run(device):
     odd = conv_i8_case(1, 64, 12, 1, False, device, gen)
     with pytest.raises(ValueError, match="Cout=12"):
         ci.conv_i8(*odd)
+    args, kw = epilogue_case(1, 64, 32, 2, False, "res", device, gen)
+    strided = dict(kw, q_prev=torch.cat([kw["q_prev"]] * 2, dim=3)[..., ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ci.conv_i8(*args, **strided)
+    with pytest.raises(ValueError, match="one epilogue"):
+        ci.conv_i8(*args[:5], s_next, **kw)
+    with pytest.raises(ValueError, match="go together"):
+        ci.conv_i8(*args, **dict(kw, a0=None))
+    with pytest.raises(ValueError, match="mish_dtype"):
+        ci.conv_i8(*args, mish_dtype=torch.float16)
+    big_res = epilogue_case(3, 384, 384, 1, False, "res", device, gen)
+    with pytest.raises(ValueError, match="Cin=384"):
+        ci.conv_i8(*big_res[0], **big_res[1])
     assert ci.conv_i8.launches == before
 
 
@@ -718,3 +748,29 @@ def test_serve_q_eval_launches_its_kernels(serve_q_net, device):
     assert ci.conv_i8.launches > before[0]
     assert tl.point_liberties_batch.launches > before[1]
     assert bool(torch.isfinite(out.log_priors).all())
+
+
+def test_serve_q_fused_graph_equals_plain_graph(device):
+    """b12c128btl3 in bf16: the fused graph (int8 stream between blocks,
+    RES and MISH epilogues) against the same net through the float32
+    stream and plain ops: the last int8 stream and pi_logits equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = seeded_model("b12c128btl3", device, torch.Generator().manual_seed(12))
+    m.dtype = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(12)
+    states = calibration_boards(96, 60, device, gen)
+    planes, scalars = batched_features(states, planes_dtype=torch.bfloat16)
+    scales = calibrate(m, planes, scalars)
+    net = ServeQNet(m)
+    ci.reset_launches()
+    fused = net(planes, scalars, scales)
+    # 9 btl blocks and 3 broadcast blocks: 12 block ends, 3 conv_first.
+    assert ci.conv_i8.mode_launches["res"] == 12 and ci.conv_i8.mode_launches["mish"] == 3
+    assert ci.conv_i8.mode_launches["f32"] == 0
+    plain = net(planes, scalars, scales, fused=False)
+    torch.cuda.synchronize()
+    assert torch.equal(net.stream(planes, scalars, scales),
+                       net.stream(planes, scalars, scales, fused=False))
+    assert torch.equal(fused.pi_logits, plain.pi_logits)
+    assert bool(torch.isfinite(fused.pi_logits).all())

@@ -44,6 +44,7 @@ from p3achygo_tpu.models.config import ModelConfig as JaxConfig
 from p3achygo_tpu.nn import serve_q as jq
 from p3achygo_tpu_torch.bridge import load_flax_variables, scales_from_jax, state_dict_to_flax
 from p3achygo_tpu_torch.mcts import gumbel as tg
+from p3achygo_tpu_torch.models.blocks import mish
 from p3achygo_tpu_torch.models.config import ModelConfig, get_config
 from p3achygo_tpu_torch.models.model import build_model, init_params
 from p3achygo_tpu_torch.nn import serve_q as tq
@@ -221,6 +222,102 @@ def test_fused_epilogue_matches_jax(in_chain):
     assert (d != 0).sum() <= FLIP_MAX * d.size
 
 
+def _boundary_case(cout: int, seed: int):
+    """int32 sums and the scales, affines and previous stream of a block's
+    last convolution, from numpy: sums near unit size after s_in * s_w."""
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(-40000, 40000, (3, 19, 19, cout)).astype(np.int32)
+    q_prev = _int8((3, 19, 19, cout), seed + 1)
+    f = lambda *a: np.float32(rng.uniform(*a))
+    return dict(acc=acc, s_in=f(0.01, 0.03), s_w=rng.uniform(1e-4, 3e-4, cout).astype(np.float32),
+                q_prev=q_prev, s_prev=f(0.02, 0.04), s_res=f(0.03, 0.05),
+                a0=rng.uniform(0.5, 1.5, cout).astype(np.float32),
+                b0=rng.normal(0, 0.3, cout).astype(np.float32), s_head=f(0.02, 0.03))
+
+
+BOUNDARY_MODES = ["res", "res_last", "mish_float32", "mish_bfloat16"]
+
+
+def _epilogue_kwargs(mode: str, c: dict):
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    if mode.startswith("mish"):
+        return dict(mish_dtype=getattr(torch, mode[5:]))
+    kw = dict(q_prev=t(c["q_prev"]), s_prev=t(c["s_prev"]), s_res=t(c["s_res"]))
+    if mode == "res":
+        kw.update(a0=t(c["a0"]), b0=t(c["b0"]), s_head=t(c["s_head"]))
+    return kw
+
+
+@pytest.mark.parametrize("mode", BOUNDARY_MODES)
+def test_boundary_epilogues_equal_unfused_plain(mode):
+    """The RES and MISH plain epilogues equal the unfused sequence the
+    graph ran before them, bit for bit: the float32 chain-last output, then
+    the residual add, requantize and next head (or mish, the cast and the
+    permute to [N, C, 361])."""
+    c = _boundary_case(32, 11)
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    acc, s_in, s_w = t(c["acc"]), t(c["s_in"]), t(c["s_w"])
+    got = tci.epilogue_reference(acc, s_in, s_w, **_epilogue_kwargs(mode, c))
+    y = tci.epilogue_reference(acc, s_in, s_w)
+    if mode.startswith("mish"):
+        want = mish(y).to(getattr(torch, mode[5:]))
+        assert torch.equal(got, want.permute(0, 3, 1, 2).reshape(3, 32, 361))
+        return
+    x = t(c["q_prev"]).float() * t(c["s_prev"]) + y
+    q8 = tq._quant_a(x, t(c["s_res"]))
+    assert torch.equal(got[0], q8)
+    if mode == "res_last":
+        assert got[1] is None
+        return
+    head = mish((q8.float() * t(c["s_res"])).float() * t(c["a0"]) + t(c["b0"]))
+    assert torch.equal(got[1], tq._quant_a(head, t(c["s_head"])))
+
+
+@pytest.mark.parametrize("mode", BOUNDARY_MODES)
+def test_boundary_epilogues_match_jax(mode):
+    """The RES epilogue against JAX's `requant_res` (x + d requantized at
+    res{i}) and the next `_chain_q` head with its first `_quant_a`; MISH
+    against `_broadcast_q`'s mish(u).astype(dtype). The requantized stream
+    is exact (no mish on its way); the head's int8 and the bf16 mish may
+    flip at a rounding boundary (mish's exp, see the module docstring)."""
+    c = _boundary_case(32, 12)
+    y = (jnp.asarray(c["acc"]).astype(jnp.float32) * (c["s_in"] * jnp.asarray(c["s_w"])))
+    got = tci.epilogue_reference(*(torch.from_numpy(np.asarray(c[k]))
+                                   for k in ("acc", "s_in", "s_w")),
+                                 **_epilogue_kwargs(mode, c))
+    if mode.startswith("mish"):
+        want = np.asarray(jq.mish(y).astype(_JAX_DTYPE[getattr(torch, mode[5:])]), np.float32)
+        want = want.transpose(0, 3, 1, 2).reshape(3, 32, 361)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-6 if mode.endswith(
+            "float32") else 2 ** -8, atol=0)
+        return
+    x = jnp.asarray(c["q_prev"]).astype(jnp.float32) * c["s_prev"]
+    q8 = jq._quant_a(x + y, c["s_res"])
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(q8))
+    if mode == "res_last":
+        return
+    xn = q8.astype(jnp.float32) * c["s_res"]
+    u = jq.mish(xn * jnp.asarray(c["a0"]) + jnp.asarray(c["b0"]))
+    d = got[1].numpy().astype(np.int32) - np.asarray(jq._quant_a(u, c["s_head"]), np.int32)
+    assert np.abs(d).max() <= 1 and (d != 0).sum() <= FLIP_MAX * d.size
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_fused_forward_equals_plain_graph(name):
+    """The fused boundaries (RES, MISH) against the same net through the
+    float32 stream and plain ops: the last int8 stream and every output
+    equal, bit for bit."""
+    _, _, tm = _pair(name)
+    planes, scalars = (torch.from_numpy(a) for a in _inputs(2, 6))
+    scales = tq.calibrate(tm, planes, scalars)
+    net = tq.ServeQNet(tm)
+    assert torch.equal(net.stream(planes, scalars, scales),
+                       net.stream(planes, scalars, scales, fused=False))
+    fused, plain = net(planes, scalars, scales), net(planes, scalars, scales, fused=False)
+    for f in ("pi_logits", "outcome_probs", "score_probs", "q6_err"):
+        assert torch.equal(getattr(fused, f), getattr(plain, f)), f
+
+
 # ---- (ii) calibrate ----
 
 @pytest.mark.parametrize("residual_int8", [True, False])
@@ -339,17 +436,21 @@ def test_native_matches_emulated():
 @pytest.mark.parametrize("name", ["tiny", "nbt", "classic"])
 def test_kernel_inputs_are_contiguous(name, monkeypatch):
     """The card's kernel takes only contiguous tensors: every conv_i8 call
-    of a forward gets them (here the wrapper runs its plain version)."""
+    of a forward gets them, the residual epilogue's q_prev, a0 and b0
+    included (here the wrapper runs its plain version)."""
     _, _, tm = _pair(name)
-    seen = []
+    seen, res_args = [], []
 
-    def spy(x8, w8, s_in, s_w, bias=None, s_next=None):
-        seen.append(all(t is None or t.is_contiguous() for t in (x8, w8, s_w, bias)))
-        return tci.conv_i8(x8, w8, s_in, s_w, bias, s_next)
+    def spy(x8, w8, s_in, s_w, bias=None, s_next=None, **epilogue):
+        ts = (x8, w8, s_w, bias, *(epilogue.get(k) for k in ("q_prev", "a0", "b0")))
+        seen.append(all(t is None or t.is_contiguous() for t in ts))
+        res_args.extend(k for k in ("q_prev", "a0", "b0") if epilogue.get(k) is not None)
+        return tci.conv_i8(x8, w8, s_in, s_w, bias, s_next, **epilogue)
     monkeypatch.setattr(tq, "conv_i8", spy)
     planes, scalars = (torch.from_numpy(a) for a in _inputs(2, 4))
     tq.ServeQNet(tm)(planes, scalars, tq.calibrate(tm, planes, scalars))
     assert seen and all(seen)
+    assert {"q_prev", "a0", "b0"} <= set(res_args)
 
 
 def test_one_net_serves_any_calibration(monkeypatch):
