@@ -1,6 +1,6 @@
 """Drive the PyTorch port's self-play, learning, generation, search, GTP,
-store-bus, transformer, scale-out and int8-serving paths once on an NVIDIA
-card.
+store-bus, transformer, scale-out, int8-serving and wide fused-trunk paths
+once on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,9 @@ fallback):
              (csrc/conv_i8.cu) with one nvcc each, started together;
              prints each build's seconds, ptxas' register/spill lines and
              each trunk kernel's count of HGMMA (wgmma) and of all SASS
-             instructions from `cuobjdump -sass`: every width of both trunk kernels must be
-             there with a count > 0, each source held to its own counts
+             instructions from `cuobjdump -sass`: every width of both trunk
+             kernels (the cluster kernels at C = 256 and 384 included) must
+             be there with a count > 0, each source held to its own counts
              (where cuobjdump is missing the line says so); for conv_i8
              every mode's count of IMMA and GMMA (s8 tensor-core)
              instructions must be > 0 and of IDP4A 0.
@@ -111,7 +112,7 @@ fallback):
              stopped early, a bias slot filled, a leaf scored exactly, the
              liberty kernel launched; prints each part's wall time and the
              host syncs per searched move (mcts.gumbel.COUNTERS).
-             (b) run_eval of 16 games of at most 16 moves between two
+             (b) run_eval of 16 games of at most 8 moves between two
              seeded b8c64 bf16 networks, tree reuse on: a PUCT player at
              n=32 (max_depth 4: its visits run down one line) against a
              Gumbel player at n=32/k=4 with MCGS and the integral utility. Checks wins + losses = games and every move
@@ -130,7 +131,7 @@ fallback):
              8's model_0001 (read as --checkpoint reads it), n=128/k=8, no
              root noise, driven through run_stdin_loop on an os.pipe (so
              its select() paths run): protocol_version, name,
-             list_commands, boardsize, clear_board, komi; 16 alternating
+             list_commands, boardsize, clear_board, komi; 8 alternating
              genmoves with 3 plays between; an illegal play on an occupied
              point, then undo; a one-shot and a streamed lz-analyze (the
              stream stopped by the next command); ownership, final_score,
@@ -148,7 +149,7 @@ fallback):
              model_0001 with no --device answers `genmove b` and quits.
              (c) batched_features(include_ladders=True) on the card equal
              to the CPU's on the six positions of tests/test_ladder.py and
-             the first 256 of 1,024 boards of phase 2 (LADDER_CPU_B); one
+             the first 128 of 1,024 boards of phase 2 (LADDER_CPU_B); one
              make_eval_fn(include_ladders=True) call finite; ms per
              featurizer call at B=1024 with and without ladders, ladder
              syncs per call. (d) phase 4's mix at
@@ -158,7 +159,7 @@ fallback):
 
   11 bus    the data formats, the store bus and the workers, in phase 8's
              directory, at phase 8's configuration and cuts plus BUS_CUTS
-             (games_per_gen 12); prints the tfrecord codec in use:
+             (games_per_gen 6); prints the tfrecord codec in use:
              (a) in this process, on a LocalStore: the Learner publishes
              gen 0; the SelfplayActor syncs it (a second sync returns
              False), plays a B=128 round of 32-move games and publishes the
@@ -239,9 +240,32 @@ fallback):
              int8 im2col (the im2col timed apart) and a bf16 F.conv2d of
              the same shape, yardsticks the port never calls.
 
-Phases 7, 8, 9, 10, 11, 12, 13 and 14 print {"learn": ...}, {"gen": ...},
-{"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...},
-{"scale_out": ...} and {"serve_q": ...} JSON lines of their measurements.
+  15 wide    the fused trunk at the widths whose kernels split a board
+             over a thread-block cluster: b12c256btl3 (segment (256, 128),
+             broadcast 256) and b14c384btl3 ((384, 192), 384) with seeded
+             weights and perturbed BN at full depth, on the stem
+             activations of phase 2's boards: each segment and broadcast
+             call against its plain version at N in {1, 7, 64, 512, 2880}
+             (KERNEL_TOL), build_trunk_fn and build_trunk_fn_v2 against
+             their plain trunks (TRUNK_TOL) at N in {1, 7, 64, 512}
+             (WIDE_TRUNK_BATCHES), the fused model against the float32
+             model on 512 positions (top-1 >= 0.95, every output finite;
+             its agreement with the plain bf16 model, and that model's
+             with float32, printed beside it: a seeded network's policy is
+             near flat at these widths, so two bf16 evaluations part on
+             near-ties); at N = 512 and 2880 each kernel's device and wall ms,
+             FLOP, TFLOP/s, bound and share, library_products_ms, the plain
+             version's device ms (WIDE_PLAIN_CALLS calls) and the fused
+             trunk's ms; then the phase-4 loop on make_eval_fn(use_fused_trunk=True)
+             for 6 plies with one reset, phase 4's checks, the segment,
+             broadcast and liberty kernels all launched, launches per ply.
+             Then tiny (16, 8) through the smallest kernels zero-padded:
+             the same kernel and trunk checks, and one fused eval finite.
+
+Phases 7, 8, 9, 10, 11, 12, 13, 14 and 15 print {"learn": ...}, {"gen":
+...}, {"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...},
+{"scale_out": ...}, {"serve_q": ...} and {"wide_trunk": ...} JSON lines of
+their measurements.
 Before the last line it prints the kernels JSON line (every kernel with
 its bound: the larger of its operations over 989 TFLOP/s bf16, or 1,979
 TOP/s int8 for conv_i8, and its bytes, each input read once and each output
@@ -373,6 +397,20 @@ TRUNK_TIMED = (512, 2880)
 KERNEL_TOL = 2e-2
 TRUNK_TOL = 4e-2
 KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broadcast)
+# Phase 15: the fused trunk at the widths whose kernels split a board over a
+# thread-block cluster (segment (256, 128) and (384, 192), broadcast 256 and
+# 384), full depth, and tiny (16, 8) through the smallest kernels zero-
+# padded. The plain versions at these widths take up to ~1 s a call at
+# N = 2880, so they are timed over WIDE_PLAIN_CALLS calls.
+WIDE_CONFIGS = ("b12c256btl3", "b14c384btl3")
+WIDE_SEED = 15
+WIDE_PLIES = 6
+WIDE_PLAIN_CALLS = 2
+# The whole trunks against their plain trunks below N = 2880 (each kernel
+# call is checked at every N of TRUNK_BATCHES): the plain b14c384btl3 trunk
+# takes seconds at 2880.
+WIDE_TRUNK_BATCHES = (1, 7, 64, 512)
+PADDED_CONFIG = "tiny"
 # Published peaks of one H100 SXM (dense bf16 tensor rate, HBM3), for bounds.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -421,7 +459,9 @@ SEARCH_SETTLED_SHARE = 4
 # (b) run_eval: a PUCT player against a Gumbel player with MCGS and the
 # integral utility, two seeded b8c64 bf16 networks, tree reuse on.
 SEARCH_MODEL = "b8c64"
-EXTRAS_EVAL = dict(num_games=16, max_game_len=16)
+# Games of at most 8 moves (16 before phase 15 was added: a depth cut for
+# its time; the eval's time is its plies, host-bound).
+EXTRAS_EVAL = dict(num_games=16, max_game_len=8)
 # A seeded network values positions alike, so PUCT's visits run down one
 # line and simulation i descends i levels, each a scratch-board step of
 # ~8 ms of host time on an H100 machine: max_depth 4 (the config default is
@@ -438,16 +478,18 @@ EXTRAS_AGREE_MIN = 0.9
 # searching as `python -m p3achygo_tpu_torch.gtp` does by default.
 GTP_MODEL = "b12c128btl3"
 GTP_SEARCH = dict(n=128, k=8, noise_scale=0.0)
-GTP_GENMOVES = 16
-GTP_PLAY_AFTER = (4, 8, 12)  # a `play` follows these genmoves
+# 8 genmoves (16 before phase 15 was added: a depth cut for its time).
+GTP_GENMOVES = 8
+GTP_PLAY_AFTER = (2, 4, 6)  # a `play` follows these genmoves
 # A byoyomi period of P s is budgeted P - 1 s per move (time_control.py), so
 # a 1 s budget needs a 2 s period (a 1 s period would mean an untimed search).
 GTP_BYOYOMI_S = 2
 LADDER_B = 1024
 # Boards of the LADDER_B batch that the CPU reference recomputes (a depth
 # cut from all 1024, whose CPU reference took 18-27 s, to keep the script
-# near half its time limit; each board's planes depend on that board alone).
-LADDER_CPU_B = 256
+# near half its time limit; 256 before phase 15 was added; each board's
+# planes depend on that board alone).
+LADDER_CPU_B = 128
 # The six positions of tests/test_ladder.py as (black, white, to_move).
 LADDER_POSITIONS = (
     (((8, 9), (9, 8), (8, 10)), ((9, 9),), 1),
@@ -461,10 +503,11 @@ TIER_GROUPS = 4
 TIER_PLIES = 4
 # Phase 11: the bus (actor/learner over a LocalStore, the entry point's two
 # roles, the experiments, SL shards, an anchor match), phase 8's
-# configuration with its cuts. games_per_gen 512 -> 12: the learner waits for
-# games_per_gen * 60 = 720 examples, one or two chunks of B=128 (phase 8's
-# generation kept ~6.7 trainable examples per game of at most 32 moves).
-BUS_CUTS = dict(games_per_gen=12)
+# configuration with its cuts. games_per_gen 512 -> 6: the learner waits for
+# games_per_gen * 60 = 360 examples, one chunk of B=128 (phase 8's
+# generation kept ~6.7 trainable examples per game of at most 32 moves;
+# 12 before phase 15 was added, two chunks: a depth cut for its time).
+BUS_CUTS = dict(games_per_gen=6)
 BUS_ENTRY_TIMEOUT_S = 420
 BUS_STUDY = ["--num_examples", "16", "--gt_n", "256", "--n_values", "32,64",
              "--seed_visits", "8"]
@@ -611,6 +654,18 @@ def device_ms(fn, calls: int = 50, attempts: int = 3) -> float:
     log(f"device_ms: {attempts} profiles recorded no device time; CUDA-event time per "
         f"call used instead")
     return event_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+
+def device_ms_at_least(fn, floor_ms: float, calls: int = 10) -> tuple:
+    """(device ms per call, how it was timed): device_ms, unless its kernel
+    records sum to less than `floor_ms`, the least time the work can take
+    (the profiler dropped records), then CUDA events around the calls."""
+    ms = device_ms(fn, calls)
+    if ms >= floor_ms:
+        return ms, "profiler kernel records"
+    log(f"device_ms: {ms:.4f} ms is below the bound {floor_ms:.4f} ms (profiler records "
+        f"dropped); CUDA-event time per call used instead")
+    return event_ms(lambda: [fn() for _ in range(calls)]) / calls, "CUDA events"
 
 
 def event_ms(fn) -> float:
@@ -800,8 +855,8 @@ def sass_counts(source: str, ops=("HGMMA",)):
     counts, size, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(trunk_(?:segment|broadcast)_kernel|conv_i8_kernel)I((?:Li\d+E)+)",
-                          line)
+            m = re.search(r"(trunk_(?:segment|broadcast)(?:_cluster)?_kernel|conv_i8_kernel)"
+                          r"I((?:Li\d+E)+)", line)
             widths = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
             name = (f"{m.group(1)}<{widths}>" if m
                     else line.split("Function :")[1].strip())
@@ -822,6 +877,91 @@ def stem_activations(model, boards, n: int) -> torch.Tensor:
     return x.reshape(n, 361, -1).to(torch.bfloat16).contiguous()
 
 
+def check_trunk(name, model, stem, max_err, timed=(), rows=None, phase="5",
+                trunk_batches=None):
+    """Each segment and broadcast call of `model`'s fused trunk against its
+    plain version at every N of TRUNK_BATCHES, on the bf16 stem activations
+    stem[:N], each call fed the plain output of the call before
+    (KERNEL_TOL), and build_trunk_fn / build_trunk_fn_v2 against their
+    plain trunks (TRUNK_TOL) at every N of `trunk_batches` (default
+    TRUNK_BATCHES). Raises on a miss; adds each kernel's max |d|
+    to `max_err`. At each N of `timed`, the first call of each kernel gets
+    kernel_row() in rows["<kernel>@N"]. Returns {kernel: (x, w)}: each
+    kernel's first call at max(TRUNK_BATCHES)."""
+    cfg = model.config
+    trunk_batches = TRUNK_BATCHES if trunk_batches is None else trunk_batches
+    trunk_fn = build_trunk_fn(cfg, model)
+    trunk_v2 = build_trunk_fn_v2(cfg, model)
+    kernel_rel, trunk_rel, first = 0.0, [0.0, 0.0], {}
+    for N in TRUNK_BATCHES:
+        x = x0 = stem[:N]
+        for kern, plain, w in trunk_fn.segments:
+            got, want = kern(x, w), plain(x, w)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.bfloat16:
+                raise AssertionError(f"{kern.__name__}: {got.shape} {got.dtype}")
+            d, rel = rel_err(got, want)
+            if not (bool(torch.isfinite(got.float()).all()) and rel <= KERNEL_TOL):
+                raise AssertionError(f"{name} N={N} {kern.__name__} vs plain: "
+                                     f"max |d| {d}, relative {rel}")
+            max_err[kern.__name__] = max(max_err[kern.__name__], d)
+            kernel_rel = max(kernel_rel, rel)
+            row_key = f"{kern.__name__}@{N}"
+            if N in timed and row_key not in rows:
+                rows[row_key] = kernel_row(kern, w, x, phase)
+            if N == max(TRUNK_BATCHES) and kern.__name__ not in first:
+                first[kern.__name__] = (x, w)
+            x = want
+        if N not in trunk_batches:
+            continue
+        xs = x0.reshape(N, 19, 19, cfg.channels)
+        for i, fn in enumerate((trunk_fn, trunk_v2)):
+            got, want = fn(xs), trunk_reference(xs, fn.segments)
+            torch.cuda.synchronize()
+            d, rel = rel_err(got, want)
+            if not (bool(torch.isfinite(got.float()).all()) and rel <= TRUNK_TOL):
+                raise AssertionError(f"{name} N={N} trunk v{i + 1} vs plain: "
+                                     f"max |d| {d}, relative {rel}")
+            trunk_rel[i] = max(trunk_rel[i], rel)
+    log(f"phase {phase}: {name}: kernel vs plain per call max relative {kernel_rel:.3e} "
+        f"(bound {KERNEL_TOL}) at N in {list(TRUNK_BATCHES)}; trunk v1 {trunk_rel[0]:.3e}, "
+        f"v2 {trunk_rel[1]:.3e} (bound {TRUNK_TOL}) at N in {list(trunk_batches)}")
+    return first
+
+
+def time_kernel_and_plain(kern, plain, w, x, plain_calls: int = 10):
+    """(device ms, wall ms) of the kernel and of its plain version on x (the
+    plain version's device time over `plain_calls` calls, its wall time
+    only at 10 or more: None below), and the kernel's bound (ms, by)."""
+    work = (segment_work if kern is trunk_ops.trunk_segment else broadcast_work)(w, x.shape[0])
+    plain_wall = wall_ms(lambda: plain(x, w), 3, 5) if plain_calls >= 10 else None
+    return ((device_ms(lambda: kern(x, w), 10), wall_ms(lambda: kern(x, w), 3, 5)),
+            (device_ms(lambda: plain(x, w), plain_calls), plain_wall),
+            bound_ms(*work))
+
+
+def top1_agreement(a, b) -> float:
+    return float((a.pi_logits.argmax(-1) == b.pi_logits.argmax(-1)).float().mean())
+
+
+def check_fused_model(model, planes, scalars, ref_out, what: str, ref: str = "plain bf16"):
+    """The model (bf16) with the fused trunk against the outputs `ref_out`
+    of the `ref` model on the same positions: every output finite, policy
+    top-1 agreement >= 0.95. Returns (fused outputs, top-1 agreement, max
+    |d value|)."""
+    fused = model(planes, scalars, trunk_fn=build_trunk_fn(model.config, model))
+    check_finite(fused, ModelOutputs._fields, f"fused bf16 {what}")
+    top1 = top1_agreement(fused, ref_out)
+    value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
+    dv = float((value(fused) - value(ref_out)).abs().max())
+    log(f"{what}: fused-trunk model vs {ref} model on {planes.shape[0]} "
+        f"positions: top-1 agreement {top1:.4f}, max |d value| {dv:.3e}")
+    if top1 < 0.95:
+        raise AssertionError(f"{what}: fused-trunk top-1 agreement with the {ref} model "
+                             f"{top1} < 0.95")
+    return fused, top1, dv
+
+
 def phase_trunk(device, boards, forward_model, forward_batch, gen):
     """Trunk kernels against their plain versions, the trunks against the
     plain trunks, the fused model against the plain bf16 model, and times.
@@ -834,66 +974,25 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
         model = (forward_model if name == TRUNK_CONFIGS[0]
                  else seeded_model(name, device, gen))
         model.dtype = torch.bfloat16
-        cfg = model.config
         stem = stem_activations(model, boards, max(TRUNK_BATCHES))
-        trunk_fn = build_trunk_fn(cfg, model)
-        trunk_v2 = build_trunk_fn_v2(cfg, model)
-        kernel_rel, trunk_rel = 0.0, [0.0, 0.0]
-        for N in TRUNK_BATCHES:
-            x = x0 = stem[:N]
-            for kern, plain, w in trunk_fn.segments:
-                got, want = kern(x, w), plain(x, w)
-                torch.cuda.synchronize()
-                if got.shape != want.shape or got.dtype != torch.bfloat16:
-                    raise AssertionError(f"{kern.__name__}: {got.shape} {got.dtype}")
-                d, rel = rel_err(got, want)
-                if not (bool(torch.isfinite(got.float()).all()) and rel <= KERNEL_TOL):
-                    raise AssertionError(f"{name} N={N} {kern.__name__} vs plain: "
-                                         f"max |d| {d}, relative {rel}")
-                max_err[kern.__name__] = max(max_err[kern.__name__], d)
-                kernel_rel = max(kernel_rel, rel)
-                row_key = f"{kern.__name__}@{N}"
-                if name == TRUNK_CONFIGS[0] and N in TRUNK_TIMED and row_key not in kernel_rows:
-                    kernel_rows[row_key] = kernel_row(kern, w, x)
-                if N == max(TRUNK_TIMED) and name == TRUNK_CONFIGS[0] \
-                        and kern.__name__ not in times:
-                    times[kern.__name__] = (device_ms(lambda: kern(x, w), 10),
-                                            wall_ms(lambda: kern(x, w), 3, 5))
-                    times[kern.__name__ + "_plain"] = (
-                        device_ms(lambda: plain(x, w), 10),
-                        wall_ms(lambda: plain(x, w), 3, 5))
-                    work = (segment_work if kern is trunk_ops.trunk_segment
-                            else broadcast_work)(w, N)
-                    times[kern.__name__ + "_bound"] = bound_ms(*work)
-                x = want
-            xs = x0.reshape(N, 19, 19, cfg.channels)
-            for i, fn in enumerate((trunk_fn, trunk_v2)):
-                got, want = fn(xs), trunk_reference(xs, fn.segments)
-                torch.cuda.synchronize()
-                d, rel = rel_err(got, want)
-                if not (bool(torch.isfinite(got.float()).all()) and rel <= TRUNK_TOL):
-                    raise AssertionError(f"{name} N={N} trunk v{i + 1} vs plain: "
-                                         f"max |d| {d}, relative {rel}")
-                trunk_rel[i] = max(trunk_rel[i], rel)
-        log(f"phase 5: {name}: kernel vs plain per call max relative {kernel_rel:.3e} "
-            f"(bound {KERNEL_TOL}); trunk v1 {trunk_rel[0]:.3e}, v2 {trunk_rel[1]:.3e} "
-            f"(bound {TRUNK_TOL}) at N in {list(TRUNK_BATCHES)}")
+        first = check_trunk(name, model, stem, max_err,
+                            TRUNK_TIMED if name == TRUNK_CONFIGS[0] else (), kernel_rows)
+        if name != TRUNK_CONFIGS[0]:
+            continue
+        for kern in (trunk_ops.trunk_segment, trunk_ops.trunk_broadcast):
+            x, w = first[kern.__name__]
+            plain = (trunk_ops.trunk_segment_reference if kern is trunk_ops.trunk_segment
+                     else trunk_ops.trunk_broadcast_reference)
+            k_t, p_t, bound = time_kernel_and_plain(kern, plain, w, x[:max(TRUNK_TIMED)])
+            times[kern.__name__], times[kern.__name__ + "_plain"] = k_t, p_t
+            times[kern.__name__ + "_bound"] = bound
 
     # The bench model: fused trunk vs the plain bf16 model, then times.
     model = forward_model
     cfg = model.config
     planes, scalars, plain_out = forward_batch
+    check_fused_model(model, planes, scalars, plain_out, "phase 5")
     trunk_fn = build_trunk_fn(cfg, model)
-    fused = model(planes, scalars, trunk_fn=trunk_fn)
-    check_finite(fused, ModelOutputs._fields, "fused bf16")
-    top1 = float((fused.pi_logits.argmax(-1) == plain_out.pi_logits.argmax(-1)
-                  ).float().mean())
-    value = lambda o: o.outcome_probs[:, 1] - o.outcome_probs[:, 0]
-    dv = float((value(fused) - value(plain_out)).abs().max())
-    log(f"phase 5: fused-trunk model vs plain bf16 model on {planes.shape[0]} "
-        f"positions: top-1 agreement {top1:.4f}, max |d value| {dv:.3e}")
-    if top1 < 0.95:
-        raise AssertionError(f"fused-trunk top-1 agreement {top1} < 0.95")
     net = ServeNet(model)
     for N in TRUNK_TIMED:
         p_n, s_n = batched_features(type(boards)(*[t[:N] for t in boards]),
@@ -919,20 +1018,20 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
     return max_err, times, kernel_rows
 
 
-def kernel_row(kern, w, x):
+def kernel_row(kern, w, x, phase: str = "5"):
     """A trunk kernel (segment or broadcast) on x: device time per call,
     its work, bound and share of it, and its products alone in PyTorch
     (library_products_ms)."""
     n = x.shape[0]
     segment = kern is trunk_ops.trunk_segment
-    ms = device_ms(lambda: kern(x, w), 10)
     flops, nbytes = (segment_work if segment else broadcast_work)(w, n)
     b_ms, b_by = bound_ms(flops, nbytes)
+    ms, timing = device_ms_at_least(lambda: kern(x, w), b_ms)
     products = segment_library_products if segment else broadcast_library_products
-    lib_ms = device_ms(products(w, x), 10)
+    lib_ms, lib_timing = device_ms_at_least(products(w, x), bound_ms(flops, 0)[0])
     row = {"ms": ms, "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
-           "library_products_ms": lib_ms}
+           "library_products_ms": lib_ms, "timing": timing, "library_timing": lib_timing}
     if segment:
         row["n_blocks"] = int(w.aff.shape[0])
         what = (f"trunk_segment N={n} ({row['n_blocks']} blocks)",
@@ -940,7 +1039,7 @@ def kernel_row(kern, w, x):
     else:
         what = (f"trunk_broadcast N={n}", "bf16 torch.matmul x.Wf, WdT.m, z.Wl; no single "
                 "PyTorch call computes the broadcast block")
-    log(f"phase 5: {what[0]}: device {ms:.4f} ms, {row['gflop']:.1f} GFLOP, "
+    log(f"phase {phase}: {what[0]}: device {ms:.4f} ms, {row['gflop']:.1f} GFLOP, "
         f"{row['tflops']:.1f} TFLOP/s; bound {b_ms:.4f} ms ({b_by}), "
         f"{100 * row['share_of_bound']:.1f}% of it; library_products_ms {lib_ms:.4f} "
         f"(the same products alone, {what[1]})")
@@ -1023,6 +1122,102 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS):
         f"in {dt:.2f} s; every move legal and superko-clean, pi_improved sums to 1; "
         f"launches {launches}")
     return launches, plies / dt, moves_played / dt
+
+
+def phase_wide_trunk(device, boards, gen):
+    """Phase 15: the fused trunk at the widths whose kernels split a board
+    over a thread-block cluster (WIDE_CONFIGS) and tiny's zero-padded route,
+    weights seeded from WIDE_SEED. Returns ({kernel: max |d|}, {config:
+    measurements})."""
+    cpu_gen = torch.Generator().manual_seed(WIDE_SEED)
+    max_err = {"trunk_segment": 0.0, "trunk_broadcast": 0.0}
+    info = {}
+    sub = type(boards)(*[t[:512] for t in boards])
+    planes, scalars = batched_features(sub, planes_dtype=torch.float32)
+    plains = {trunk_ops.trunk_segment: trunk_ops.trunk_segment_reference,
+              trunk_ops.trunk_broadcast: trunk_ops.trunk_broadcast_reference}
+    for name in WIDE_CONFIGS:
+        t0 = time.perf_counter()
+        model = seeded_model(name, device, cpu_gen)
+        model.dtype = torch.bfloat16
+        stem = stem_activations(model, boards, max(TRUNK_BATCHES))
+        rows = {}
+        first = check_trunk(name, model, stem, max_err, TRUNK_TIMED, rows, phase="15",
+                            trunk_batches=WIDE_TRUNK_BATCHES)
+        for kern, plain in plains.items():
+            x, w = first[kern.__name__]
+            for N in TRUNK_TIMED:
+                k_t, p_t, _ = time_kernel_and_plain(kern, plain, w, x[:N], WIDE_PLAIN_CALLS)
+                row = rows[f"{kern.__name__}@{N}"]
+                row.update(wall_ms=k_t[1], plain_ms=p_t[0])
+                log(f"phase 15: {name} {kern.__name__} N={N}: wall {k_t[1]:.4f} ms per call; "
+                    f"plain device {p_t[0]:.3f} ms")
+        trunk_fn = build_trunk_fn(model.config, model)
+        xs = stem.reshape(-1, 19, 19, model.config.channels)
+        trunk_times = {}
+        for N in TRUNK_TIMED:
+            fn = lambda: trunk_fn(xs[:N])
+            trunk_times[str(N)] = {"ms": device_ms(fn, 5), "wall_ms": wall_ms(fn, 3, 2)}
+            log(f"phase 15: {name} N={N} fused_trunk: device {trunk_times[str(N)]['ms']:.3f} "
+                f"ms, wall {trunk_times[str(N)]['wall_ms']:.3f} ms per call")
+        del stem, xs, first
+        # The fused model against the float32 model: at these widths a
+        # seeded network's policy is near flat (a tenth of the positions
+        # has its top two logits within 0.005), so two bf16 evaluations
+        # part on near-ties; the plain bf16 model's own agreement with
+        # float32 is printed beside the fused model's with it.
+        model.dtype = torch.float32
+        f32_out = model(planes, scalars)
+        model.dtype = torch.bfloat16
+        bf16_out = model(planes, scalars)
+        fused, top1, dv = check_fused_model(model, planes, scalars, f32_out,
+                                            f"phase 15 {name}", ref="float32")
+        top1_bf16 = top1_agreement(fused, bf16_out)
+        bf16_vs_f32 = top1_agreement(bf16_out, f32_out)
+        log(f"phase 15 {name}: top-1 agreement on the same positions (informative): fused "
+            f"vs plain bf16 model {top1_bf16:.4f}; plain bf16 model vs float32 "
+            f"{bf16_vs_f32:.4f}")
+        launches, plies_s, moves_s = phase_selfplay(
+            device, model, gen, make_eval_fn(model, use_fused_trunk=True), WIDE_PLIES,
+            f"15 {name}")
+        for k, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{k} was not launched by phase 15's {name} self-play")
+        info[name] = {
+            "rows": rows, "fused_trunk": trunk_times, "top1_vs_f32": top1,
+            "top1_vs_bf16": top1_bf16, "bf16_top1_vs_f32": bf16_vs_f32, "max_d_value": dv,
+            "launches": launches,
+            "launches_per_ply": {k: n / WIDE_PLIES for k, n in launches.items()},
+            "plies_s": plies_s, "moves_s": moves_s, "seconds": time.perf_counter() - t0}
+        log(f"phase 15: {name}: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
+            f"with the fused trunk (informative); {time.perf_counter() - t0:.1f} s")
+        del model, trunk_fn, fused, f32_out, bf16_out
+        torch.cuda.empty_cache()
+
+    # tiny: the smallest kernels, zero-padded.
+    t0 = time.perf_counter()
+    model = seeded_model(PADDED_CONFIG, device, cpu_gen)
+    model.dtype = torch.bfloat16
+    stem = stem_activations(model, boards, max(TRUNK_BATCHES))
+    first = check_trunk(PADDED_CONFIG, model, stem, max_err, phase="15",
+                        trunk_batches=WIDE_TRUNK_BATCHES)
+    for kern, (x, w) in first.items():
+        if w.kernel_aff is None:
+            raise AssertionError(f"{PADDED_CONFIG} {kern} did not run zero-padded")
+    before = {k: k.launches for k in plains}
+    out = make_eval_fn(model, use_fused_trunk=True)(type(boards)(*[t[:64] for t in boards]))
+    torch.cuda.synchronize()
+    for f in out._fields:
+        if not bool(torch.isfinite(getattr(out, f)).all()):
+            raise AssertionError(f"phase 15 {PADDED_CONFIG} fused eval {f} not finite")
+    if any(k.launches <= before[k] for k in plains):
+        raise AssertionError(f"phase 15 {PADDED_CONFIG}: the fused eval launched no kernel")
+    info[PADDED_CONFIG] = {"seconds": time.perf_counter() - t0,
+                           "kernel_width": {"segment": list(trunk_ops.SEGMENT_WIDTHS[0]),
+                                            "broadcast": trunk_ops.BROADCAST_WIDTHS[0]}}
+    log(f"phase 15: {PADDED_CONFIG} through the padded kernels: fused eval on 64 boards "
+        f"finite; {time.perf_counter() - t0:.1f} s")
+    return max_err, info
 
 
 def play_learn(sl: RLSlice, device):
@@ -2032,7 +2227,7 @@ def gtp_server(device, smi, ckpt: str, sgf_path: str, tmp: str):
     last = pipe.close()
     launches = point_liberties_batch.launches
     # One untimed genmove under the profiler, outside the pipe: device busy
-    # time and kernels per genmove, the idle share against the 16 genmoves'
+    # time and kernels per genmove, the idle share against the genmoves'
     # median wall.
     svc._analyze_batch, svc._run_search = analyze, run_search
     svc.time_control = type(svc.time_control)()
@@ -3114,10 +3309,12 @@ def main() -> int:
         f"(nvcc, started together: " + ", ".join(
             f"{s} {cuda_build.build_seconds(s):.2f} s" for s in sources) + ")")
     hgmma = {}
+    cluster = lambda widths: "_cluster" if widths in trunk_ops.SEGMENT_CLUSTER or \
+        widths in trunk_ops.BROADCAST_CLUSTER else ""
     for src, kernel_widths in (
-            (trunk_ops.SOURCE, [f"trunk_broadcast_kernel<{c}>"
+            (trunk_ops.SOURCE, [f"trunk_broadcast{cluster(c)}_kernel<{c}>"
                                 for c in trunk_ops.BROADCAST_WIDTHS]),
-            (trunk_ops.SEGMENT_SOURCE, [f"trunk_segment_kernel<{c},{cb}>"
+            (trunk_ops.SEGMENT_SOURCE, [f"trunk_segment{cluster((c, cb))}_kernel<{c},{cb}>"
                                         for c, cb in trunk_ops.SEGMENT_WIDTHS])):
         for line in cuda_build.build_log(src).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -3182,6 +3379,11 @@ def main() -> int:
     q_launches, q_info = phase_serve_q(device, smi, model, gen, (plies_s, moves_s))
     print(json.dumps({"serve_q": q_info}), flush=True)
 
+    t0 = time.perf_counter()
+    wide_err, wide_info = phase_wide_trunk(device, boards, gen)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s ({smi})")
+    print(json.dumps({"wide_trunk": wide_info}), flush=True)
+
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
     t_big = max(TIMED_BATCHES)
@@ -3224,7 +3426,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": fused_launches[name],
             "launches_from": "phase 6 (fused-trunk self-play)",
-            "max_abs_err": trunk_err[name],
+            "max_abs_err": max(trunk_err[name], wide_err[name]),
             "ms": trunk_times[name][0],
             "plain_ms": trunk_times[name + "_plain"][0],
             "wall_ms": trunk_times[name][1],
@@ -3238,6 +3440,12 @@ def main() -> int:
                       "b12c128btl3, first call of the trunk",
             "library_products_ms": kernel_rows[f"{name}@{n_big}"]["library_products_ms"],
             "by_batch": {k: v for k, v in kernel_rows.items() if k.startswith(name + "@")},
+            "by_width": {cfg: {
+                "launches_phase15": wide_info[cfg]["launches"][name],
+                "launches_per_ply": wide_info[cfg]["launches_per_ply"][name],
+                **{k: v for k, v in wide_info[cfg]["rows"].items()
+                   if k.startswith(name + "@")}} for cfg in WIDE_CONFIGS},
+            "padded": f"{PADDED_CONFIG} runs the smallest kernel zero-padded (phase 15)",
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
     rows = {(r["site"], r["n"], r["mode"]): r for r in q_info["convs"]}

@@ -68,17 +68,39 @@
 //    the second tile's A is built while the first tile's products run.
 //  - Persistent blocks: min(N, resident blocks) blocks walk over boards
 //    (grid stride); the producer runs ahead through the ring, so the next
-//    board's first weight copies overlap the current board's last layer. A
-//    board never crosses blocks. Leaf batches smaller than the card
-//    (N < 132) leave SMs idle; splitting a board over a cluster is later work.
+//    board's first weight copies overlap the current board's last layer. At
+//    C <= 128 a board never crosses blocks; leaf batches smaller than the
+//    card (N < 132) leave SMs idle.
 //  - No atomics: two calls on the same input give identical bits.
 //
 // Shared memory for (C, CB) = (128, 64): 10 weight stages x 8 KB, two haloed
 // buffers 2 x 441 x 72 x 2 B, two affine slots of 5 x 2 x 128 f32, the
 // mbarriers: 219,360 B, one 512-thread block per SM.
 //
-// Widths: (C, CB) in {(64, 32), (128, 64)}, inner in [0, 3]; others return
-// cudaErrorInvalidValue (the Python wrapper refuses them first).
+// Wider boards do not fit a block: at (256, 128) two haloed buffers take
+// 2 x 441 x 136 x 2 = 239,904 B before any weight stage (the limit is
+// 232,448), at (384, 192) one takes 176,400 B; and the expand's register
+// hand-off to the next reduce would need 128 more registers a consumer
+// thread. So `trunk_segment_cluster_kernel` splits a board's positions over
+// a thread-block cluster (its own comment, below): each block keeps, in
+// place, the window of grid rows its tiles read, neighbours exchange
+// boundary rows through distributed shared memory, rank 0 multicasts each
+// weight item to the cluster, and the expand stores x, which the next
+// reduce reads back. A block is one consumer warpgroup a tile plus one
+// producer warp, one block per SM. Its shared memory:
+//   (256, 128): cluster of 2, 3 tiles a block (416 threads); a window of
+//     13 x 21 grid rows x 136 x 2 B = 74,256, 4 stages of a 128 x 128 chunk
+//     (131,072), one affine slot of 5 x 2 x 256 f32 (10,240), 12 mbarriers:
+//     215,664 B.
+//   (384, 192): cluster of 3, 2 tiles a block (288 threads); a window of
+//     10 x 21 x 200 x 2 B = 84,000, 5 stages of a 192 x 64 item, a chunk's
+//     K third (122,880), one affine slot of 5 x 2 x 384 f32 (15,360), 14
+//     mbarriers: 222,352 B.
+//
+// Widths: (C, CB) in {(64, 32), (128, 64), (256, 128), (384, 192)}, inner
+// in [0, 3]; others return cudaErrorInvalidValue (the Python wrapper
+// refuses them first, and runs narrower trunks, such as (16, 8), zero-
+// padded to (64, 32)).
 //
 // Interface: plain C, for ctypes. Pointers are device pointers, 16-byte
 // aligned; `stream` is a cudaStream_t; `num_boards` >= 1. The function sets
@@ -134,8 +156,10 @@ struct Shape {
 // clock cycles of consumer thread 0 (warpgroup 0, warp 0) by phase over a
 // launch: [0] block 0's reduce and barrier, [1] 3x3 products, [2] 3x3
 // epilogues and barriers, [3] expand (+ next reduce) and barrier; [4] the
-// board-blocks it ran. p3_trunk_segment_phase_cycles reads (or zeroes) them.
-__device__ unsigned long long g_phase_cycles[5];
+// board-blocks it ran; the cluster kernel also [5] its waits for weight
+// items (inside [0], [1] and [3]). p3_trunk_segment_phase_cycles reads (or
+// zeroes) them.
+__device__ unsigned long long g_phase_cycles[6];
 #define P3_PHASE(k)                        \
   do {                                     \
     const long long now_ = clock64();      \
@@ -518,6 +542,433 @@ int launch_segment(const void* x, void* out, const void* aff, const void* chunks
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the cluster kernel: (C, CB) in {(256, 128), (384, 192)} ------------
+//
+// A board's six M tiles are shared among the kCluster blocks of a thread-
+// block cluster: block r owns tiles r * TB .. r * TB + TB - 1 (TB = 6 /
+// kCluster), one consumer warpgroup a tile over all CB output columns
+// (m64nCBk16), and keeps one haloed buffer, holding only the window of
+// grid rows its tiles' taps read (its board rows and one more on each
+// side). One producer warp streams the weights; no register moves between
+// roles, and the launch bound gives a consumer thread 65,536 / (128 TB +
+// 32) registers (157 at TB = 3, 227 at TB = 2). The buffer is updated in
+// place: after the products of a 3x3 layer every block of the cluster
+// passes a consumer barrier over the cluster (`exchange`: every read of
+// every window is done), then a block stores its outputs into its own
+// window and, through distributed shared memory, into the windows of its
+// two neighbours where they hold the same board rows, and a second
+// exchange publishes them. The reduce stores the same way (one exchange: no
+// window is being read then). Weights stream as items: a chunk whole at
+// (256, 128), a chunk's three 64-channel K slices at (384, 192); every
+// consumer group of every block reads every item. Rank 0 fetches each item
+// once for the cluster with a multicast bulk copy; a stage's "empty"
+// mbarrier in rank 0 gathers the consumers of every block. Items pipeline
+// one by one: an item's products run while the next item's A fragments
+// load, and a stage is released as soon as its products are done. The
+// expand writes x; the next block's reduce reads it back (the register
+// hand-off of the smaller widths would need 128 more registers a consumer
+// thread at C = 256).
+//
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): a bottleneck
+// block of 3 inner layers is 366.7 MFLOP per board at (256, 128) and 825.1
+// at (384, 192), 1.068 and 2.403 ms per block at N = 2880 on the tensor
+// cores; x in and out takes 0.318 / 0.477 ms a call.
+
+// Haloed board rows (21 grid rows each) of the window of rank r, when a
+// block owns `tb` consecutive 64-position tiles: board rows first .. last of
+// its positions, plus one on each side.
+__host__ __device__ constexpr int window_first(int r, int tb) { return kTileRows * tb * r / kBoard; }
+__host__ __device__ constexpr int window_board_rows(int r, int tb) {
+  return ((kTileRows * tb * (r + 1) < kPos ? kTileRows * tb * (r + 1) : kPos) - 1) / kBoard + 2 -
+         window_first(r, tb) + 1;
+}
+__host__ __device__ constexpr int max_window_board_rows(int tb) {
+  int m = 0;
+  for (int r = 0; r < kTiles / tb; ++r) {
+    m = window_board_rows(r, tb) > m ? window_board_rows(r, tb) : m;
+  }
+  return m;
+}
+
+template <int C, int CB>
+struct WideShape {
+  // (256, 128) keeps 3 tiles a block: at 2 (a cluster of 3) each weight
+  // item serves fewer tiles, and the kernel ran slower on an H100.
+  static constexpr int kCluster = C == 256 ? 2 : 3;
+  static constexpr int kTB = kTiles / kCluster;  // tiles = consumer warpgroups a block
+  static constexpr int kConsumerWarps = 4 * kTB;
+  static constexpr int kConsumerThreads = 32 * kConsumerWarps;
+  static constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+  static constexpr int kLdT = CB + 8;
+  static constexpr int kWinRows = max_window_board_rows(kTB) * kHaloW;
+  static constexpr int kPlaneBytes = kWinRows * kLdT * 2;
+  static constexpr int kKSteps = CB / 16;
+  static constexpr int kItemKSteps = C == 256 ? kKSteps : 4;  // k16 steps an item
+  static constexpr int kItems = kKSteps / kItemKSteps;        // items a chunk
+  static constexpr int kItemK = 16 * kItemKSteps;
+  static constexpr int kItemElems = CB * kItemK;  // B^T [CB n][kItemK k]
+  static constexpr int kItemBytes = kItemElems * 2;
+  static constexpr int kSplit = C / CB;
+  static constexpr int kAcc = CB / 2;  // f32 accumulators a thread, m64nCB
+  static constexpr int kAffBytes = kMaxLayers * 2 * C * 4;
+  // As many stages (an item and two mbarriers each) as the block's shared
+  // memory holds beside the window, the affines and four mbarriers (at
+  // most 8).
+  static constexpr int kFit = (232448 - kPlaneBytes - kAffBytes - 4 * 8) / (kItemBytes + 2 * 8);
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kPlaneOff = kStages * kItemBytes;
+  static constexpr int kAffOff = kPlaneOff + kPlaneBytes;
+  static constexpr int kBarOff = kAffOff + kAffBytes;
+  // full[s], empty[s]; aff_full, aff_empty; exchange[2]
+  static constexpr int kSmem = kBarOff + (2 * kStages + 4) * 8;
+  static_assert(kTB * kCluster == kTiles, "tiling");
+  static_assert(CB % 64 == 0 && kItems * kItemKSteps == kKSteps && kStages >= kItems, "items");
+  static_assert(kPlaneBytes % 16 == 0 && kAffOff % 16 == 0 && kBarOff % 8 == 0, "align");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// Descriptor of k16 step `ks` of an item (B^T [n][K] in 8x8 core matrices,
+// core (n/8, k/8) at ((n/8) * (K/8) + k/8) * 128 bytes; LBO 128, SBO K/8 *
+// 128).
+template <int K>
+__device__ __forceinline__ uint64_t item_desc(uint32_t item, int ks) {
+  return smem_desc(item + ks * 256, 128, K / 8 * 128);
+}
+
+// act(bf16(d), next layer) of the tile's rows into this block's window of
+// the haloed buffer at `plane` (shared address; `win0` its first grid row)
+// and, where a neighbour's window holds the row, into the neighbour's
+// (distributed shared memory).
+template <int C, int CB>
+__device__ __forceinline__ void store_act_cluster(const float (&d)[CB / 2], uint32_t plane,
+                                                  int win0, int rank, int p0, const float* an,
+                                                  int t4) {
+  using S = WideShape<C, CB>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + 8 * h;
+    if (p >= kPos) continue;
+    const int hr = halo_row(p);
+    uint32_t peer[2];
+    bool send[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = rank + 2 * k - 1;
+      const int w0 = window_first(s, S::kTB) * kHaloW;
+      send[k] = s >= 0 && s < S::kCluster && hr >= w0 &&
+                hr < w0 + window_board_rows(s, S::kTB) * kHaloW;
+      peer[k] = send[k] ? cluster_map(plane + (hr - w0) * S::kLdT * 2, s) : 0u;
+    }
+    const uint32_t row = plane + (hr - win0) * S::kLdT * 2;
+#pragma unroll
+    for (int j = 0; j < CB / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 a = *reinterpret_cast<const float2*>(an + c);
+      const float2 b = *reinterpret_cast<const float2*>(an + C + c);
+      const uint32_t v = pack2(act_f32(round_bf16(d[4 * j + 2 * h]), a.x, b.x),
+                               act_f32(round_bf16(d[4 * j + 2 * h + 1]), a.y, b.y));
+      asm volatile("st.shared.u32 [%0], %1;" ::"r"(row + c * 2), "r"(v) : "memory");
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (send[k]) st_cluster_u32(peer[k] + c * 2, v);
+      }
+    }
+  }
+}
+
+// x, out, aff as trunk_segment_kernel's; chunks: bf16 [n_blocks, 2 C/CB +
+// 9 inner, CB * CB], each chunk as kItems items of B^T [CB n][kItemK k]
+// (`pack_segment`). The grid is a whole number of clusters; each cluster
+// walks boards (cluster index, stride clusters).
+template <int C, int CB>
+__global__ void __launch_bounds__(WideShape<C, CB>::kThreads, 1)
+trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__ aff,
+                             const bf16* __restrict__ chunks, int num_boards, int n_blocks,
+                             int inner) {
+  using S = WideShape<C, CB>;
+  constexpr int R = S::kCluster;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rank = static_cast<int>(cluster_rank());
+  const int cluster_id = blockIdx.x / R;
+  const int n_clusters = gridDim.x / R;
+  const uint32_t stage0 = smem_u32(smem);
+  const uint32_t plane = smem_u32(smem + S::kPlaneOff);
+  const float* aff_s = reinterpret_cast<const float*>(smem + S::kAffOff);
+  const uint32_t bar0 = smem_u32(smem + S::kBarOff);
+  // Ring item i sits in stage i % kStages, in the phase of parity
+  // (i / kStages) & 1 of full(i) and of empty(i) (rank 0's counts the
+  // consumers of every block). The affines take one slot; exchange e uses
+  // exchange(e & 1) in its phase (e >> 1) & 1.
+  const auto full = [&](uint32_t i) { return bar0 + 8u * (i % S::kStages); };
+  const auto empty = [&](uint32_t i) { return bar0 + 8u * (S::kStages + i % S::kStages); };
+  const uint32_t aff_full = bar0 + 8u * (2 * S::kStages);
+  const uint32_t aff_empty = aff_full + 8u;
+  const auto xbar = [&](uint32_t e) { return aff_full + 16u + 8u * (e & 1u); };
+  const auto parity = [](uint32_t i) { return (i / S::kStages) & 1u; };
+  const int layers = 2 + inner;
+  const int per_block = 2 * S::kSplit + 9 * inner;  // chunks per block
+
+  for (int i = threadIdx.x; i < S::kPlaneBytes / 16; i += S::kThreads) {
+    reinterpret_cast<uint4*>(smem + S::kPlaneOff)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), S::kConsumerWarps * R);
+    }
+    mbar_init(aff_full, 1);
+    mbar_init(aff_empty, S::kConsumerWarps);
+    mbar_init(xbar(0), R);
+    mbar_init(xbar(1), R);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Every block's mbarriers and zeroed window before any peer uses them.
+  cluster_sync_all();
+
+  if (warp == S::kConsumerWarps) {
+    // Producer, one lane: per board and block the affines (this block's own
+    // copy), then the block's chunks in stream order, item by item. Rank 0
+    // multicasts every item once its stage is free in every block; each
+    // block arms its own stage's expected bytes once the stage's previous
+    // phase has completed.
+    if (lane == 0) {
+      const uint32_t aff_bytes = layers * 2 * C * 4;
+      const uint16_t mask = static_cast<uint16_t>((1u << R) - 1u);
+      uint32_t it = 0, ai = 0;
+      for (int board = cluster_id; board < num_boards; board += n_clusters) {
+        for (int blk = 0; blk < n_blocks; ++blk, ++ai) {
+          mbar_wait(aff_empty, (ai & 1u) ^ 1u);
+          mbar_expect_tx(aff_full, aff_bytes);
+          bulk_load(smem_u32(aff_s), aff + static_cast<size_t>(blk) * layers * 2 * C,
+                    aff_bytes, aff_full);
+          const bf16* src = chunks + static_cast<size_t>(blk) * per_block * CB * CB;
+          for (int i = 0; i < per_block * S::kItems; ++i, ++it) {
+            if (rank == 0) {
+              mbar_wait(empty(it), parity(it) ^ 1u);
+            } else {
+              mbar_wait(full(it), parity(it) ^ 1u);
+            }
+            mbar_expect_tx(full(it), S::kItemBytes);
+            if (rank == 0) {
+              bulk_load_multicast(stage0 + (it % S::kStages) * S::kItemBytes,
+                                  src + static_cast<size_t>(i) * S::kItemElems, S::kItemBytes,
+                                  full(it), mask);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    const int g = warp >> 2;
+    const int wq = warp & 3;
+    const int t4 = lane & 3;
+    const int base = (rank * S::kTB + g) * kTileRows + wq * 16;  // this warp's tile rows
+    const int p0 = base + (lane >> 2);  // this lane's accumulator rows p0, p0 + 8
+    const int win0 = window_first(rank, S::kTB) * kHaloW;
+    const int lp = base + (lane & 15);
+    const int lrow = halo_row(lp < kPos ? lp : kPos - 1) - win0;  // ldmatrix row
+    const int lcol = (lane >> 4) * 8;
+    uint32_t it = 0, ai = 0, e = 0;  // items, affine loads, exchanges so far
+#ifdef P3_SEGMENT_PROFILE
+    long long phase_cycles[6] = {0, 0, 0, 0, 0, 0};
+    long long phase_t = clock64();
+#endif
+    // Waits for item i; returns its address.
+    const auto item_at = [&](uint32_t i) {
+#ifdef P3_SEGMENT_PROFILE
+      const long long w0 = clock64();
+#endif
+      mbar_wait(full(i), parity(i));
+#ifdef P3_SEGMENT_PROFILE
+      phase_cycles[5] += clock64() - w0;
+#endif
+      return stage0 + (i % S::kStages) * S::kItemBytes;
+    };
+    const auto release = [&](uint32_t i) {
+      if (lane == 0) mbar_arrive_cluster(cluster_map(empty(i), 0));
+    };
+    // A consumer barrier over the cluster: every block's shared-memory reads
+    // and stores before it are done and visible to every block after it.
+    const auto exchange = [&]() {
+      consumer_sync<S::kConsumerThreads>();
+      if (threadIdx.x == 0) {
+        fence_acq_rel_cluster();
+        for (int s = 0; s < R; ++s) mbar_arrive_cluster(cluster_map(xbar(e), s));
+      }
+      mbar_wait_cluster(xbar(e), (e >> 1) & 1u);
+      ++e;
+    };
+    // acc += A . (the next kItems items), A the k16 steps of a whole chunk;
+    // then every item's products are done and its stage released.
+    const auto chunk_product = [&](float (&acc)[S::kAcc], uint32_t (&a)[S::kKSteps][4]) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ki = 0; ki < S::kItems; ++ki) {
+        const uint32_t b = item_at(it + ki);
+#pragma unroll
+        for (int kk = 0; kk < S::kItemKSteps; ++kk) {
+          wgmma_bf16(acc, a[ki * S::kItemKSteps + kk], item_desc<S::kItemK>(b, kk));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(a);
+#pragma unroll
+      for (int ki = 0; ki < S::kItems; ++ki) release(it + ki);
+      it += S::kItems;
+    };
+
+    for (int board = cluster_id; board < num_boards; board += n_clusters) {
+      const size_t boff = static_cast<size_t>(board) * kPos * C;
+      bf16* xo = out + boff;
+      for (int blk = 0; blk < n_blocks; ++blk, ++ai) {
+        const bf16* cur = blk == 0 ? x + boff : xo;
+        mbar_wait(aff_full, ai & 1u);
+        const float* af = aff_s;  // [layers][2][C]
+
+        // 1x1 reduce from x, K in kSplit chunks: act(h, layer 1). No window
+        // is being read: the last exchange followed every 3x3 read, and the
+        // expand reads only this block's own rows.
+        {
+          float acc[S::kAcc];
+          zero_acc(acc);
+          for (int kc = 0; kc < S::kSplit; ++kc) {
+            uint32_t a[S::kKSteps][4];
+            load_x<C, CB>(a, cur, p0, kc, t4);
+            act_x<C, CB>(a, p0, kc, af, t4);
+            chunk_product(acc, a);
+          }
+          store_act_cluster<C, CB>(acc, plane, win0, rank, p0, af + 2 * C, t4);
+          exchange();
+          P3_PHASE(0);
+        }
+
+        // Inner 3x3 convolutions, one chunk per tap, item by item: step s
+        // (tap s / kItems, its K slice s % kItems) runs its products while
+        // step s + 1's A fragments load into the other register buffer.
+        for (int j = 0; j < inner; ++j) {
+          constexpr int kSteps = 9 * S::kItems;
+          float acc[S::kAcc];
+          zero_acc(acc);
+          uint32_t a[2][S::kItemKSteps][4];
+          const auto load_step = [&](uint32_t (&dst)[S::kItemKSteps][4], int step) {
+            const int o = step / S::kItems;
+            const int shift = (o / 3 - 1) * kHaloW + (o % 3 - 1);
+            const uint32_t row = plane + ((lrow + shift) * S::kLdT + lcol) * 2 +
+                                 (step % S::kItems) * S::kItemK * 2;
+#pragma unroll
+            for (int kk = 0; kk < S::kItemKSteps; ++kk) ldmatrix_x4(dst[kk], row + kk * 32);
+          };
+          load_step(a[0], 0);
+          fence_regs(acc);
+#pragma unroll
+          for (int step = 0; step < kSteps; ++step) {
+            const uint32_t b = item_at(it);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < S::kItemKSteps; ++kk) {
+              wgmma_bf16(acc, a[step & 1][kk], item_desc<S::kItemK>(b, kk));
+            }
+            wgmma_commit();
+            if (step > 0) {
+              wgmma_wait<1>();  // step - 1 is done: its item and registers
+              release(it - 1);
+            }
+            if (step + 1 < kSteps) {
+              fence_regs(a[(step + 1) & 1]);
+              load_step(a[(step + 1) & 1], step + 1);
+            }
+            ++it;
+          }
+          wgmma_wait_all();
+          fence_regs(acc);
+          fence_regs(a[0]);
+          fence_regs(a[1]);
+          release(it - 1);
+          P3_PHASE(1);
+          exchange();  // every window's reads of this layer are done
+          store_act_cluster<C, CB>(acc, plane, win0, rank, p0, af + (2 + j) * 2 * C, t4);
+          exchange();  // and its stores are visible
+          P3_PHASE(2);
+        }
+        // This block's affines are done with (every warp is past the
+        // exchange, so past its last read of them).
+        if (lane == 0) mbar_arrive(aff_empty);
+
+        // 1x1 expand of the tile's rows, N in kSplit chunks, + residual (in
+        // 64-channel parts), in place in `out`.
+        {
+          const uint32_t row = plane + (lrow * S::kLdT + lcol) * 2;
+          uint32_t a[S::kKSteps][4];
+#pragma unroll
+          for (int ks = 0; ks < S::kKSteps; ++ks) ldmatrix_x4(a[ks], row + ks * 32);
+          for (int nc = 0; nc < S::kSplit; ++nc) {
+            float acc[S::kAcc];
+            zero_acc(acc);
+            chunk_product(acc, a);
+#pragma unroll
+            for (int part = 0; part < CB / 64; ++part) {
+              const int c0 = nc * CB + 64 * part;
+              uint4 res[2][2];
+              load_residual<C, 64>(res, cur, p0, c0, t4);
+              uint32_t unused[4][4];
+              store_residual<C, 64>(*reinterpret_cast<const float(*)[32]>(acc + 32 * part), res,
+                                    xo, p0, c0, t4, nullptr, unused);
+            }
+          }
+        }
+        // Every warp's x written, and every read of this block's own rows
+        // done, before the next reduce reads x and stores.
+        consumer_sync<S::kConsumerThreads>();
+        P3_PHASE(3);
+#ifdef P3_SEGMENT_PROFILE
+        ++phase_cycles[4];
+#endif
+      }
+    }
+#ifdef P3_SEGMENT_PROFILE
+    if (threadIdx.x == 0 && rank == 0) {
+      for (int k = 0; k < 6; ++k) {
+        atomicAdd(&g_phase_cycles[k], static_cast<unsigned long long>(phase_cycles[k]));
+      }
+    }
+#endif
+  }
+  // No block exits while a peer may still read, store into or arrive on
+  // its shared memory.
+  __syncwarp();
+  cluster_sync_all();
+}
+
+template <int C, int CB>
+int launch_segment_cluster(const void* x, void* out, const void* aff, const void* chunks,
+                           int num_boards, int n_blocks, int inner, cudaStream_t stream) {
+  using S = WideShape<C, CB>;
+  if (num_boards < 1 || n_blocks < 1 || inner < 0 || inner > kMaxInner) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = trunk_segment_cluster_kernel<C, CB>;
+  // Resident clusters on this card, once per process (one card per process).
+  static int resident = 0;
+  if (resident == 0) {
+    const cudaError_t err =
+        resident_clusters(kernel, S::kThreads, S::kSmem, S::kCluster, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int clusters = num_boards < resident ? num_boards : resident;
+  const cudaError_t err = launch_clusters(
+      kernel, clusters * S::kCluster, S::kThreads, S::kSmem, S::kCluster, stream,
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const float*>(aff),
+      static_cast<const bf16*>(chunks), num_boards, n_blocks, inner);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int p3_trunk_segment(const void* x, void* out, const void* aff,
@@ -531,15 +982,47 @@ extern "C" int p3_trunk_segment(const void* x, void* out, const void* aff,
   if (channels == 128 && bottleneck == 64) {
     return launch_segment<128, 64>(x, out, aff, chunks, num_boards, n_blocks, inner, s);
   }
+  if (channels == 256 && bottleneck == 128) {
+    return launch_segment_cluster<256, 128>(x, out, aff, chunks, num_boards, n_blocks, inner,
+                                            s);
+  }
+  if (channels == 384 && bottleneck == 192) {
+    return launch_segment_cluster<384, 192>(x, out, aff, chunks, num_boards, n_blocks, inner,
+                                            s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The blocks of the persistent grid at (channels, bottleneck) on this card
+// (resident blocks, or resident clusters times the cluster's blocks), or
+// minus the cudaError.
+extern "C" int p3_trunk_segment_grid(int channels, int bottleneck) {
+  int n = 0, per = 1;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (channels == 64 && bottleneck == 32) {
+    err = resident_blocks(trunk_segment_kernel<64, 32>, kThreads, Shape<64, 32>::kSmem, &n);
+  } else if (channels == 128 && bottleneck == 64) {
+    err = resident_blocks(trunk_segment_kernel<128, 64>, kThreads, Shape<128, 64>::kSmem, &n);
+  } else if (channels == 256 && bottleneck == 128) {
+    using S = WideShape<256, 128>;
+    per = S::kCluster;
+    err = resident_clusters(trunk_segment_cluster_kernel<256, 128>, S::kThreads, S::kSmem, per,
+                            &n);
+  } else if (channels == 384 && bottleneck == 192) {
+    using S = WideShape<384, 192>;
+    per = S::kCluster;
+    err = resident_clusters(trunk_segment_cluster_kernel<384, 192>, S::kThreads, S::kSmem, per,
+                            &n);
+  }
+  return err == cudaSuccess ? n * per : -static_cast<int>(err);
 }
 
 #ifdef P3_SEGMENT_PROFILE
 // The phase clocks of the launches since the last reset (see P3_PHASE):
-// copies the 5 counters to `out` (host memory), or zeroes them when `reset`.
+// copies the 6 counters to `out` (host memory), or zeroes them when `reset`.
 extern "C" int p3_trunk_segment_phase_cycles(unsigned long long* out, int reset) {
   if (reset) {
-    const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+    const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
     return static_cast<int>(cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero)));
   }
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles)));

@@ -29,16 +29,16 @@ from p3achygo_tpu_torch.models.model import P3achyGoModel, block_name, is_broadc
 from p3achygo_tpu_torch.ops.trunk import (
     MAX_INNER,
     MIX_PAD,
-    SEGMENT_WIDTHS,
-    BROADCAST_WIDTHS,
     BroadcastWeights,
     SegmentWeights,
-    pack_broadcast,
-    pack_segment,
+    broadcast_kernel_width,
+    segment_kernel_width,
     trunk_broadcast,
     trunk_broadcast_reference,
     trunk_segment,
     trunk_segment_reference,
+    with_packed_broadcast,
+    with_packed_segment,
 )
 
 BOARD = 19
@@ -59,9 +59,26 @@ class Segment(NamedTuple):
 def trunk_supported(config) -> bool:
     """The fused trunk covers btl trunks with broadcast blocks (the JAX
     rule, trunk_kernel.py:47). Which widths the kernels take is the
-    kernels' own check, on the card."""
+    kernels' own check, on the card (`check_kernel_widths`)."""
     return (not getattr(config, "is_transformer", False)
             and config.trunk_block_type == "btl")
+
+
+def check_kernel_widths(config, device: torch.device, broadcast: bool = True) -> None:
+    """For a trunk on a CUDA device, raise ValueError naming a width no
+    trunk kernel takes (the segment's (C, Cb) and inner layers; with
+    `broadcast`, the broadcast block's C), so that a trunk the card cannot
+    run fails when it is built and not inside a search. On the CPU the
+    plain versions run at any width."""
+    if torch.device(device).type != "cuda":
+        return
+    C, cb = config.channels, config.bottleneck_channels
+    inner = config.inner_bottleneck_layers
+    if segment_kernel_width(C, cb) is None or inner > MAX_INNER:
+        raise ValueError(f"no segment kernel takes (channels, bottleneck) = {(C, cb)} "
+                         f"with {inner} inner layers on the card")
+    if broadcast and broadcast_kernel_width(C) is None:
+        raise ValueError(f"no broadcast kernel takes channels = {C} on the card")
 
 
 def _plan_segments(kinds: Sequence[str]) -> List[Tuple[str, int, int]]:
@@ -128,8 +145,8 @@ def build_trunk_weights(config, model: P3achyGoModel
 def _pack_segment(blocks: List[List[torch.Tensor]], channels: int
                   ) -> SegmentWeights:
     """Per-block flat arrays -> the segment kernel's stacked weights, with
-    the kernel's weight stream (`pack_segment`, once, here) for the widths
-    it takes."""
+    the kernel's weight stream (`with_packed_segment`, once, here; zero-
+    padded below the smallest kernel width) for the widths it takes."""
     affs, wr, w9, we = [], [], [], []
     for arrs in blocks:
         layers = [arrs[k:k + 3] for k in range(0, len(arrs), 3)]
@@ -148,22 +165,17 @@ def _pack_segment(blocks: List[List[torch.Tensor]], channels: int
                        torch.stack(wr).contiguous(),
                        torch.stack(w9).contiguous(),
                        torch.stack(we).contiguous())
-    if tuple(w.wr.shape[1:]) in SEGMENT_WIDTHS and w.w9.shape[1] <= MAX_INNER:
-        w = w._replace(packed=pack_segment(w))
-    return w
+    return with_packed_segment(w)
 
 
 def _pack_broadcast(arrs: List[torch.Tensor]) -> BroadcastWeights:
     """One broadcast block's flat arrays -> BroadcastWeights, with the
-    kernel's packed weights (`pack_broadcast`, once, here) for the widths
-    it takes."""
+    kernel's packed weights (`with_packed_broadcast`, once, here) for the
+    widths it takes."""
     f_a, f_b, wf, wdt, bd, l_a, l_b, wl = arrs
-    w = BroadcastWeights(torch.stack([f_a, f_b]).contiguous(), wf.contiguous(),
-                         wdt.contiguous(), bd.contiguous(),
-                         torch.stack([l_a, l_b]).contiguous(), wl.contiguous())
-    if wf.shape[0] in BROADCAST_WIDTHS:
-        w = w._replace(packed=pack_broadcast(w))
-    return w
+    return with_packed_broadcast(BroadcastWeights(
+        torch.stack([f_a, f_b]).contiguous(), wf.contiguous(), wdt.contiguous(),
+        bd.contiguous(), torch.stack([l_a, l_b]).contiguous(), wl.contiguous()))
 
 
 def block_arrays(config, kinds, arrs) -> List[List[torch.Tensor]]:
@@ -228,7 +240,9 @@ def trunk_fn_of(segments: List[Segment]):
 
 def build_trunk_fn(config, model: P3achyGoModel):
     """-> trunk_fn for `P3achyGoModel.forward(..., trunk_fn=...)`: the
-    folded weights (once, here) on the segment and broadcast kernels."""
+    folded weights (once, here) on the segment and broadcast kernels.
+    Raises on a CUDA model whose widths no kernel takes."""
+    check_kernel_widths(config, next(model.parameters()).device)
     return trunk_fn_of(trunk_segments(
         config, model, lambda arrs: Segment(trunk_broadcast,
                                             trunk_broadcast_reference,

@@ -22,6 +22,7 @@ from p3achygo_tpu_torch.nn.trunk_kernel import (
     _plan_segments,
     block_arrays,
     build_trunk_weights,
+    check_kernel_widths,
     trunk_fn_of,
     trunk_segments,
 )
@@ -65,6 +66,8 @@ def build_trunk_fn_v2(config, model: P3achyGoModel):
     """-> trunk_fn for `P3achyGoModel.forward(..., trunk_fn=...)`:
     bottleneck runs on the segment kernel, broadcast blocks as plain
     PyTorch (`bc_block_v2`); `trunk_reference(x, trunk_fn.segments)` is
-    its plain trunk."""
+    its plain trunk. Raises on a CUDA model whose segment width no kernel
+    takes."""
+    check_kernel_widths(config, next(model.parameters()).device, broadcast=False)
     return trunk_fn_of(trunk_segments(
         config, model, lambda arrs: Segment(bc_block_v2, bc_block_v2, _v2_mix(arrs))))

@@ -26,6 +26,19 @@ f32 ulp from the plain version's IEEE division, which moves a rare bf16
 rounding by one unit.
 Each wrapper counts its launches in `.launches`.
 
+Widths: the segment kernel takes (C, Cb) in SEGMENT_WIDTHS and the
+broadcast kernel C in BROADCAST_WIDTHS. At C = 64 and 128 a block holds a
+whole board; at C = 256 and 384 a board is split over a thread-block
+cluster (SEGMENT_CLUSTER, BROADCAST_CLUSTER: by positions for a segment,
+by channels for a broadcast block). A width below the smallest kernel
+width (`tiny`, C = 16, Cb = 8) runs the smallest kernel zero-padded
+(`segment_kernel_width`, `pad_segment`, `pad_broadcast`): x gets zero
+channels, the weights zero rows and columns and the affines a = b = 0, and
+the output is sliced back. That is exact in value: mish(0) = 0, so a padded
+channel stays 0 and adds +0 to every sum. `with_packed_segment` /
+`with_packed_broadcast` pack once, padded where needed. A width no kernel
+takes raises on the card; nothing falls back to the plain version.
+
 The segment kernel reads its weights as `pack_segment` lays them out: a
 stream of Cb x Cb chunks in the shared-memory layout of the wgmma B operand,
 packed once on the host. `unpack_segment` inverts it, and
@@ -55,9 +68,19 @@ MIX_CHUNK_COLS = 32
 # Widths the kernels take: (channels, bottleneck) for a segment, channels
 # for a broadcast block; the segment kernel takes up to MAX_INNER 3x3
 # layers a block.
-SEGMENT_WIDTHS = ((64, 32), (128, 64))
-BROADCAST_WIDTHS = (64, 128)
+SEGMENT_WIDTHS = ((64, 32), (128, 64), (256, 128), (384, 192))
+BROADCAST_WIDTHS = (64, 128, 256, 384)
 MAX_INNER = 3
+# The widths whose kernel splits a board over a thread-block cluster, and
+# the cluster's blocks: a segment by M tiles (each block TILE_ROWS * 6 /
+# blocks positions), a broadcast block by channels (64 a block).
+SEGMENT_CLUSTER = {(256, 128): 2, (384, 192): 3}
+BROADCAST_CLUSTER = {256: 4, 384: 6}
+BROADCAST_SLICE = 64
+# The segment kernel streams a chunk as items of this many K rows (input
+# channels) where it is not the whole chunk: at (384, 192) every consumer
+# group reads every item, a 192 x 64 third of the chunk.
+SEGMENT_ITEM_K = {(384, 192): 64}
 
 # The segment kernel's geometry: the activated bottleneck tensor of a board
 # lives in a zero-haloed 21x21 grid (position (i, j) at row (i+1)*21 + j+1);
@@ -78,9 +101,13 @@ class SegmentWeights(NamedTuple):
     wr: torch.Tensor  # bf16 [n_blocks, C, Cb] 1x1 reduce, [Cin, Cout]
     w9: torch.Tensor  # bf16 [n_blocks, inner, 9 * Cb, Cb] 3x3 in OFFSETS order
     we: torch.Tensor  # bf16 [n_blocks, Cb, C] 1x1 expand
-    packed: Optional[torch.Tensor] = None  # bf16 [n_blocks, chunks, Cb * Cb]:
-    #                    `pack_segment` of the above, what the kernel reads
-    #                    (needed on the card only)
+    packed: Optional[torch.Tensor] = None  # bf16 [n_blocks, chunks, Cb' * Cb']:
+    #                    `pack_segment` of the above at the kernel's width
+    #                    (C', Cb') = `segment_kernel_width`, what the kernel
+    #                    reads (needed on the card only)
+    kernel_aff: Optional[torch.Tensor] = None  # f32 [n_blocks, 2 + inner, 2,
+    #                    C']: aff zero-padded to the kernel's width, where it
+    #                    is wider than C (the kernel reads aff otherwise)
 
 
 class BroadcastWeights(NamedTuple):
@@ -92,9 +119,13 @@ class BroadcastWeights(NamedTuple):
     bd: torch.Tensor  # f32 [361]
     l_aff: torch.Tensor  # f32 [2, C]
     wl: torch.Tensor  # bf16 [C, C]
-    packed: Optional[torch.Tensor] = None  # bf16 [2 C^2 + 384^2]:
-    #                    `pack_broadcast` of the above, what the kernel reads
+    packed: Optional[torch.Tensor] = None  # bf16 [2 C'^2 + 384^2]:
+    #                    `pack_broadcast` of the above at the kernel's width
+    #                    C' = `broadcast_kernel_width`, what the kernel reads
     #                    (needed on the card only)
+    kernel_aff: Optional[torch.Tensor] = None  # f32 [2, 2, C']: f_aff and
+    #                    l_aff zero-padded to the kernel's width, where it is
+    #                    wider than C (the kernel reads them otherwise)
 
 
 def _round(t: torch.Tensor) -> torch.Tensor:
@@ -155,6 +186,17 @@ def segment_tile_positions() -> torch.Tensor:
     return torch.where(p < NUM_LOCS, p, -1).reshape(SEGMENT_TILES, TILE_ROWS)
 
 
+def cluster_window(rank: int, tiles_per_block: int) -> Tuple[int, int]:
+    """(first grid row, grid rows) of the haloed-grid window that block
+    `rank` of a segment cluster keeps, when each block owns
+    `tiles_per_block` consecutive M tiles: the board rows of its positions
+    and one more on each side, 21 grid rows each (csrc/trunk_segment.cu
+    `window_first`, `window_board_rows`)."""
+    first = TILE_ROWS * tiles_per_block * rank
+    last = min(TILE_ROWS * tiles_per_block * (rank + 1), NUM_LOCS) - 1
+    return first // 19 * HALO_W, (last // 19 + 2 - first // 19 + 1) * HALO_W
+
+
 def reduce_k_order(channels: int) -> torch.Tensor:
     """int64 [C]: the channel at each K index of the reduce product, and at
     each N index (output column) of the expand. In every 32-channel group,
@@ -196,9 +238,11 @@ def pack_segment(w: SegmentWeights) -> torch.Tensor:
     along N into C/Cb chunks (the reduce's K and the expand's N both in
     `reduce_k_order`). A chunk is B^T [n][k] (Cb x Cb) in 8x8 core matrices
     of 128 contiguous bytes, core (n//8, k//8) at element
-    ((n//8) * (Cb//8) + k//8) * 64, row n%8 of it at (n%8) * 8: the
+    ((n//8) * (Kc//8) + k//8) * 64, row n%8 of it at (n%8) * 8: the
     no-swizzle K-major layout of a wgmma B descriptor, so one bulk copy
-    lands it ready to use."""
+    lands it ready to use. Kc is Cb, or SEGMENT_ITEM_K where the kernel
+    streams a chunk as Cb / Kc items: then item i (K rows i Kc .. i Kc +
+    Kc - 1) is laid out so, at element i * Cb * Kc of the chunk."""
     n_blocks, layers = w.aff.shape[:2]
     C, cb = w.wr.shape[1:]
     if cb % 32 or C % cb:
@@ -210,7 +254,9 @@ def pack_segment(w: SegmentWeights) -> torch.Tensor:
     mats += [w.w9[:, j, o * cb:(o + 1) * cb, :] for j in range(inner) for o in range(9)]
     mats += [we[:, :, nc * cb:(nc + 1) * cb] for nc in range(split)]
     bt = torch.stack(mats, dim=1).transpose(2, 3)  # [nb, chunks, n, k]
-    return _to_cores(bt).contiguous()
+    ik = SEGMENT_ITEM_K.get((C, cb), cb)
+    bt = bt.reshape(*bt.shape[:3], cb // ik, ik).transpose(2, 3)  # [.., item, n, k]
+    return _to_cores(bt).reshape(n_blocks, -1, cb * cb).contiguous()
 
 
 def unpack_segment(packed: torch.Tensor, channels: int, inner: int
@@ -222,7 +268,9 @@ def unpack_segment(packed: torch.Tensor, channels: int, inner: int
     if cb * cb != cc or n_chunks != _chunks_per_block(channels, cb, inner):
         raise ValueError(f"packed {tuple(packed.shape)} is not a segment of "
                          f"C={channels}, inner={inner}")
-    b = _from_cores(packed, cb, cb).transpose(2, 3)  # [nb, chunks, k, n]
+    ik = SEGMENT_ITEM_K.get((channels, cb), cb)
+    b = _from_cores(packed.reshape(n_blocks, n_chunks, cb // ik, cb * ik), cb, ik)
+    b = b.transpose(2, 3).reshape(n_blocks, n_chunks, cb, cb).transpose(2, 3)  # [.., k, n]
     order = reduce_k_order(channels).to(packed.device)
     wr = torch.empty((n_blocks, channels, cb), dtype=packed.dtype, device=packed.device)
     wr[:, order, :] = torch.cat([b[:, kc] for kc in range(split)], dim=1)
@@ -230,6 +278,86 @@ def unpack_segment(packed: torch.Tensor, channels: int, inner: int
     we = torch.empty((n_blocks, cb, channels), dtype=packed.dtype, device=packed.device)
     we[:, :, order] = torch.cat([b[:, split + 9 * inner + nc] for nc in range(split)], dim=2)
     return wr, w9.contiguous(), we
+
+
+def segment_kernel_width(channels: int, bottleneck: int) -> Optional[Tuple[int, int]]:
+    """The (C, Cb) the segment kernel runs a segment of (channels,
+    bottleneck) at: its own width if a kernel takes it, the smallest kernel
+    width if it fits inside it (zero-padded), else None."""
+    if (channels, bottleneck) in SEGMENT_WIDTHS:
+        return channels, bottleneck
+    smallest = SEGMENT_WIDTHS[0]
+    if channels <= smallest[0] and bottleneck <= smallest[1]:
+        return smallest
+    return None
+
+
+def broadcast_kernel_width(channels: int) -> Optional[int]:
+    """The C the broadcast kernel runs a block of `channels` at (as
+    `segment_kernel_width`)."""
+    if channels in BROADCAST_WIDTHS:
+        return channels
+    return BROADCAST_WIDTHS[0] if channels <= BROADCAST_WIDTHS[0] else None
+
+
+def pad_segment(w: SegmentWeights, channels: int, bottleneck: int) -> SegmentWeights:
+    """w zero-padded to (channels, bottleneck): affines a = b = 0 and zero
+    rows and columns of every weight past the real ones (`packed` dropped)."""
+    n_blocks, layers = w.aff.shape[:2]
+    C, cb = w.wr.shape[1:]
+    inner = layers - 2
+    aff = w.aff.new_zeros((n_blocks, layers, 2, channels))
+    aff[..., :C] = w.aff
+    wr = w.wr.new_zeros((n_blocks, channels, bottleneck))
+    wr[:, :C, :cb] = w.wr
+    w9 = w.w9.new_zeros((n_blocks, inner, 9, bottleneck, bottleneck))
+    w9[..., :cb, :cb] = w.w9.reshape(n_blocks, inner, 9, cb, cb)
+    we = w.we.new_zeros((n_blocks, bottleneck, channels))
+    we[:, :cb, :C] = w.we
+    return SegmentWeights(aff, wr, w9.reshape(n_blocks, inner, 9 * bottleneck, bottleneck),
+                          we)
+
+
+def pad_broadcast(w: BroadcastWeights, channels: int) -> BroadcastWeights:
+    """w zero-padded to `channels` (as `pad_segment`; WdT and bd as they are)."""
+    C = w.wf.shape[0]
+
+    def pad(t: torch.Tensor, shape) -> torch.Tensor:
+        out = t.new_zeros(shape)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+
+    return BroadcastWeights(pad(w.f_aff, (2, channels)), pad(w.wf, (channels, channels)),
+                            w.wdt, w.bd, pad(w.l_aff, (2, channels)),
+                            pad(w.wl, (channels, channels)))
+
+
+def with_packed_segment(w: SegmentWeights) -> SegmentWeights:
+    """w with what the segment kernel reads, packed once: `packed` (and
+    `kernel_aff` where the kernel runs it zero-padded); w as it is where no
+    kernel takes its width."""
+    C, cb = w.wr.shape[1:]
+    width = segment_kernel_width(C, cb)
+    if width is None or w.aff.shape[1] - 2 > MAX_INNER:
+        return w
+    if width == (C, cb):
+        return w._replace(packed=pack_segment(w))
+    padded = pad_segment(w, *width)
+    return w._replace(packed=pack_segment(padded), kernel_aff=padded.aff)
+
+
+def with_packed_broadcast(w: BroadcastWeights) -> BroadcastWeights:
+    """w with what the broadcast kernel reads, packed once (as
+    `with_packed_segment`)."""
+    C = w.wf.shape[0]
+    width = broadcast_kernel_width(C)
+    if width is None:
+        return w
+    if width == C:
+        return w._replace(packed=pack_broadcast(w))
+    padded = pad_broadcast(w, width)
+    return w._replace(packed=pack_broadcast(padded),
+                      kernel_aff=torch.stack([padded.f_aff, padded.l_aff]))
 
 
 def broadcast_packed_size(channels: int) -> int:
@@ -242,15 +370,20 @@ def pack_broadcast(w: BroadcastWeights) -> torch.Tensor:
     * Wf as B^T [n][k] (C x C), K (input channels) in `reduce_k_order`, so a
       lane's 16-byte load of x is its conv_first A fragments;
     * Wl as B^T [n][k], N (output channels) in `reduce_k_order`, so a lane's
-      conv_last accumulators are 8 contiguous channels of the residual;
+      conv_last accumulators are 8 contiguous channels of the residual; at
+      the cluster widths (BROADCAST_CLUSTER) its K too, since conv_last's A
+      is then loaded from shared memory as conv_first's is;
     * WdT [384, 384] as the mix's A stream: for each M tile t of 64
       destination rows q and each chunk c of MIX_CHUNK_COLS source columns
-      p, the chunk WdT[64 t:, 32 c:] (64 x 32) at (t * 12 + c) * 2048."""
+      p, the chunk WdT[64 t:, 32 c:] (64 x 32) at (t * 12 + c) * 2048.
+    A cluster block r reads rows 64 r .. 64 r + 63 of Wf's and Wl's B^T,
+    each contiguous (C * 64 elements from 64 r * C)."""
     C = w.wf.shape[0]
     order = reduce_k_order(C).to(w.wf.device)
     ct = MIX_PAD // MIX_CHUNK_COLS
     wdt = w.wdt.reshape(MIX_PAD // 64, 64, ct, MIX_CHUNK_COLS).transpose(1, 2)
-    return torch.cat([_to_cores(w.wf[order].t()), _to_cores(w.wl[:, order].t()),
+    wl = w.wl[order] if C in BROADCAST_CLUSTER else w.wl
+    return torch.cat([_to_cores(w.wf[order].t()), _to_cores(wl[:, order].t()),
                       _to_cores(wdt).flatten()]).contiguous()
 
 
@@ -264,7 +397,8 @@ def unpack_broadcast(packed: torch.Tensor, channels: int
     wf = torch.empty((C, C), dtype=packed.dtype, device=packed.device)
     wf[order] = _from_cores(packed[:C * C], C, C).t()
     wl = torch.empty_like(wf)
-    wl[:, order] = _from_cores(packed[C * C:2 * C * C], C, C).t()
+    k_order = order if C in BROADCAST_CLUSTER else torch.arange(C, device=packed.device)
+    wl[k_order[:, None], order[None, :]] = _from_cores(packed[C * C:2 * C * C], C, C).t()
     ct = MIX_PAD // MIX_CHUNK_COLS
     wdt = (_from_cores(packed[2 * C * C:].reshape(MIX_PAD // 64, ct, -1), 64, MIX_CHUNK_COLS)
            .transpose(1, 2).reshape(MIX_PAD, MIX_PAD))
@@ -286,7 +420,8 @@ def _check_weights(x: torch.Tensor, weights: NamedTuple) -> None:
             continue
         if t.device != x.device:
             raise ValueError(f"weight {name} on {t.device}, x on {x.device}")
-        want = torch.float32 if name in ("aff", "f_aff", "l_aff", "bd") else torch.bfloat16
+        want = (torch.float32 if name in ("aff", "f_aff", "l_aff", "bd", "kernel_aff")
+                else torch.bfloat16)
         if t.dtype != want:
             raise TypeError(f"weight {name} must be {want}, got {t.dtype}")
         if x.device.type == "cuda" and not (t.is_contiguous() and t.data_ptr() % 32 == 0):
@@ -322,10 +457,14 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
     n_blocks, layers = w.aff.shape[:2]
     C, cb = w.wr.shape[1:]
     inner = layers - 2
+    width = segment_kernel_width(C, cb)
+    kc, kcb = width if width is not None else (C, cb)
     shapes = {"aff": (n_blocks, layers, 2, C), "wr": (n_blocks, C, cb),
               "w9": (n_blocks, inner, 9 * cb, cb), "we": (n_blocks, cb, C)}
     if w.packed is not None:
-        shapes["packed"] = (n_blocks, _chunks_per_block(C, cb, inner), cb * cb)
+        shapes["packed"] = (n_blocks, _chunks_per_block(kc, kcb, inner), kcb * kcb)
+    if w.kernel_aff is not None:
+        shapes["kernel_aff"] = (n_blocks, layers, 2, kc)
     for name, want in shapes.items():
         if tuple(getattr(w, name).shape) != want:
             raise ValueError(f"weight {name} is {tuple(getattr(w, name).shape)}, want {want}")
@@ -335,35 +474,46 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
     _check_weights(x, w)
     if x.device.type == "cpu":
         return trunk_segment_reference(x, w)
-    if (C, cb) not in SEGMENT_WIDTHS or inner > MAX_INNER:
+    if width is None or inner > MAX_INNER:
         raise ValueError(f"the segment kernel takes (channels, bottleneck) in "
-                         f"{SEGMENT_WIDTHS} and at most {MAX_INNER} inner layers, "
-                         f"not {(C, cb)} with {inner}")
+                         f"{SEGMENT_WIDTHS} (or within {SEGMENT_WIDTHS[0]}, zero-padded) "
+                         f"and at most {MAX_INNER} inner layers, not {(C, cb)} with {inner}")
     if w.packed is None:
         raise ValueError("the segment kernel reads the packed weights: "
-                         "SegmentWeights(..., packed=pack_segment(w))")
+                         "with_packed_segment(w)")
+    aff = w.aff
+    if width != (C, cb):
+        if w.kernel_aff is None:
+            raise ValueError(f"the segment kernel runs {(C, cb)} zero-padded to {width}: "
+                             f"with_packed_segment(w)")
+        aff = w.kernel_aff
+        x = F.pad(x, (0, kc - C))
     _check_launchable(x)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
-        return out
+        return out[..., :C]
     fn = _segment_kernel()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), w.aff.data_ptr(), w.packed.data_ptr(),
-                x.shape[0], n_blocks, inner, C, cb, _stream(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), aff.data_ptr(), w.packed.data_ptr(),
+                x.shape[0], n_blocks, inner, kc, kcb, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk segment kernel launch failed: cudaError {rc}")
     trunk_segment.launches += 1
-    return out
+    return out if kc == C else out[..., :C].contiguous()
 
 
 def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     """One broadcast block: x [N, 361, C] bf16 -> a new tensor of the same
     shape."""
     C = w.wf.shape[0]
+    width = broadcast_kernel_width(C)
+    kc = width if width is not None else C
     shapes = {"f_aff": (2, C), "wf": (C, C), "wdt": (MIX_PAD, MIX_PAD),
               "bd": (NUM_LOCS,), "l_aff": (2, C), "wl": (C, C)}
     if w.packed is not None:
-        shapes["packed"] = (broadcast_packed_size(C),)
+        shapes["packed"] = (broadcast_packed_size(kc),)
+    if w.kernel_aff is not None:
+        shapes["kernel_aff"] = (2, 2, kc)
     for name, want in shapes.items():
         if tuple(getattr(w, name).shape) != want:
             raise ValueError(f"weight {name} is {tuple(getattr(w, name).shape)}, want {want}")
@@ -371,24 +521,31 @@ def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     _check_weights(x, w)
     if x.device.type == "cpu":
         return trunk_broadcast_reference(x, w)
-    if C not in BROADCAST_WIDTHS:
-        raise ValueError(f"the broadcast kernel takes channels in "
-                         f"{BROADCAST_WIDTHS}, not {C}")
+    if width is None:
+        raise ValueError(f"the broadcast kernel takes channels in {BROADCAST_WIDTHS} "
+                         f"(or up to {BROADCAST_WIDTHS[0]}, zero-padded), not {C}")
     if w.packed is None:
         raise ValueError("the broadcast kernel reads the packed weights: "
-                         "BroadcastWeights(..., packed=pack_broadcast(w))")
+                         "with_packed_broadcast(w)")
+    f_aff, l_aff = w.f_aff, w.l_aff
+    if width != C:
+        if w.kernel_aff is None:
+            raise ValueError(f"the broadcast kernel runs C={C} zero-padded to {width}: "
+                             f"with_packed_broadcast(w)")
+        f_aff, l_aff = w.kernel_aff[0], w.kernel_aff[1]
+        x = F.pad(x, (0, kc - C))
     _check_launchable(x)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
-        return out
+        return out[..., :C]
     fn = _broadcast_kernel()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), w.f_aff.data_ptr(), w.packed.data_ptr(),
-                w.bd.data_ptr(), w.l_aff.data_ptr(), x.shape[0], C, _stream(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), f_aff.data_ptr(), w.packed.data_ptr(),
+                w.bd.data_ptr(), l_aff.data_ptr(), x.shape[0], kc, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk broadcast kernel launch failed: cudaError {rc}")
     trunk_broadcast.launches += 1
-    return out
+    return out if kc == C else out[..., :C].contiguous()
 
 
 trunk_segment.launches = 0

@@ -5,8 +5,10 @@
     python3 probe_trunk.py ply
 
 segment: the segment kernel at the b12c128btl3 widths (C=128, Cb=64, a run
-of 3 blocks of 3 inner layers) and the b8c64 widths (C=64, Cb=32, 3 blocks
-of 2), seeded Gaussian inputs and weights, N in {512, 2880}: max |d| /
+of 3 blocks of 3 inner layers), the b8c64 widths (C=64, Cb=32, 3 blocks
+of 2) and the cluster widths of b12c256btl3 and b14c384btl3 ((256, 128)
+and (384, 192), 3 blocks of 3), seeded Gaussian inputs and weights, N in
+{512, 2880}, with the persistent grid's blocks: max |d| /
 max |ref| against the plain version, and device time per call (CUDA events,
 median of 5 runs of 10 calls). With --baseline, the segment kernel of that
 source file, which must have the C interface of the earlier wmma segment
@@ -15,10 +17,13 @@ csrc/trunk_segment.cu: p3_trunk_segment(x, out, aff, wr, w9, we, N,
 n_blocks, inner, C, Cb, stream)), is timed in turns with this one:
 baseline, kernel, kernel, baseline. Then a build of csrc/trunk_segment.cu
 with -DP3_SEGMENT_PROFILE gives the clock cycles per board-block of each
-phase (consumer warpgroup 0, warp 0) at the b12c128btl3 widths.
+phase (consumer warpgroup 0, warp 0; of rank 0 in a cluster) at every
+width, and for the cluster kernel the cycles spent waiting for weight
+items.
 
-broadcast: the broadcast kernel at the b12c128btl3 (C=128) and b8c64
-(C=64) widths, seeded Gaussian inputs and weights, N in {512, 2880}: max
+broadcast: the broadcast kernel at the b12c128btl3 (C=128), b8c64 (C=64)
+and cluster (C=256, 384) widths, seeded Gaussian inputs and weights, N in
+{512, 2880}, with the persistent grid's blocks: max
 |d| / max |ref| against the plain version and device time per call (CUDA
 events, median of 5 runs of 10 calls). With --baseline, the broadcast
 kernel of that source file, which must have the C interface of the earlier
@@ -27,8 +32,9 @@ p3_trunk_broadcast(x, out, f_aff, wf, wdt [368, 368], bd, l_aff, wl, N, C,
 stream)), is timed in turns with this one: baseline, kernel, kernel,
 baseline. Then a build of csrc/trunk_broadcast.cu with
 -DP3_BROADCAST_PROFILE gives the clock cycles per board of each phase
-(consumer warpgroup 0, warp 0) at C=128, among them the wait for the
-previous board's mix to free the single-buffered m.
+(consumer warpgroup 0, warp 0; of rank 0 in a cluster) at every width,
+among them, at C <= 128, the wait for the previous board's mix to free the
+single-buffered m.
 
 ply: chip_smoke.py's self-play step (the bench mix, b12c128btl3 bf16 with
 seeded weights, B=256 fresh games) with the fused trunk and with
@@ -67,12 +73,16 @@ from p3achygo_tpu_torch.selfplay.loop import (
     selfplay_step_tiered,
 )
 
-WIDTHS = ((128, 64, 3), (64, 32, 2))  # (C, Cb, inner), 3 blocks each
-BROADCAST_WIDTHS = (128, 64)
+WIDTHS = ((128, 64, 3), (64, 32, 2), (256, 128, 3), (384, 192, 3))  # (C, Cb, inner), 3 blocks
+BROADCAST_WIDTHS = (128, 64, 256, 384)
 N_TIMED = (512, 2880)
 PHASES = ("block-0 reduce", "3x3 products", "3x3 epilogues", "expand (+ next reduce)")
+CLUSTER_PHASES = ("reduce + store + exchange", "3x3 products", "3x3 exchanges + stores",
+                  "expand + barrier")
 BROADCAST_PHASES = ("conv_first", "wait for m free", "barrier after conv_first",
                     "mix products", "mix epilogue + conv_last + store")
+CLUSTER_BROADCAST_PHASES = ("exchange + act(x) + exchange", "conv_first", "exchange",
+                            "mix products", "act(z) + exchange + conv_last + store")
 
 
 def log(msg: str) -> None:
@@ -101,7 +111,7 @@ def seeded_segment(C: int, cb: int, inner: int, gen: torch.Generator):
     w = ops.SegmentWeights(aff.contiguous(), (n(3, C, cb) / C ** 0.5).bfloat16(),
                            (n(3, inner, 9 * cb, cb) / (9 * cb) ** 0.5).bfloat16(),
                            (n(3, cb, C) / cb ** 0.5).bfloat16())
-    return w._replace(packed=ops.pack_segment(w))
+    return ops.with_packed_segment(w)
 
 
 def seeded_broadcast(C: int, gen: torch.Generator):
@@ -113,7 +123,7 @@ def seeded_broadcast(C: int, gen: torch.Generator):
     wdt[:361, :361] = n(361, 361) / 19.0
     w = ops.BroadcastWeights(aff(), (n(C, C) / C ** 0.5).bfloat16(), wdt.bfloat16(),
                              0.1 * n(361), aff(), (n(C, C) / C ** 0.5).bfloat16())
-    return w._replace(packed=ops.pack_broadcast(w))
+    return ops.with_packed_broadcast(w)
 
 
 def event_ms(fn, reps: int = 5, inner: int = 10) -> float:
@@ -138,8 +148,9 @@ def call(fn, x, out, args) -> None:
 
 
 def phase_cycles(lib: ctypes.CDLL, name: str, fn, x, out, args, n: int):
-    """Per-unit clock cycles of each of the n - 1 phases of a profile build
-    (counter n - 1 counts the units), over 10 calls after a warm-up."""
+    """Per-unit clock cycles of each of a profile build's n counters but the
+    one that counts the units (the segment kernel's counter 4 of 6, the
+    broadcast kernel's last), over 10 calls after a warm-up."""
     read = getattr(lib, name)
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
@@ -152,7 +163,15 @@ def phase_cycles(lib: ctypes.CDLL, name: str, fn, x, out, args, n: int):
     cycles = (ctypes.c_ulonglong * n)()
     if read(cycles, 0) != 0:
         raise RuntimeError("reading the phase clocks failed")
-    return [c / cycles[n - 1] for c in cycles[:n - 1]]
+    units = 4 if n == 6 and name.startswith("p3_trunk_segment") else n - 1
+    return [c / cycles[units] for i, c in enumerate(cycles) if i != units]
+
+
+def grid_blocks(lib: ctypes.CDLL, name: str, *widths: int) -> int:
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * len(widths)
+    fn.restype = ctypes.c_int
+    return fn(*widths)
 
 
 def phase_line(names, per) -> str:
@@ -186,14 +205,16 @@ def probe_segment(baseline: str | None, smi: str) -> None:
                 else:
                     t = event_ms(kernel)
                     row += f"; kernel {t:.4f} ms ({gflop / t:.1f} TFLOP/s)"
+                row += f"; grid {grid_blocks(prof_lib, 'p3_trunk_segment_grid', C, cb)} blocks"
                 log(f"segment: {row} [{smi}]")
-                if C != WIDTHS[0][0]:
-                    continue
                 args = (w.aff.data_ptr(), w.packed.data_ptr(), N, 3, inner, C, cb)
                 per = phase_cycles(prof_lib, "p3_trunk_segment_phase_cycles", prof_fn, x, out,
-                                   args, 5)
-                log(f"segment phases C={C} N={N}, clock cycles per board-block: "
-                    f"{phase_line(PHASES, per)} [{smi}]")
+                                   args, 6)
+                cluster = (C, cb) in ops.SEGMENT_CLUSTER
+                line = phase_line(CLUSTER_PHASES if cluster else PHASES, per[:4])
+                if cluster:
+                    line += f"; of them waiting for weight items {per[4]:.0f}"
+                log(f"segment phases C={C} N={N}, clock cycles per board-block: {line} [{smi}]")
 
 
 def probe_broadcast(baseline: str | None, smi: str) -> None:
@@ -225,15 +246,16 @@ def probe_broadcast(baseline: str | None, smi: str) -> None:
                 else:
                     t = event_ms(kernel)
                     row += f"; kernel {t:.4f} ms ({gflop / t:.1f} TFLOP/s)"
+                row += f"; grid {grid_blocks(prof_lib, 'p3_trunk_broadcast_grid', C)} blocks"
                 log(f"broadcast: {row} [{smi}]")
-                if C != BROADCAST_WIDTHS[0]:
-                    continue
                 args = (w.f_aff.data_ptr(), w.packed.data_ptr(), w.bd.data_ptr(),
                         w.l_aff.data_ptr(), N, C)
                 per = phase_cycles(prof_lib, "p3_trunk_broadcast_phase_cycles", prof_fn, x,
                                    out, args, 6)
+                names = (CLUSTER_BROADCAST_PHASES if C in ops.BROADCAST_CLUSTER
+                         else BROADCAST_PHASES)
                 log(f"broadcast phases C={C} N={N}, clock cycles per board: "
-                    f"{phase_line(BROADCAST_PHASES, per)} [{smi}]")
+                    f"{phase_line(names, per)} [{smi}]")
 
 
 def ply_run(eval_fn, seed: int):

@@ -22,7 +22,9 @@ from p3achygo_tpu_torch.game.board import from_stones, legal_mask_batch, map_sta
 from p3achygo_tpu_torch.game.scoring import compute_pass_alive
 from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
 from p3achygo_tpu_torch.models.blocks import mish
+from p3achygo_tpu_torch.models.config import ModelConfig
 from p3achygo_tpu_torch.models.losses import LossCoeffs
+from p3achygo_tpu_torch.models.model import build_model, init_params
 from p3achygo_tpu_torch.nn.serve_q import ServeQNet, calibrate
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
 from p3achygo_tpu_torch.ops import conv_i8 as ci
@@ -91,17 +93,24 @@ def test_callers_on_card_agree_with_cpu(boards):
     assert torch.equal(scalars.cpu(), scalars_cpu)
 
 
+# Every width the trunk kernels take: (64, 32) / 64 and (128, 64) / 128 a
+# board a block; (256, 128) / 256 and (384, 192) / 384 a board over a
+# cluster; tiny (16, 8) / 16 through the smallest kernels zero-padded.
+TRUNK_NAMES = ["b8c64", "b12c128btl3", "b12c256btl3", "b14c384btl3", "tiny"]
+CLUSTER_NAMES = ["b12c256btl3", "b14c384btl3"]
+
+
 @pytest.fixture(scope="module")
 def trunks(device):
     """{config: trunk_fn} with seeded random weights and perturbed BN."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(4)
-    return {name: build_trunk_fn(m.config, m) for name in ("b8c64", "b12c128btl3")
+    return {name: build_trunk_fn(m.config, m) for name in TRUNK_NAMES
             for m in [seeded_model(name, device, gen)]}
 
 
-@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
+@pytest.mark.parametrize("name", TRUNK_NAMES)
 @pytest.mark.parametrize("N", [1, 7, 64, 133, 2880])
 def test_trunk_kernels_equal_plain(trunks, device, name, N):
     """Each kernel call against its plain version on the same input; only
@@ -124,7 +133,27 @@ def test_trunk_kernels_equal_plain(trunks, device, name, N):
         x = want
 
 
-@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
+@pytest.mark.parametrize("name", CLUSTER_NAMES)
+@pytest.mark.parametrize("N", [1, 2, 5, 13])
+def test_cluster_kernels_below_and_off_the_cluster_size(trunks, device, name, N):
+    """The cluster kernels (2 blocks a segment cluster at C = 256, 6 at 384;
+    4 and 6 a broadcast cluster) on fewer boards than a cluster has blocks
+    and on counts that are no multiple of it: every board computed, equal
+    to the plain version."""
+    fn = trunks[name]
+    channels = fn.segments[0].weights.wr.shape[1]
+    gen = torch.Generator(device=device).manual_seed(20 + N)
+    x = torch.randn((N, 361, channels), generator=gen, device=device).to(torch.bfloat16)
+    for kern, plain, w in fn.segments:
+        got = kern(x, w)
+        want = plain(x, w)
+        torch.cuda.synchronize()
+        for b in range(N):
+            assert rel_err(got[b], want[b])[1] <= KERNEL_TOL, (kern.__name__, b)
+        x = want
+
+
+@pytest.mark.parametrize("name", TRUNK_NAMES)
 def test_segment_kernel_is_deterministic(trunks, device, name):
     """No atomics: two calls on the same input give identical bits."""
     seg = trunks[name].segments[0]
@@ -137,9 +166,10 @@ def test_segment_kernel_is_deterministic(trunks, device, name):
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
-def test_segment_launches_count_one_per_call(trunks, device):
-    w = trunks["b12c128btl3"].segments[0].weights
-    x = torch.zeros((5, 361, 128), dtype=torch.bfloat16, device=device)
+@pytest.mark.parametrize("name", TRUNK_NAMES)
+def test_segment_launches_count_one_per_call(trunks, device, name):
+    w = trunks[name].segments[0].weights
+    x = torch.zeros((5, 361, w.wr.shape[1]), dtype=torch.bfloat16, device=device)
     before = tk.trunk_segment.launches
     for i in range(1, 4):
         tk.trunk_segment(x, w)
@@ -147,7 +177,7 @@ def test_segment_launches_count_one_per_call(trunks, device):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3"])
+@pytest.mark.parametrize("name", TRUNK_NAMES)
 def test_broadcast_kernel_is_deterministic(trunks, device, name):
     """No atomics: two calls on the same input give identical bits."""
     bc = next(s for s in trunks[name].segments if s.kernel is tk.trunk_broadcast)
@@ -160,9 +190,10 @@ def test_broadcast_kernel_is_deterministic(trunks, device, name):
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
-def test_broadcast_launches_count_one_per_call(trunks, device):
-    bc = next(s for s in trunks["b12c128btl3"].segments if s.kernel is tk.trunk_broadcast)
-    x = torch.zeros((5, 361, 128), dtype=torch.bfloat16, device=device)
+@pytest.mark.parametrize("name", TRUNK_NAMES)
+def test_broadcast_launches_count_one_per_call(trunks, device, name):
+    bc = next(s for s in trunks[name].segments if s.kernel is tk.trunk_broadcast)
+    x = torch.zeros((5, 361, bc.weights.wf.shape[0]), dtype=torch.bfloat16, device=device)
     before = tk.trunk_broadcast.launches
     for i in range(1, 4):
         tk.trunk_broadcast(x, bc.weights)
@@ -199,16 +230,30 @@ def test_trunk_rejects_non_contiguous(trunks, device):
 
 
 def test_trunk_unsupported_width_raises(device):
-    """`tiny` (C=16, Cb=8) is a btl trunk the kernels do not take: the
-    wrappers raise and nothing falls back to the plain version."""
-    m = seeded_model("tiny", device, torch.Generator().manual_seed(0))
-    fn = build_trunk_fn(m.config, m)
+    """C = 512 (Cb = 256) is a btl width no trunk kernel takes: building
+    the fused trunk on the card raises, naming it, and the wrappers given
+    its weights raise; nothing is launched and nothing falls back to the
+    plain version. (tiny, which this test held before the kernels took it
+    zero-padded, is in TRUNK_NAMES.)"""
+    cfg = ModelConfig(blocks=2, broadcast_interval=2, inner_bottleneck_layers=1,
+                      channels=512, bottleneck_channels=256, head_channels=8, c_val=8)
+    m = build_model(cfg, torch.float32, device)
+    init_params(m, torch.Generator().manual_seed(0))
     before = (tk.trunk_segment.launches, tk.trunk_broadcast.launches)
+    with pytest.raises(ValueError, match="512"):
+        build_trunk_fn(cfg, m)
+    with pytest.raises(ValueError, match="512"):
+        make_eval_fn(m, use_fused_trunk=True)
+    cpu = build_model(cfg, torch.float32, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    segments = build_trunk_fn(cfg, cpu).segments
+    seg = tk.SegmentWeights(*[t.to(device) for t in segments[0].weights[:4]])
+    bc = tk.BroadcastWeights(*[t.to(device) for t in segments[1].weights[:6]])
+    x = torch.zeros((2, 361, 512), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError):
-        fn(torch.zeros((2, 19, 19, 16), device=device))
+        tk.trunk_segment(x, seg)
     with pytest.raises(ValueError):
-        tk.trunk_broadcast(torch.zeros((2, 361, 16), dtype=torch.bfloat16,
-                                       device=device), fn.segments[1].weights)
+        tk.trunk_broadcast(x, bc)
     assert (tk.trunk_segment.launches, tk.trunk_broadcast.launches) == before
 
 

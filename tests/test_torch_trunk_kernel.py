@@ -8,6 +8,7 @@ round to bf16 at exactly the Pallas kernels' points; what differs from JAX
 is the float32 summation order, which flips a rare bf16 rounding by one
 unit and propagates through the residual stream. The tolerances below say
 how far that carries."""
+import dataclasses
 import functools
 import os
 
@@ -16,10 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from p3achygo_tpu.mcts import gumbel as jg
 from p3achygo_tpu.models import build_model as jax_build
 from p3achygo_tpu.models import get_config as jax_get_config
+from p3achygo_tpu.models.config import ModelConfig as JaxModelConfig
 from p3achygo_tpu.nn import trunk_kernel as jtk
 from p3achygo_tpu.nn import trunk_kernel2 as jtk2
 from p3achygo_tpu_torch.bridge import load_flax_variables
@@ -28,7 +31,7 @@ from p3achygo_tpu_torch.game.board import legal_mask_batch, new_state, superko_v
 from p3achygo_tpu_torch.mcts import gumbel as tg
 from p3achygo_tpu_torch.mcts.tree import make_tree
 from p3achygo_tpu_torch.models.blocks import mish, mish_f32
-from p3achygo_tpu_torch.models.config import ModelConfig, get_config
+from p3achygo_tpu_torch.models.config import CONFIG_OPTIONS, ModelConfig, get_config
 from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
 from p3achygo_tpu_torch.nn import build_trunk_fn, build_trunk_fn_v2, trunk_supported
 from p3achygo_tpu_torch.nn import trunk_kernel as ttk
@@ -156,6 +159,114 @@ def test_plain_trunk_matches_pallas_interpret(name, version):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     rel = _rel(got.float().numpy(), want)
     assert rel < TRUNK_TOL[version], rel
+
+
+# The widths of the cluster kernels at reduced depth: one bottleneck block
+# (3 inner layers) and one broadcast block.
+WIDE = {"c256": (256, 128), "c384": (384, 192)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bridged_wide(width):
+    """(JAX config, port config, numpy variables with perturbed BN, port
+    model) at WIDE[width], float32."""
+    C, cb = WIDE[width]
+    fields = dict(blocks=2, broadcast_interval=2, inner_bottleneck_layers=3, channels=C,
+                  bottleneck_channels=cb, head_channels=8, c_val=16)
+    jcfg, tcfg = JaxModelConfig(**fields), ModelConfig(**fields)
+    v = numpy_vars(_jax_init(jax_build(jcfg), 3), np.random.default_rng(0))
+    return jcfg, tcfg, v, load_flax_variables(build_model(tcfg, device="cpu"), v)
+
+
+@pytest.mark.parametrize("width", list(WIDE))
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_plain_trunk_matches_pallas_interpret_wide(width, version):
+    """The widths of b12c256btl3 / b14c384btl3 (the segment kernel's
+    (256, 128) and (384, 192), the broadcast kernel's 256 and 384), whose
+    kernels split a board over a cluster: on the CPU the wrappers run the
+    plain versions, held to the Pallas trunks as at the smaller widths."""
+    jcfg, tcfg, v, tm = _bridged_wide(width)
+    x = _trunk_input(2, tcfg.channels, seed=5)
+    if version == "v1":
+        jfn = jtk.build_trunk_fn(jcfg, v, n_tile=2, interpret=True)
+        tfn = build_trunk_fn(tcfg, tm)
+        assert [s.kernel for s in tfn.segments] == [ops.trunk_segment, ops.trunk_broadcast]
+        assert all(s.weights.packed is not None and s.weights.kernel_aff is None
+                   for s in tfn.segments)
+    else:
+        jfn = jtk2.build_trunk_fn_v2(jcfg, v, interpret=True)
+        tfn = build_trunk_fn_v2(tcfg, tm)
+    want = np.asarray(jax.jit(jfn)(jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    got = tfn(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    rel = _rel(got.float().numpy(), want)
+    assert rel < TRUNK_TOL[version], rel
+
+
+def test_padded_plain_versions_equal_unpadded():
+    """tiny (C = 16, Cb = 8) runs on the card as the smallest kernels,
+    (64, 32) and 64, zero-padded: its packed stream is the padded weights'
+    and the padded affines are a = b = 0. Through the plain versions the
+    padded block equals the unpadded one to a bf16 unit (the float32 sums
+    gain +0 terms and may be taken in another order) and its padded
+    channels stay exactly 0."""
+    _, _, tm = _bridged("tiny")
+    fn = build_trunk_fn(get_config("tiny"), tm)
+    x = torch.from_numpy(_trunk_input(3, 16, seed=6)).reshape(3, 361, 16).bfloat16()
+    for seg in fn.segments:
+        w = seg.weights
+        if seg.kernel is ops.trunk_segment:
+            C, cb = w.wr.shape[1:]
+            kc, kcb = ops.segment_kernel_width(C, cb)
+            assert (kc, kcb) == (64, 32)
+            padded = ops.pad_segment(w, kc, kcb)
+            assert torch.equal(w.kernel_aff, padded.aff)
+            assert not bool(padded.aff[..., C:].any())
+            inner = w.aff.shape[1] - 2
+            for got, want in zip(ops.unpack_segment(w.packed, kc, inner),
+                                 (padded.wr, padded.w9, padded.we)):
+                assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        else:
+            C = w.wf.shape[0]
+            kc = ops.broadcast_kernel_width(C)
+            assert kc == 64
+            padded = ops.pad_broadcast(w, kc)
+            assert torch.equal(w.kernel_aff, torch.stack([padded.f_aff, padded.l_aff]))
+            for got, want in zip(ops.unpack_broadcast(w.packed, kc),
+                                 (padded.wf, padded.wdt, padded.wl)):
+                assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        want = seg.reference(x, w)
+        got = seg.reference(F.pad(x, (0, kc - C)), padded)
+        assert not bool(got[..., C:].any())
+        rel = _rel(got[..., :C].float().numpy(), want.float().numpy())
+        assert rel <= 2.0 ** -8, rel
+        x = want
+
+
+def test_kernel_width_check_names_the_width():
+    """A trunk on the card whose width no kernel takes raises when it is
+    built, naming the width; every btl configuration of the registry
+    passes. On the CPU the same trunk builds and runs its plain versions."""
+    cfg = ModelConfig(blocks=2, broadcast_interval=2, inner_bottleneck_layers=1,
+                      channels=512, bottleneck_channels=256, head_channels=8, c_val=8)
+    with pytest.raises(ValueError, match="512"):
+        ttk.check_kernel_widths(cfg, torch.device("cuda"))
+    with pytest.raises(ValueError, match="512"):
+        ttk.check_kernel_widths(cfg, torch.device("cuda"), broadcast=False)
+    deep = dataclasses.replace(get_config("b12c256btl3"), inner_bottleneck_layers=4)
+    with pytest.raises(ValueError, match="4 inner"):
+        ttk.check_kernel_widths(deep, torch.device("cuda"))
+    btl = [n for n in CONFIG_OPTIONS if get_config(n).trunk_block_type == "btl"]
+    assert {"tiny", "b5c256btl3", "b12c256btl3", "b14c384btl3"} <= set(btl)
+    for name in btl:
+        ttk.check_kernel_widths(get_config(name), torch.device("cuda"))
+    ttk.check_kernel_widths(cfg, torch.device("cpu"))
+    tm = build_model(cfg, device="cpu")
+    init_params(tm, torch.Generator().manual_seed(1))
+    fn = build_trunk_fn(cfg, tm)
+    assert all(s.weights.packed is None for s in fn.segments)
+    x = torch.from_numpy(_trunk_input(1, 512, seed=2))
+    assert torch.equal(fn(x), ttk.trunk_reference(x, fn.segments))
 
 
 def test_plain_trunk_v1_equals_reference_and_v2_segments():

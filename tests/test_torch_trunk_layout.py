@@ -2,8 +2,11 @@
 CPU: the packed weight stream (`pack_segment`) unpacks to the weights it
 came from and puts each element where the wgmma B descriptor reads it, the
 reduce's K order matches what each lane loads, and the M tiling of the
-zero-haloed grid covers the board exactly once with every tap in bounds.
-All checks are exact."""
+zero-haloed grid covers the board exactly once with every tap in bounds;
+at the cluster widths, each block's window of the grid holds every tap of
+its tiles and its neighbours send it every position it does not own, and
+each block's slice of the weights sits where its descriptors read. All
+checks are exact."""
 import numpy as np
 import pytest
 import torch
@@ -28,10 +31,13 @@ def _weights(C, cb, inner, n_blocks, seed):
                               (t(n_blocks, cb, C) / cb ** 0.5).bfloat16())
 
 
-def _core_offset(n, k, cb):
-    """Element offset of B^T[n][k] in a packed chunk: 8x8 core matrices of
-    128 bytes, core (n//8, k//8) at ((n//8) * (cb//8) + k//8) * 64."""
-    return ((n // 8) * (cb // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8
+def _core_offset(n, k, cb, ik):
+    """Element offset of B^T[n][k] in a packed chunk of items of ik K rows
+    (ik = cb: one item): item k//ik at (k//ik) * cb * ik, in it 8x8 core
+    matrices of 128 bytes, core (n//8, kk//8) at ((n//8) * (ik//8) + kk//8)
+    * 64 (kk = k % ik)."""
+    item, kk = k // ik, k % ik
+    return item * cb * ik + ((n // 8) * (ik // 8) + kk // 8) * 64 + (n % 8) * 8 + kk % 8
 
 
 WIDTH_CASES = [(C, cb, inner, nb) for C, cb in ops.SEGMENT_WIDTHS
@@ -59,15 +65,17 @@ def test_packed_weights_unpack_to_the_originals(C, cb, inner, nb):
 def test_packed_chunks_sit_where_the_descriptor_reads(C, cb):
     """Chunk order per block: the reduce by K, one chunk per 3x3 tap, the
     expand by N (the reduce's K and the expand's N in reduce_k_order); each
-    chunk B^T [n][k] in core matrices."""
+    chunk B^T [n][k] in core matrices, by items of SEGMENT_ITEM_K rows of K
+    at (384, 192)."""
     inner, split = 2, C // cb
+    ik = ops.SEGMENT_ITEM_K.get((C, cb), cb)
     w = _weights(C, cb, inner, 2, seed=3)
     packed = ops.pack_segment(w).float()
     order = ops.reduce_k_order(C)
     rng = np.random.default_rng(4)
     for blk in range(2):
         for n, k in rng.integers(0, cb, (40, 2)):
-            off = _core_offset(n, k, cb)
+            off = _core_offset(n, k, cb, ik)
             for kc in range(split):
                 assert packed[blk, kc, off] == w.wr[blk, order[kc * cb + k], n].float()
             for j in range(inner):
@@ -79,7 +87,7 @@ def test_packed_chunks_sit_where_the_descriptor_reads(C, cb):
                     w.we[blk, k, order[nc * cb + n]].float()
 
 
-@pytest.mark.parametrize("C", [64, 128])
+@pytest.mark.parametrize("C", [64, 128, 256, 384])
 def test_reduce_k_order_matches_the_lanes_loads(C):
     """Lane t4 of a quad loads channels 32q + 8 t4 .. +7 of a row as four
     bf16 pairs: logical k (2 t4, 2 t4 + 1) and (2 t4 + 8, 2 t4 + 9) of
@@ -130,10 +138,12 @@ def test_tap_addresses_stay_in_the_haloed_buffer():
         (a + 1) * 21 + b + 1 for a in range(19) for b in range(19))
 
 
-@pytest.mark.parametrize("name,packed", [("b8c64", True), ("tiny", False)])
-def test_trunk_weights_carry_the_packed_stream(name, packed):
-    """build_trunk_fn packs each segment once for the widths the kernel
-    takes; on the CPU the wrapper still runs the plain version."""
+@pytest.mark.parametrize("name,own_width", [("b8c64", True), ("tiny", False)])
+def test_trunk_weights_carry_the_packed_stream(name, own_width):
+    """build_trunk_fn packs each segment once: at its own width where a
+    kernel takes it, zero-padded to the smallest kernel width below it
+    (tiny), with the padded affines; on the CPU the wrapper still runs the
+    plain version."""
     cfg = get_config(name)
     model = build_model(cfg, device="cpu")
     init_params(model, torch.Generator().manual_seed(0))
@@ -141,11 +151,16 @@ def test_trunk_weights_carry_the_packed_stream(name, packed):
     segs = [s.weights for s in fn.segments if s.kernel is ops.trunk_segment]
     assert segs
     for w in segs:
-        assert (w.packed is not None) == packed
-        if packed:
+        assert w.packed is not None
+        assert (w.kernel_aff is None) == own_width
+        if own_width:
             assert torch.equal(w.packed, ops.pack_segment(w))
-            x = torch.zeros((1, 361, cfg.channels), dtype=torch.bfloat16)
-            assert torch.equal(ops.trunk_segment(x, w), ops.trunk_segment_reference(x, w))
+        else:
+            padded = ops.pad_segment(w, *ops.SEGMENT_WIDTHS[0])
+            assert torch.equal(w.packed, ops.pack_segment(padded))
+            assert torch.equal(w.kernel_aff, padded.aff)
+        x = torch.zeros((1, 361, cfg.channels), dtype=torch.bfloat16)
+        assert torch.equal(ops.trunk_segment(x, w), ops.trunk_segment_reference(x, w))
 
 
 def test_wrapper_rejects_a_packed_stream_of_the_wrong_shape():
@@ -205,17 +220,19 @@ def test_broadcast_packed_chunks_sit_where_the_descriptor_reads(C):
     packed image with the kernel's descriptors (w_desc: LBO 128, SBO C/8 *
     128; wdt_desc: LBO 128, SBO 512 within a 64 x 32 chunk), is the operand
     the product needs: B^T [n][k] of Wf with K in reduce_k_order, of Wl with
-    N in reduce_k_order, and A [q][p] of WdT."""
+    N in reduce_k_order (and K, at the cluster widths), and A [q][p] of
+    WdT."""
     w = _bc_weights(C, seed=C + 1)
     img = ops.pack_broadcast(w).view(torch.int16)
     order = ops.reduce_k_order(C)
+    l_order = order if C in ops.BROADCAST_CLUSTER else torch.arange(C)
     wf, wl, wdt = (t.view(torch.int16) for t in (w.wf, w.wl, w.wdt))
     for ks in range(C // 16):
         k = torch.arange(16 * ks, 16 * ks + 16)
         assert torch.equal(_desc_read(img, ks * 256, 128, C // 8 * 128, C),
                            wf[order[k]].t())
         assert torch.equal(_desc_read(img[C * C:], ks * 256, 128, C // 8 * 128, C),
-                           wl[k][:, order].t())
+                           wl[l_order[k]][:, order].t())
     stream = img[2 * C * C:]
     per_tile = ops.MIX_PAD // ops.MIX_CHUNK_COLS
     for t in range(6):
@@ -227,9 +244,10 @@ def test_broadcast_packed_chunks_sit_where_the_descriptor_reads(C):
                                    wdt[64 * t:64 * t + 64, p:p + 16])
 
 
-@pytest.mark.parametrize("C", ops.BROADCAST_WIDTHS)
+@pytest.mark.parametrize("C", [64, 128])
 def test_broadcast_m_stores_meet_the_mix_descriptor(C):
-    """conv_first's accumulators (element d[4j + 2h + e] of lane l of warp
+    """(C = 64 is also the 64-channel slice of m that each block of a
+    cluster kernel stores, at C = 256 and 384.) conv_first's accumulators (element d[4j + 2h + e] of lane l of warp
     wq: row 64 T + 16 wq + l//4 + 8h, column 8j + 2(l%4) + e), stored by
     `stmatrix .trans` at the kernel's lane addresses (st_addr), give an
     image of m from which the mix's descriptor (m_desc: LBO 128, SBO 48 *
@@ -260,11 +278,13 @@ def test_broadcast_m_stores_meet_the_mix_descriptor(C):
                            m[16 * s:16 * s + 16].t())
 
 
-@pytest.mark.parametrize("name,packed", [("b8c64", True), ("b12c128btl3", True),
-                                         ("tiny", False)])
-def test_broadcast_weights_carry_the_packed_stream(name, packed):
-    """build_trunk_fn packs each broadcast block once for the widths the
-    kernel takes; on the CPU the wrapper still runs the plain version."""
+@pytest.mark.parametrize("name,own_width", [("b8c64", True), ("b12c128btl3", True),
+                                            ("tiny", False)])
+def test_broadcast_weights_carry_the_packed_stream(name, own_width):
+    """build_trunk_fn packs each broadcast block once: at its own width
+    where a kernel takes it, zero-padded to the smallest kernel width below
+    it (tiny), with the padded affines; on the CPU the wrapper still runs
+    the plain version."""
     cfg = get_config(name)
     model = build_model(cfg, device="cpu")
     init_params(model, torch.Generator().manual_seed(0))
@@ -273,11 +293,16 @@ def test_broadcast_weights_carry_the_packed_stream(name, packed):
     assert bcs
     for w in bcs:
         assert w.wdt.shape == (ops.MIX_PAD, ops.MIX_PAD) == (384, 384)
-        assert (w.packed is not None) == packed
-        if packed:
+        assert w.packed is not None
+        assert (w.kernel_aff is None) == own_width
+        if own_width:
             assert torch.equal(w.packed, ops.pack_broadcast(w))
-            x = torch.zeros((1, 361, cfg.channels), dtype=torch.bfloat16)
-            assert torch.equal(ops.trunk_broadcast(x, w), ops.trunk_broadcast_reference(x, w))
+        else:
+            padded = ops.pad_broadcast(w, ops.BROADCAST_WIDTHS[0])
+            assert torch.equal(w.packed, ops.pack_broadcast(padded))
+            assert torch.equal(w.kernel_aff, torch.stack([padded.f_aff, padded.l_aff]))
+        x = torch.zeros((1, 361, cfg.channels), dtype=torch.bfloat16)
+        assert torch.equal(ops.trunk_broadcast(x, w), ops.trunk_broadcast_reference(x, w))
 
 
 def test_broadcast_wrapper_rejects_a_packed_stream_of_the_wrong_shape():
@@ -287,3 +312,101 @@ def test_broadcast_wrapper_rejects_a_packed_stream_of_the_wrong_shape():
         ops.trunk_broadcast(torch.zeros((1, 361, 64), dtype=torch.bfloat16), w)
     with pytest.raises(ValueError):
         ops.unpack_broadcast(w.packed, 64)
+
+
+# ---- the cluster kernels (C = 256 and 384) ---------------------------------
+
+@pytest.mark.parametrize("C,cb", list(ops.SEGMENT_CLUSTER))
+def test_cluster_windows_hold_every_tap(C, cb):
+    """A segment cluster of R blocks: block r owns the TB = 6/R tiles from
+    r*TB; the windows (`cluster_window`) fit the kernel's buffers, hold
+    every tap row of the block's tiles (pad rows read position 360), every
+    board position such a tap reads is owned by the block or by a neighbour
+    r +- 1, and that neighbour's window holds the position's row, so its
+    owner stores it there. Halo rows inside a window are never written."""
+    R = ops.SEGMENT_CLUSTER[(C, cb)]
+    tb = 6 // R
+    tiles = ops.segment_tile_positions()
+    owner = {}
+    for r in range(R):
+        for p in tiles[r * tb:(r + 1) * tb].flatten().tolist():
+            if p >= 0:
+                owner[p] = r
+    assert sorted(owner) == list(range(361))
+    windows = [ops.cluster_window(r, tb) for r in range(R)]
+    rows = max(n for _, n in windows)
+    assert rows == {2: 13, 3: 10}[R] * 21  # the kernel's kWinRows
+    for r, (first, n) in enumerate(windows):
+        mine = tiles[r * tb:(r + 1) * tb].flatten()
+        p = torch.where(mine >= 0, mine, 360)
+        for shift in ops.TAP_SHIFTS:
+            row = ops.halo_row(p) + shift
+            assert int(row.min()) >= first and int(row.max()) < first + n
+            hi, hj = row // 21, row % 21
+            inside = (hi >= 1) & (hi <= 19) & (hj >= 1) & (hj <= 19)
+            for g in row[inside].tolist():
+                q = (g // 21 - 1) * 19 + g % 21 - 1
+                src = owner[q]
+                assert abs(src - r) <= 1
+                if src != r:
+                    assert first <= ops.halo_row(torch.tensor(q)) < first + n
+
+
+@pytest.mark.parametrize("C,cb", list(ops.SEGMENT_CLUSTER))
+def test_cluster_items_sit_where_the_descriptor_reads(C, cb):
+    """The cluster kernel streams each chunk as items of ik K rows (the
+    whole chunk at (256, 128), a third at (384, 192)) and every consumer
+    group (a tile over all cb output columns) reads every item: k16 step kk
+    of item i, read with the item's descriptor (LBO 128, SBO ik/8 * 128),
+    is B^T rows 0 .. cb - 1, K rows i ik + 16 kk .. +15; the rows of any
+    64-column slice n0 sit n0 * ik elements into the item."""
+    ns = 64
+    ik = ops.SEGMENT_ITEM_K.get((C, cb), cb)
+    w = _weights(C, cb, 1, 1, seed=7)
+    packed = ops.pack_segment(w).view(torch.int16)
+    wr, w9, we = (t.view(torch.int16) for t in ops.unpack_segment(packed.view(torch.bfloat16),
+                                                                  C, 1))
+    order = ops.reduce_k_order(C)
+    bts = [wr[0, order[kc * cb:(kc + 1) * cb]].t() for kc in range(C // cb)]
+    bts += [w9[0, 0, o * cb:(o + 1) * cb].t() for o in range(9)]
+    bts += [we[0][:, order[nc * cb:(nc + 1) * cb]].t() for nc in range(C // cb)]
+    assert packed.shape[1] == len(bts) == 2 * (C // cb) + 9
+    for c, bt in enumerate(bts):  # B^T [n][k] of chunk c
+        for i in range(cb // ik):
+            item = packed[0, c, i * cb * ik:(i + 1) * cb * ik]
+            for kk in range(ik // 16):
+                k = i * ik + 16 * kk
+                assert torch.equal(_desc_read(item, kk * 256, 128, ik // 8 * 128, cb),
+                                   bt[:, k:k + 16])
+                for n0 in range(0, cb, ns):
+                    assert torch.equal(_desc_read(item[n0 * ik:], kk * 256, 128,
+                                                  ik // 8 * 128, ns),
+                                       bt[n0:n0 + ns, k:k + 16])
+
+
+@pytest.mark.parametrize("C", list(ops.BROADCAST_CLUSTER))
+def test_cluster_broadcast_slices_sit_where_the_descriptors_read(C):
+    """Block r of a broadcast cluster (C / 64 blocks) copies rows 64 r ..
+    64 r + 63 of Wf's and of Wl's B^T, 64 * C contiguous elements from
+    64 r * C, and reads k-step 4 s + kk of them (block s's channels 64 s ..
+    64 s + 63 in reduce_k_order) with LBO 128, SBO C/8 * 128: Wf's and Wl's
+    columns of its own output channels over all of K."""
+    R = ops.BROADCAST_CLUSTER[C]
+    assert R * ops.BROADCAST_SLICE == C
+    w = _bc_weights(C, seed=C + 3)
+    img = ops.pack_broadcast(w).view(torch.int16)
+    order = ops.reduce_k_order(C)
+    wf, wl = w.wf.view(torch.int16), w.wl.view(torch.int16)
+    for r in range(R):
+        cols = order[64 * r:64 * r + 64]  # Wl's N is in reduce_k_order
+        f_rows = img[64 * r * C:64 * (r + 1) * C]
+        l_rows = img[C * C + 64 * r * C:C * C + 64 * (r + 1) * C]
+        for s in range(R):
+            for kk in range(4):
+                k = order[torch.arange(64 * s + 16 * kk, 64 * s + 16 * kk + 16)]
+                assert set(k.tolist()) <= set(range(64 * s, 64 * s + 64))
+                ks = 4 * s + kk
+                assert torch.equal(_desc_read(f_rows, ks * 256, 128, C // 8 * 128, 64),
+                                   wf[k][:, 64 * r:64 * r + 64].t())
+                assert torch.equal(_desc_read(l_rows, ks * 256, 128, C // 8 * 128, 64),
+                                   wl[k][:, cols].t())
