@@ -15,8 +15,10 @@ fallback):
              prints each build's seconds, ptxas' register/spill lines and
              each trunk kernel's count of HGMMA (wgmma) and of all SASS
              instructions from `cuobjdump -sass`: every width of both trunk
-             kernels (the cluster kernels at C = 256 and 384 included) must
-             be there with a count > 0, each source held to its own counts
+             kernels (at C = 256 and 384 the segment's cluster kernel and
+             the broadcast block's three kernels, conv_first, the mix and
+             conv_last) must be there with a count > 0, each source held to
+             its own counts
              (where cuobjdump is missing the line says so); for conv_i8
              every mode's count of IMMA and GMMA (s8 tensor-core)
              instructions must be > 0 and of IDP4A 0.
@@ -59,7 +61,10 @@ fallback):
   6 fused    the phase-4 loop with make_eval_fn(use_fused_trunk=True) in
              place of serve_fold, for 6 plies with one reset; the same
              checks, and all three kernels (segment, broadcast, liberty)
-             must have been launched by this phase.
+             must have been launched by this phase. Then one more ply under
+             the profiler: its CUDA kernel records by name, each wrapper's
+             calls in it and the kernels a call launches (the kernels line's
+             `kernels_profiled_ply`, as for phase 15's self-play).
   7 learn    the learning loop through rl/slice.py RLSlice: b12c128btl3
              bf16 with seeded weights, B=128 boards, SearchParams(n=16, k=4),
              max_game_len 24, train batch 256. Plays until B games are
@@ -240,8 +245,9 @@ fallback):
              int8 im2col (the im2col timed apart) and a bf16 F.conv2d of
              the same shape, yardsticks the port never calls.
 
-  15 wide    the fused trunk at the widths whose kernels split a board
-             over a thread-block cluster: b12c256btl3 (segment (256, 128),
+  15 wide    the fused trunk at the widths whose board does not fit one
+             block (the segment over a thread-block cluster, the broadcast
+             block as three kernels): b12c256btl3 (segment (256, 128),
              broadcast 256) and b14c384btl3 ((384, 192), 384) with seeded
              weights and perturbed BN at full depth, on the stem
              activations of phase 2's boards: each segment and broadcast
@@ -256,11 +262,22 @@ fallback):
              near-ties); at N = 512 and 2880 each kernel's device and wall ms,
              FLOP, TFLOP/s, bound and share, library_products_ms, the plain
              version's device ms (WIDE_PLAIN_CALLS calls) and the fused
-             trunk's ms; then the phase-4 loop on make_eval_fn(use_fused_trunk=True)
-             for 6 plies with one reset, phase 4's checks, the segment,
-             broadcast and liberty kernels all launched, launches per ply.
+             trunk's ms, and the whole bf16 forward at N = 512 and 2880,
+             the model on the fused trunk against ServeNet's folded forward
+             (WIDE_FORWARD_CALLS calls, device ms); then the phase-4 loop on
+             make_eval_fn(use_fused_trunk=True)
+             for WIDE_PLIES plies with a reset after the WIDE_RESET_EVERY-th,
+             phase 4's checks, the segment, broadcast and liberty kernels
+             all launched, launches per ply; one more ply under the
+             profiler, in which the cluster segment kernel and the three
+             wide broadcast kernels must each have kernel records (the
+             records and kernels per wrapper call are printed).
              Then tiny (16, 8) through the smallest kernels zero-padded:
-             the same kernel and trunk checks, and one fused eval finite.
+             the same kernel and trunk checks; at N = 512 and 2880 each
+             kernel's row as above, its bound on tiny's own work and the
+             padded work's beside it, and its plain version's device ms;
+             one fused eval finite; TINY_PLIES plies of fused self-play
+             (launches per ply) and one profiled ply.
 
 Phases 7, 8, 9, 10, 11, 12, 13, 14 and 15 print {"learn": ...}, {"gen":
 ...}, {"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...},
@@ -404,13 +421,22 @@ KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broad
 # N = 2880, so they are timed over WIDE_PLAIN_CALLS calls.
 WIDE_CONFIGS = ("b12c256btl3", "b14c384btl3")
 WIDE_SEED = 15
-WIDE_PLIES = 6
+# 4 plies a config (6 before the forwards and tiny's timings were added: a
+# depth cut for the phase's time), with a reset after the third, so that
+# reset_finished and a ply after it run at both widths.
+WIDE_PLIES = 4
+WIDE_RESET_EVERY = 3
 WIDE_PLAIN_CALLS = 2
 # The whole trunks against their plain trunks below N = 2880 (each kernel
 # call is checked at every N of TRUNK_BATCHES): the plain b14c384btl3 trunk
 # takes seconds at 2880.
 WIDE_TRUNK_BATCHES = (1, 7, 64, 512)
 PADDED_CONFIG = "tiny"
+# Phase 15 also times the whole bf16 forward at each wide config, the model
+# with the fused trunk against ServeNet's folded forward, over this many
+# calls a row, and tiny's padded kernels in self-play over TINY_PLIES plies.
+WIDE_FORWARD_CALLS = 3
+TINY_PLIES = 1
 # Published peaks of one H100 SXM (dense bf16 tensor rate, HBM3), for bounds.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -579,8 +605,8 @@ SERVE_Q_NATIVE_TOL = 1e-4  # JAX's test_native_matches_emulated_when_supported
 PEAK_INT8_OPS = 1979e12
 # Kernel classes of a profile, by substrings of the kernel's name (first match).
 CLASSES = (
-    ("segment kernel", ("trunk_segment_kernel",)),
-    ("broadcast kernel", ("trunk_broadcast_kernel",)),
+    ("segment kernel", ("trunk_segment_",)),
+    ("broadcast kernel", ("trunk_broadcast_",)),
     ("liberty kernel", ("point_liberties_kernel",)),
     ("int8 conv kernel", ("conv_i8_kernel",)),
     ("cuDNN/cuBLAS convs and GEMMs", ("gemm", "conv", "cutlass", "xmma", "cudnn", "sm90_")),
@@ -634,12 +660,16 @@ def wall_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 50, attempts: int = 3) -> float:
-    """Device time per call: the summed duration of the CUDA kernels that
-    `calls` calls ran, from the profiler's kernel records. A profile that
-    records no kernel (CUPTI drops one now and then) is taken again; after
-    `attempts` empty ones the time comes from CUDA events around the calls
-    instead, host gaps included, and a line says so."""
+def device_timing(fn, calls: int = 50, attempts: int = 3) -> tuple:
+    """(device time per call, how it was timed): the CUDA kernels that
+    `calls` calls ran, from the profiler's kernel records. CUPTI drops
+    records now and then (most often one launch of a profile's first
+    kernel), so each kernel counts its mean time a launch times its
+    launches a call (its records over `calls`, rounded). A profile with no
+    record, or with a kernel whose records are no near-whole multiple of
+    `calls` (a larger loss), is taken again; after `attempts` such profiles
+    the time comes from CUDA events around the calls instead, host gaps
+    included, and a line says so."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -647,22 +677,29 @@ def device_ms(fn, calls: int = 50, attempts: int = 3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / calls / 1000.0
-    log(f"device_ms: {attempts} profiles recorded no device time; CUDA-event time per "
-        f"call used instead")
-    return event_ms(lambda: [fn() for _ in range(calls)]) / calls
+        records = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        per_call = [max(1, round(e.count / calls)) for e in records]
+        if records and all(abs(e.count / calls - n) <= 0.25 for e, n in zip(records, per_call)):
+            return (sum(e.self_device_time_total / e.count * n for e, n in zip(records, per_call))
+                    / 1000.0, "profiler kernel records")
+    log(f"device_ms: {attempts} profiles lost kernel records; CUDA-event time per call "
+        f"used instead")
+    return event_ms(lambda: [fn() for _ in range(calls)]) / calls, "CUDA events"
+
+
+def device_ms(fn, calls: int = 50, attempts: int = 3) -> float:
+    """Device time per call (`device_timing`)."""
+    return device_timing(fn, calls, attempts)[0]
 
 
 def device_ms_at_least(fn, floor_ms: float, calls: int = 10) -> tuple:
-    """(device ms per call, how it was timed): device_ms, unless its kernel
-    records sum to less than `floor_ms`, the least time the work can take
-    (the profiler dropped records), then CUDA events around the calls."""
-    ms = device_ms(fn, calls)
+    """(device ms per call, how it was timed): device_timing, unless it is
+    below `floor_ms`, the least time the work can take (the profiler
+    dropped records), then CUDA events around the calls."""
+    ms, how = device_timing(fn, calls)
     if ms >= floor_ms:
-        return ms, "profiler kernel records"
+        return ms, how
     log(f"device_ms: {ms:.4f} ms is below the bound {floor_ms:.4f} ms (profiler records "
         f"dropped); CUDA-event time per call used instead")
     return event_ms(lambda: [fn() for _ in range(calls)]) / calls, "CUDA events"
@@ -855,8 +892,8 @@ def sass_counts(source: str, ops=("HGMMA",)):
     counts, size, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(trunk_(?:segment|broadcast)(?:_cluster)?_kernel|conv_i8_kernel)"
-                          r"I((?:Li\d+E)+)", line)
+            m = re.search(r"(trunk_(?:segment|broadcast)(?:_cluster|_first|_mix|_last)?_kernel"
+                          r"|conv_i8_kernel)I((?:Li\d+E)+)", line)
             widths = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
             name = (f"{m.group(1)}<{widths}>" if m
                     else line.split("Function :")[1].strip())
@@ -1072,9 +1109,36 @@ def check_ply(prev, active, move, pi, after, what: str) -> None:
         raise AssertionError(f"{what}: pi_improved sums off by {err}")
 
 
-def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS):
-    """`plies` plies of the tiered self-play step with resets; returns
-    (launches of each kernel in `kernels` during the run, plies/s, moves/s)."""
+def kernel_records(prof) -> dict:
+    """{kernel<widths>: launches} of the port's own kernels (trunk_*,
+    point_liberties) in a profile, from its CUDA kernel records."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        m = re.search(r"((?:trunk|point)_\w*?kernel)(<[\d, ]+>)?", e.key)
+        if m:
+            name = m.group(1) + (m.group(2) or "").replace(" ", "")
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
+# The prefix of the CUDA kernel names each wrapper of KERNELS launches.
+KERNEL_PREFIX = {"point_liberties_batch": "point_liberties_", "trunk_segment": "trunk_segment_",
+                 "trunk_broadcast": "trunk_broadcast_"}
+
+
+def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS,
+                   reset_every=RESET_EVERY, profiled_ply=False):
+    """`plies` plies of the tiered self-play step, resetting finished games
+    after every `reset_every`-th; returns (launches of each kernel in
+    `kernels` during the run, plies/s, moves/s, profiled). With
+    `profiled_ply`, one more ply, after the timed ones and held to the same
+    checks, runs under the profiler: `profiled` = {"kernel_records":
+    {kernel<widths>: launches in that ply}, "wrapper_calls": {wrapper: its
+    count's rise in that ply}, "kernels_per_call": {wrapper: the records of
+    its kernels over its calls}}; else None. CUPTI may drop a record now and
+    then (see device_timing), so a count can read one low."""
     B = BENCH_B
     cfg = SelfplayConfig(batch_size=B)
     params_sel = SearchParams(n=128, k=8, noise_scale=1.0, max_depth=24,
@@ -1106,7 +1170,7 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS):
         checks.append((prev, active, buf.move[b, t].long(), buf.pi[b, t].clone(),
                        states))
         moves_played += int(active.sum())
-        if (ply + 1) % RESET_EVERY == 0:
+        if (ply + 1) % reset_every == 0:
             done = finished_mask(states, cfg)
             states, buf, aux, tree = reset_finished(
                 states, buf, aux, done, cfg.komi, generator=gen,
@@ -1116,12 +1180,33 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS):
     dt = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
 
+    profiled = None
+    if profiled_ply:
+        prev = states
+        active = ~finished_mask(prev, cfg)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            states, buf, aux, tree = selfplay_step_tiered(
+                states, buf, aux, eval_fn, params_sel, params_fast, cfg,
+                generator=gen, reuse_tree=tree, reuse_capacity=reuse_capacity)
+            torch.cuda.synchronize()
+        t = prev.move_count.long().clamp(max=cfg.max_game_len - 1)
+        checks.append((prev, active, buf.move[b, t].long(), buf.pi[b, t].clone(), states))
+        records = kernel_records(prof)
+        calls = {k.__name__: k.launches - launches[k.__name__] for k in kernels}
+        per_call = {k: sum(n for name, n in records.items()
+                           if name.startswith(KERNEL_PREFIX[k])) / calls[k]
+                    for k in calls if calls[k] > 0}
+        profiled = {"kernel_records": records, "wrapper_calls": calls,
+                    "kernels_per_call": per_call}
+        log(f"phase {phase}: one more ply under the profiler: kernel records {records}; "
+            f"wrapper calls {calls}; kernels per call {per_call}")
+
     for ply, check in enumerate(checks):
         check_ply(*check, f"phase {phase} ply {ply}")
     log(f"phase {phase}: {plies} plies at B={B}, {resets} resets, {moves_played} moves "
         f"in {dt:.2f} s; every move legal and superko-clean, pi_improved sums to 1; "
         f"launches {launches}")
-    return launches, plies / dt, moves_played / dt
+    return launches, plies / dt, moves_played / dt, profiled
 
 
 def phase_wide_trunk(device, boards, gen):
@@ -1161,6 +1246,22 @@ def phase_wide_trunk(device, boards, gen):
             log(f"phase 15: {name} N={N} fused_trunk: device {trunk_times[str(N)]['ms']:.3f} "
                 f"ms, wall {trunk_times[str(N)]['wall_ms']:.3f} ms per call")
         del stem, xs, first
+        # Which bf16 forward is faster at this width: the model with the
+        # fused trunk, or ServeNet's folded forward (cuDNN convolutions).
+        net = ServeNet(model)
+        forwards = {}
+        for N in TRUNK_TIMED:
+            p_n, s_n = batched_features(type(boards)(*[t[:N] for t in boards]),
+                                        planes_dtype=model.dtype)
+            with torch.no_grad():
+                for row, fn in (("fused_forward", lambda: model(p_n, s_n, trunk_fn=trunk_fn)),
+                                ("servenet_forward", lambda: net(p_n, s_n))):
+                    # CUDA events around single calls (tens to hundreds of ms a
+                    # call, so the host's launch gaps are a small part).
+                    forwards[f"{row}@{N}"] = wall_ms(fn, WIDE_FORWARD_CALLS, 1)
+                    log(f"phase 15: {name} N={N} {row}: {forwards[f'{row}@{N}']:.3f} ms per "
+                        f"call (CUDA events, median of {WIDE_FORWARD_CALLS})")
+        del net, p_n, s_n
         # The fused model against the float32 model: at these widths a
         # seeded network's policy is near flat (a tenth of the positions
         # has its top two logits within 0.005), so two bf16 evaluations
@@ -1177,17 +1278,24 @@ def phase_wide_trunk(device, boards, gen):
         log(f"phase 15 {name}: top-1 agreement on the same positions (informative): fused "
             f"vs plain bf16 model {top1_bf16:.4f}; plain bf16 model vs float32 "
             f"{bf16_vs_f32:.4f}")
-        launches, plies_s, moves_s = phase_selfplay(
+        launches, plies_s, moves_s, profiled = phase_selfplay(
             device, model, gen, make_eval_fn(model, use_fused_trunk=True), WIDE_PLIES,
-            f"15 {name}")
+            f"15 {name}", reset_every=WIDE_RESET_EVERY, profiled_ply=True)
         for k, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"{k} was not launched by phase 15's {name} self-play")
+        C, cb = model.config.channels, model.config.bottleneck_channels
+        wide_kernels = [f"trunk_segment_cluster_kernel<{C},{cb}>"] + [
+            f"trunk_broadcast_{part}_kernel<{C}>" for part in ("first", "mix", "last")]
+        missing = [k for k in wide_kernels if profiled["kernel_records"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"phase 15 {name}: the profiled ply ran none of {missing}")
         info[name] = {
-            "rows": rows, "fused_trunk": trunk_times, "top1_vs_f32": top1,
+            "rows": rows, "fused_trunk": trunk_times, "forwards": forwards, "top1_vs_f32": top1,
             "top1_vs_bf16": top1_bf16, "bf16_top1_vs_f32": bf16_vs_f32, "max_d_value": dv,
             "launches": launches,
             "launches_per_ply": {k: n / WIDE_PLIES for k, n in launches.items()},
+            "profiled_ply": profiled,
             "plies_s": plies_s, "moves_s": moves_s, "seconds": time.perf_counter() - t0}
         log(f"phase 15: {name}: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
             f"with the fused trunk (informative); {time.perf_counter() - t0:.1f} s")
@@ -1199,11 +1307,25 @@ def phase_wide_trunk(device, boards, gen):
     model = seeded_model(PADDED_CONFIG, device, cpu_gen)
     model.dtype = torch.bfloat16
     stem = stem_activations(model, boards, max(TRUNK_BATCHES))
-    first = check_trunk(PADDED_CONFIG, model, stem, max_err, phase="15",
+    rows = {}
+    first = check_trunk(PADDED_CONFIG, model, stem, max_err, TRUNK_TIMED, rows, phase="15",
                         trunk_batches=WIDE_TRUNK_BATCHES)
     for kern, (x, w) in first.items():
         if w.kernel_aff is None:
             raise AssertionError(f"{PADDED_CONFIG} {kern} did not run zero-padded")
+    # Each row's bound is on tiny's own work (kernel_row); the padded work
+    # the kernel does is beside it.
+    for kern, plain in plains.items():
+        x, w = first[kern.__name__]
+        for N in TRUNK_TIMED:
+            k_t, p_t, _ = time_kernel_and_plain(kern, plain, w, x[:N], 10)
+            row = rows[f"{kern.__name__}@{N}"]
+            padded = padded_bound(kern, w, N)
+            row.update(wall_ms=k_t[1], plain_ms=p_t[0], padded_bound_ms=padded[0],
+                       padded_bound_by=padded[1])
+            log(f"phase 15: {PADDED_CONFIG} {kern.__name__} N={N}: wall {k_t[1]:.4f} ms per "
+                f"call; plain device {p_t[0]:.3f} ms; bound of the padded work "
+                f"{padded[0]:.4f} ms ({padded[1]})")
     before = {k: k.launches for k in plains}
     out = make_eval_fn(model, use_fused_trunk=True)(type(boards)(*[t[:64] for t in boards]))
     torch.cuda.synchronize()
@@ -1212,12 +1334,29 @@ def phase_wide_trunk(device, boards, gen):
             raise AssertionError(f"phase 15 {PADDED_CONFIG} fused eval {f} not finite")
     if any(k.launches <= before[k] for k in plains):
         raise AssertionError(f"phase 15 {PADDED_CONFIG}: the fused eval launched no kernel")
-    info[PADDED_CONFIG] = {"seconds": time.perf_counter() - t0,
+    launches, plies_s, _, profiled = phase_selfplay(
+        device, model, gen, make_eval_fn(model, use_fused_trunk=True), TINY_PLIES,
+        f"15 {PADDED_CONFIG}", profiled_ply=True)
+    info[PADDED_CONFIG] = {"seconds": time.perf_counter() - t0, "rows": rows,
+                           "launches": launches,
+                           "launches_per_ply": {k: n / TINY_PLIES for k, n in launches.items()},
+                           "profiled_ply": profiled,
+                           "plies_s": plies_s,
                            "kernel_width": {"segment": list(trunk_ops.SEGMENT_WIDTHS[0]),
                                             "broadcast": trunk_ops.BROADCAST_WIDTHS[0]}}
     log(f"phase 15: {PADDED_CONFIG} through the padded kernels: fused eval on 64 boards "
-        f"finite; {time.perf_counter() - t0:.1f} s")
+        f"finite; {plies_s:.3f} plies/s; {time.perf_counter() - t0:.1f} s")
     return max_err, info
+
+
+def padded_bound(kern, w, n: int):
+    """The bound (ms, by) of the work a zero-padded call does: w padded to
+    the smallest kernel width, packed as the kernel reads it."""
+    if kern is trunk_ops.trunk_segment:
+        padded = trunk_ops.pad_segment(w, *trunk_ops.SEGMENT_WIDTHS[0])
+        return bound_ms(*segment_work(padded._replace(packed=w.packed), n))
+    padded = trunk_ops.pad_broadcast(w, trunk_ops.BROADCAST_WIDTHS[0])
+    return bound_ms(*broadcast_work(padded._replace(packed=w.packed), n))
 
 
 def play_learn(sl: RLSlice, device):
@@ -3243,7 +3382,7 @@ def phase_serve_q(device, smi, model, gen, fold_rates):
 
     # (d) the slice: phase 4's loop through the int8 graph.
     conv_ops.reset_launches()
-    launches, plies_s, moves_s = phase_selfplay(
+    launches, plies_s, moves_s, _ = phase_selfplay(
         device, model, gen, make_eval_fn(model, serve_q_scales=scales), PLIES, 14,
         kernels=(point_liberties_batch, conv_ops.conv_i8))
     for k, n in launches.items():
@@ -3289,6 +3428,7 @@ def phase_serve_q(device, smi, model, gen, fold_rates):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA card")
@@ -3309,11 +3449,11 @@ def main() -> int:
         f"(nvcc, started together: " + ", ".join(
             f"{s} {cuda_build.build_seconds(s):.2f} s" for s in sources) + ")")
     hgmma = {}
-    cluster = lambda widths: "_cluster" if widths in trunk_ops.SEGMENT_CLUSTER or \
-        widths in trunk_ops.BROADCAST_CLUSTER else ""
+    cluster = lambda widths: "_cluster" if widths in trunk_ops.SEGMENT_CLUSTER else ""
+    broadcast = lambda c: ([f"trunk_broadcast_{k}_kernel<{c}>" for k in ("first", "mix", "last")]
+                           if c in trunk_ops.BROADCAST_WIDE else [f"trunk_broadcast_kernel<{c}>"])
     for src, kernel_widths in (
-            (trunk_ops.SOURCE, [f"trunk_broadcast{cluster(c)}_kernel<{c}>"
-                                for c in trunk_ops.BROADCAST_WIDTHS]),
+            (trunk_ops.SOURCE, [k for c in trunk_ops.BROADCAST_WIDTHS for k in broadcast(c)]),
             (trunk_ops.SEGMENT_SOURCE, [f"trunk_segment{cluster((c, cb))}_kernel<{c},{cb}>"
                                         for c, cb in trunk_ops.SEGMENT_WIDTHS])):
         for line in cuda_build.build_log(src).splitlines():
@@ -3338,7 +3478,7 @@ def main() -> int:
     boards, max_err, times = phase_kernel(device, gen)
     cpu_gen = torch.Generator().manual_seed(1)
     model, forward_batch = phase_forward(device, boards, cpu_gen)
-    launches, plies_s, moves_s = phase_selfplay(
+    launches, plies_s, moves_s, _ = phase_selfplay(
         device, model, gen, make_eval_fn(model, serve_fold=True), PLIES, 4)
     if launches["point_liberties_batch"] <= 0:
         raise AssertionError("the liberty kernel was not launched by phase 4")
@@ -3347,8 +3487,9 @@ def main() -> int:
 
     trunk_err, trunk_times, kernel_rows = phase_trunk(device, boards, model, forward_batch,
                                                       cpu_gen)
-    fused_launches, f_plies_s, f_moves_s = phase_selfplay(
-        device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6)
+    fused_launches, f_plies_s, f_moves_s, fused_profiled = phase_selfplay(
+        device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6,
+        profiled_ply=True)
     for k, n in fused_launches.items():
         if n <= 0:
             raise AssertionError(f"{k} was not launched by the fused self-play path")
@@ -3386,6 +3527,7 @@ def main() -> int:
 
     if "jax" in sys.modules or "p3achygo_tpu" in sys.modules:
         raise AssertionError("the port loaded JAX or the JAX package")
+    log(f"phases 0-15: {time.perf_counter() - t_script:.1f} s ({smi})")
     t_big = max(TIMED_BATCHES)
     n_big = max(TRUNK_TIMED)
     trunk_by_n = {k: {"ms": v[0], "wall_ms": v[1]}
@@ -3445,9 +3587,25 @@ def main() -> int:
                 "launches_per_ply": wide_info[cfg]["launches_per_ply"][name],
                 **{k: v for k, v in wide_info[cfg]["rows"].items()
                    if k.startswith(name + "@")}} for cfg in WIDE_CONFIGS},
-            "padded": f"{PADDED_CONFIG} runs the smallest kernel zero-padded (phase 15)",
+            "padded": {
+                "what": f"{PADDED_CONFIG} runs the smallest kernel zero-padded (phase 15); "
+                        "bound_ms on its own work, padded_bound_ms on the padded work",
+                "launches_per_ply": wide_info[PADDED_CONFIG]["launches_per_ply"][name],
+                **{k: v for k, v in wide_info[PADDED_CONFIG]["rows"].items()
+                   if k.startswith(name + "@")}},
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
+    # Kernel launches per wrapper call and per ply, from the CUDA kernel
+    # records of one profiled ply of each fused self-play (phases 6, 15).
+    profiled = {TRUNK_CONFIGS[0]: fused_profiled,
+                **{cfg: wide_info[cfg]["profiled_ply"] for cfg in WIDE_CONFIGS + (PADDED_CONFIG,)}}
+    for entry in kernels[:3]:
+        name = entry["name"]
+        entry["kernels_profiled_ply"] = {cfg: {
+            "kernel_records": {k: n for k, n in p["kernel_records"].items()
+                               if k.startswith(KERNEL_PREFIX[name])},
+            "wrapper_calls": p["wrapper_calls"][name],
+            "kernels_per_call": p["kernels_per_call"].get(name)} for cfg, p in profiled.items()}
     rows = {(r["site"], r["n"], r["mode"]): r for r in q_info["convs"]}
     main_row = rows[(SERVE_Q_SITES[1][0], max(SERVE_Q_TIMED), "i8")]
     kernels.append({

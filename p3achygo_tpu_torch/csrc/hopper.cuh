@@ -1,5 +1,6 @@
 // Hopper (sm_90a) PTX wrappers shared by the fused-trunk kernels
-// (trunk_segment.cu, trunk_broadcast.cu): mbarriers, bulk-async copies,
+// (trunk_segment.cu, trunk_broadcast.cu): mbarriers, bulk-async copies
+// (global to shared, shared to global, shared to a peer's shared memory),
 // thread-block clusters (rank, distributed shared memory, cluster barriers,
 // remote mbarrier arrivals, multicast bulk copies, cluster launches), wgmma
 // with f32 accumulators, stmatrix, and the no-swizzle shared-memory
@@ -84,8 +85,35 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// 1-D bulk copy shared -> global, tracked by this thread's bulk async-groups
+// (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's committed bulk groups still read
+// their shared-memory source (bulk_wait_read) or are still running at all
+// (bulk_wait).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Named barrier `id` over the 128 threads of one warpgroup.
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
 // Orders this thread's generic-proxy writes to shared memory before later
-// async-proxy reads of it (wgmma operands).
+// async-proxy reads of it (wgmma operands, bulk copies).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -109,10 +137,10 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t 
 }
 
 // ---- thread-block clusters ----------------------------------------------
-// The wide trunk kernels split a board over the blocks of a cluster: they
-// address a peer block's shared memory (distributed shared memory), signal
-// its mbarriers, and multicast one bulk copy into every block's shared
-// memory.
+// The wide segment kernel splits a board over the blocks of a cluster: it
+// addresses a peer block's shared memory (distributed shared memory),
+// signals its mbarriers, copies rows into it, and multicasts one bulk copy
+// into every block's shared memory.
 
 // This block's rank in its cluster.
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -164,20 +192,6 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
   } while (!done);
 }
 
-// 4- and 16-byte accesses to a peer's shared memory (addresses from
-// cluster_map).
-__device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 // 1-D bulk copy global -> the shared memory of every block of the cluster
 // in `mask` (bit r: rank r), at the same offset `dst` in each, completion
 // (complete_tx) on the mbarrier at offset `bar` of each.
@@ -188,6 +202,20 @@ __device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* sr
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
       "[%0], [%1], %2, [%3], %4;" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// 1-D bulk copy from this block's shared memory (`src`) into a peer's
+// (`dst`, from cluster_map), completion (complete_tx) on the peer's
+// mbarrier `bar` (from cluster_map). `src` must hold the bytes in the async
+// proxy's view: the writers' fence_proxy_async before the issuing thread
+// is ordered after them.
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -76,15 +76,9 @@
 // rings hold 8 stages each.
 //
 // At C = 256 m alone is 196,608 B and Wf + Wl 262,144 B (at 384: 294,912
-// and 589,824), past a block's 232,448. `trunk_broadcast_cluster_kernel`
-// (its own comment, below) splits the channels over a thread-block cluster
-// of C / 64 blocks, 64 channels each, and reads the K of conv_first and
-// conv_last from its peers' shared memory. Its shared memory, one 512-thread
-// block per SM: `a` (act(x) or act(z), 384 x 72 x 2 B) 55,296, m (64 x 384
-// x 2 B) 49,152, the block's rows of Wf and of Wl (64 x C x 2 B each), three
-// rings of WdT stages x 4 KB, affines and bd 2,560, mbarriers:
-//   C = 256: cluster of 4, rows 2 x 32,768, 4 stages a ring: 221,912 B.
-//   C = 384: cluster of 6, rows 2 x 49,152, 2 stages a ring: 230,008 B.
+// and 589,824), past a block's 232,448: a broadcast block of C = 256 or 384
+// runs as three kernels, conv_first, the mix and conv_last (their own
+// comment, below).
 //
 // Widths: C in {64, 128, 256, 384}; others return cudaErrorInvalidValue
 // (the Python wrapper refuses them first, and runs narrower blocks, such as
@@ -149,10 +143,7 @@ struct BroadcastShape {
 // launch: [0] conv_first (products, mish, m stores), [1] the wait for the
 // previous board's mix to free m, [2] the consumer barrier after
 // conv_first, [3] the mix's products (ring waits included), [4] the mix's
-// epilogue, conv_last and the residual store; [5] the boards it ran. The
-// cluster kernel (rank 0's thread 0): [0] the exchange before act(x), act(x)
-// and the exchange after it, [1] conv_first, [2] the exchange after it, [3]
-// the mix's products, [4] act(z), its exchange, conv_last and the store.
+// epilogue, conv_last and the residual store; [5] the boards it ran.
 // p3_trunk_broadcast_phase_cycles reads (or zeroes) them.
 __device__ unsigned long long g_phase_cycles[6];
 #define P3_PHASE(k)                        \
@@ -439,364 +430,554 @@ int launch_broadcast(const void* x, void* out, const void* f_aff, const void* pa
 }
 
 
-// ---- the cluster kernel: C in {256, 384} ---------------------------------
-//
-// Channels split over a cluster of C / 64 blocks: block r owns channels
-// 64 r .. 64 r + 63 of m, z and the output. It writes act(x, f) of its
-// channels into a shared buffer `a` (positions x 64 channels, rows padded
-// to 72 elements); conv_first's A for its 64 output channels is read from
-// every block's `a` in rank order by distributed shared memory (16-byte
-// loads, the K order of `reduce_k_order`; the loads of 4 blocks at C = 256,
-// of 3 at C = 384, issued together); m stays local and so does the
-// mix, z[:, slice] = WdT . m[:, slice]; act(z, l) of its channels goes into
-// `a` again, and conv_last's A is read from every block's `a` the same way.
-// Four consumer barriers over the cluster a board order the uses of `a`:
-// every block's reads of the previous act(z) before act(x) is written;
-// act(x) before conv_first; every conv_first before act(z) is written;
-// act(z) before conv_last. No atomics and no cross-block reduction: a
-// block sums all of K itself, in a fixed order.
 
-template <int C>
-struct ClusterBroadcastShape {
-  static constexpr int kCluster = C / 64;
-  static constexpr int kSlice = 64;  // channels a block
-  static constexpr int kLdA = kSlice + 8;
-  static constexpr int kABytes = kMixPad * kLdA * 2;
-  static constexpr int kMBytes = kSlice * kMixPad * 2;
-  static constexpr int kWBytes = kSlice * C * 2;  // a block's rows of Wf or Wl
-  static constexpr int kStages = C == 256 ? 4 : 2;  // per consumer warpgroup
-  static constexpr int kAcc = kSlice / 2;
-  static constexpr int kMOff = kABytes;
-  static constexpr int kWfOff = kMOff + kMBytes;
-  static constexpr int kWlOff = kWfOff + kWBytes;
-  static constexpr int kRingOff = kWlOff + kWBytes;
-  static constexpr int kAffOff = kRingOff + kGroups * kStages * kChunkBytes;
-  static constexpr int kBdOff = kAffOff + 4 * kSlice * 4;
-  static constexpr int kBarOff = kBdOff + kMixPad * 4;
-  // full, empty per stage and group; w_full; exchange[2]
-  static constexpr int kSmem = kBarOff + (2 * kGroups * kStages + 3) * 8;
-  static_assert(kMOff % 128 == 0 && kRingOff % 128 == 0 && kAffOff % 16 == 0, "align");
+// ---- C = 256, 384: three kernels a broadcast block -----------------------
+//
+// At these widths a board's m (196,608 / 294,912 B) and Wf + Wl do not fit
+// one block, and splitting a board over a cluster made every product wait
+// on its peers. Each of the block's three products is instead a GEMM along
+// the dimension it leaves independent, one kernel each, with the
+// elementwise chain fused into its prologue or epilogue; every value stored
+// between them is one the plain version rounds to bf16:
+//
+//  (a) conv_first, `trunk_broadcast_first_kernel<C>`: rows (board,
+//      position) in units of one board's 64-position tile, K = N = C.
+//      A = act(x, f) in registers (16-byte loads, K in `reduce_k_order`,
+//      act applied there, positions 361..383 zero); B = Wf, N in
+//      `reduce_k_order` too. m = bf16(mish(h)) is stored transposed by
+//      `stmatrix .trans` into an 8 KB staging tile (64 channels) and from
+//      there to device memory by one bulk copy, in the layout the mix reads
+//      as its B operand: per board and 64-position chunk pk, B^T [C
+//      channels][64 positions] in 8x8 core matrices, 128 channels (16 KB)
+//      contiguous an item (positions 361..383 are mish(0) = 0).
+//  (b) the mix, `trunk_broadcast_mix_kernel<C>`: z = WdT . m + bd with
+//      M = 384 destination positions q, K = 384 source positions p,
+//      N = boards x C. A block keeps three 64-row tiles of WdT resident
+//      (144 KB, its three warpgroups' A) and streams m's (board, channel
+//      tile) items through a ring; the epilogue rounds z, applies act(z, l)
+//      and writes act(z) [N, 361, C] bf16 with 16-byte stores (m's channel
+//      order is `reduce_k_order`, so a lane's accumulators are 8
+//      contiguous channels). The grid is even: block b takes the q tiles of
+//      half b % 2 for every (board, channel tile) b / 2 walks over, so the
+//      two blocks that read one item of m run together and the second read
+//      hits L2.
+//  (c) conv_last, `trunk_broadcast_last_kernel<C>`: as (a), A = act(z) as
+//      it is, B = Wl; the epilogue adds the residual x in f32 and stores
+//      bf16, in place over act(z) (a unit reads its own rows into
+//      registers before it stores them).
+//
+// Every kernel is warp-specialised: consumer warpgroups (64 rows or one
+// 64-row WdT tile each, f32 accumulators) and a producer warpgroup whose
+// lane 0 streams the B items by `cp.async.bulk` into a ring, full and empty
+// mbarriers per stage, and which hands its registers to the consumers
+// (setmaxnreg: a block of 9 warps leaves a thread 168 registers, and A over
+// all of K at C = 384 spilled). conv_first runs m64n64k16 passes over Wf
+// items of 64 columns x 64 K, conv_last m64n128k16 over Wl items of 128 x
+// 64, the mix m64n128k16 over m items of 128 channels x 64 positions; the
+// warpgroups a block: conv_first 3 at C = 256, 2 at 384, the mix 3,
+// conv_last 2 (each choice the faster on an H100; conv_first loading the
+// next unit's x during this one ran slower and was dropped). At
+// C = 256 the items of Wf and Wl fit the ring and stay resident; at C = 384
+// they stream once per pass of units (L2 hits). Persistent blocks, one a
+// SM. No atomics: two calls on the same input give identical bits. One
+// wrapper call launches the three kernels; m (N x 384 x C bf16) is scratch
+// from the wrapper, act(z) goes through `out`.
+//
+// What bounds it (the work `chip_smoke.py broadcast_work` counts: x in and
+// out, the weights, 2 x 361 C^2 + 361^2 C MACs a board): at N = 2880,
+// 0.470 ms (C = 256) and 0.912 ms (C = 384) on the tensor cores. The design
+// moves more bytes than that: m out and in, act(z) out and in, x twice,
+// about 3.8 / 5.7 GB, 1.1 / 1.7 ms at 3.35 TB/s, and it runs 3 x 361 x C
+// mish a board on the SMs' issue slots (~1.2 ms at C = 384), which the
+// profile build's clocks show as the largest parts of conv_first and the
+// mix (PERF.md).
+//
+// Shared memory (one block a SM):
+//   conv_first: ring 16 x 8,192, staging 2 x 8,192 a warpgroup, f
+//     affines 2 C x 4, 32 mbarriers: 182,528 B at C = 256 (3 warpgroups,
+//     512 threads), 167,168 B at C = 384 (2, 384 threads).
+//   conv_last: ring 8 x 16,384, 16 mbarriers (and the unused affine slot):
+//     133,248 / 134,272 B, 384 threads.
+//   the mix: three WdT tiles 147,456, ring 5 x 16,384, 11 mbarriers:
+//     229,464 B at both widths, 512 threads (bd and the l affines are
+//     read through L1).
+
+// A wide kernel's warps: G consumer warpgroups and a producer warpgroup
+// (one lane works), which hands its registers to the consumers by
+// setmaxnreg: 24 / 240 a thread at G = 2, 24 / 160 at G = 3.
+constexpr int kWideProducerRegs = 24;
+template <int G>
+struct WideWarps {
+  static constexpr int kGroups = G;
+  static constexpr int kConsumerWarps = 4 * G;
+  static constexpr int kThreads = 128 * (G + 1);
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kWideProducerRegs) / (128 * G) / 8 * 8 > 240
+          ? 240
+          : (65536 - 128 * kWideProducerRegs) / (128 * G) / 8 * 8;
+};
+constexpr int kKItem = 64;  // K rows of every item
+constexpr int kMixNTile = 128;
+constexpr int kMixItemElems = kMixNTile * kKItem;
+constexpr int kMixItemBytes = kMixItemElems * 2;
+constexpr int kWdtTileElems = kTileRows * kMixPad;  // a WdT tile: 64 q x 384 p
+constexpr int kWdtTileBytes = kWdtTileElems * 2;
+constexpr int kMCoreRow = 8 * 64;  // elements of one channel core row of m's chunk
+
+// conv_first / conv_last. Each takes what ran fastest on an H100: conv_first
+// 64 output columns a product pass, 3 consumer warpgroups at C = 256 and 2
+// at C = 384 (3 spilled); conv_last 128 columns and 2 warpgroups. Wf / Wl
+// items of that many columns x 64 K, a ring of 128 KB.
+template <int C, bool kFirst>
+struct RowsShape : WideWarps<kFirst && C == 256 ? 3 : 2> {
+  static constexpr int kNTile = kFirst ? 64 : 128;
+  static constexpr int kItemElems = kNTile * kKItem;
+  static constexpr int kItemBytes = kItemElems * 2;
+  static constexpr int kStages = 128 * 1024 / kItemBytes;
+  static constexpr int kNTiles = C / kNTile;
+  static constexpr int kKItems = C / kKItem;
+  static constexpr int kItems = kNTiles * kKItems;  // one pass over Wf or Wl
+  static constexpr bool kResident = kItems <= kStages;
+  static constexpr int kStagingOff = kStages * kItemBytes;
+  static constexpr int kAffOff =
+      kStagingOff + (kFirst ? RowsShape::kGroups * 2 * kItemBytes : 0);
+  static constexpr int kBarOff = kAffOff + 2 * C * 4;
+  static constexpr int kSmem = kBarOff + 2 * kStages * 8;
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-// conv_first's or conv_last's A fragments over block s's 64 channels of the
-// rows p0, p0 + 8: 16-byte loads of channels 32q + 8 t4 .. +7 from block
-// s's `a` (as load_x).
+// The mix: 3 consumer warpgroups, a block's 3 q tiles one of 2 parts
+// (kParts) of the 6; 128 channels a product pass, m items of 128 channels
+// x 64 positions (16 KB), as many stages as fit beside the WdT tiles.
 template <int C>
-__device__ __forceinline__ void load_peer(uint32_t (&a)[4][4], uint32_t peer_a, int p0,
-                                          int t4) {
-  using S = ClusterBroadcastShape<C>;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 v = ld_cluster_v4(peer_a + ((p0 + 8 * h) * S::kLdA + 32 * q + 8 * t4) * 2);
-      a[2 * q][h] = v.x;
-      a[2 * q][2 + h] = v.y;
-      a[2 * q + 1][h] = v.z;
-      a[2 * q + 1][2 + h] = v.w;
-    }
-  }
+struct MixShape : WideWarps<3> {
+  static constexpr int kParts = kTiles / MixShape::kGroups;
+  static constexpr int kNTiles = C / kMixNTile;
+  static constexpr int kRingOff = MixShape::kGroups * kWdtTileBytes;
+  static constexpr int kStages = (232448 - kRingOff - 256) / kMixItemBytes;
+  static constexpr int kBarOff = kRingOff + kStages * kMixItemBytes;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8;
+  static_assert(kSmem <= 232448 && kStages >= 4, "shared memory");
+};
+
+
+#ifdef P3_BROADCAST_PROFILE
+// The wide kernels' clocks (thread 0 of each block, warpgroup 0): conv_first
+// [0] A load and act(x), [1] products (ring waits included), [2] mish and
+// the m store, [3] its units; the mix [4] products, [5] act(z) and the
+// store, [6] its units; conv_last [7] A load, [8] products, [9] residual
+// add and store, [10] its units. p3_trunk_broadcast_wide_cycles reads (or
+// zeroes) them.
+__device__ unsigned long long g_wide_cycles[11];
+#define P3_WIDE(k)                         \
+  do {                                     \
+    const long long now_ = clock64();      \
+    wide_cycles[k] += now_ - wide_t;       \
+    wide_t = now_;                         \
+  } while (0)
+#else
+#define P3_WIDE(k) \
+  do {             \
+  } while (0)
+#endif
+
+// k16 step kk of an item: B^T [n][64 k] (64 or 128 rows n), core (n/8,
+// k/8) at ((n/8) * 8 + k/8) * 128 bytes.
+__device__ __forceinline__ uint64_t item_desc(uint32_t item, int kk) {
+  return smem_desc(item + kk * 256, 128, 8 * 128);
 }
 
-// acc [64 rows x 64 channels] += A . B over all C of K, A from every
-// block's `a` in rank order, B a [64 n][C k] operand at `w`. The loads of
-// kBatch blocks' slices are issued together, so a batch waits for one
-// round trip through distributed shared memory, not kBatch.
-template <int C>
-__device__ __forceinline__ void product_over_cluster(float (&acc)[32], uint32_t a_s, uint32_t w,
-                                                     int p0, int t4) {
-  constexpr int R = ClusterBroadcastShape<C>::kCluster;
-  constexpr int kBatch = R <= 4 ? R : R / 2;  // 16 registers of A a block
-  static_assert(R % kBatch == 0, "batches");
-  uint32_t a[kBatch][4][4];
-  fence_regs(acc);
-#pragma unroll
-  for (int s0 = 0; s0 < R; s0 += kBatch) {
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) load_peer<C>(a[b], cluster_map(a_s, s0 + b), p0, t4);
-    wgmma_fence();
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_bf16(acc, a[b][kk], w_desc<C>(w, 4 * (s0 + b) + kk));
-      }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_regs(a);
-  }
+// k16 step s of a WdT tile: A [64 q][384 p], core (q/8, p/8) at
+// ((q/8) * 48 + p/8) * 128 bytes.
+__device__ __forceinline__ uint64_t wdt_tile_desc(uint32_t tile, int s) {
+  return smem_desc(tile + s * 256, 128, kPCores * 128);
 }
 
-// x, out, f_aff, packed, bd, l_aff as trunk_broadcast_kernel's (packed with
-// Wl's K in reduce_k_order too); the grid is a whole number of clusters,
-// each cluster walks boards (cluster index, stride clusters).
-template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
-trunk_broadcast_cluster_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
-                               const float* __restrict__ f_aff,
-                               const bf16* __restrict__ packed, const float* __restrict__ bd,
-                               const float* __restrict__ l_aff, int num_boards) {
-  using S = ClusterBroadcastShape<C>;
-  constexpr int R = S::kCluster;
+// conv_first (kFirst: a = x, act(., f) on the way in, out = m) or conv_last
+// (a = act(z) = out, the residual x, out over it). A unit is one board's
+// 64-position tile t; block pass P gives warpgroup g unit 2 P + g.
+template <int C, bool kFirst>
+__device__ __forceinline__ void broadcast_rows(const bf16* a_src, const bf16* x, bf16* dst,
+                                               const float* f_aff, const bf16* w,
+                                               int num_boards) {
+  using S = RowsShape<C, kFirst>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int rank = static_cast<int>(cluster_rank());
-  const int cluster_id = blockIdx.x / R;
-  const int n_clusters = gridDim.x / R;
-  const int c0 = rank * S::kSlice;  // this block's channels
-  bf16* a_p = reinterpret_cast<bf16*>(smem);
-  const uint32_t a_s = smem_u32(smem);
-  const uint32_t m_s = smem_u32(smem + S::kMOff);
-  const uint32_t wf_s = smem_u32(smem + S::kWfOff);
-  const uint32_t wl_s = smem_u32(smem + S::kWlOff);
-  const uint32_t ring0 = smem_u32(smem + S::kRingOff);
-  float* aff_s = reinterpret_cast<float*>(smem + S::kAffOff);  // f a, f b, l a, l b [64]
-  float* bd_s = reinterpret_cast<float*>(smem + S::kBdOff);   // [384], 0 past 361
+  const uint32_t stage0 = smem_u32(smem);
+  const uint32_t staging0 = smem_u32(smem + S::kStagingOff);
+  float* aff_s = reinterpret_cast<float*>(smem + S::kAffOff);  // f a [C], f b [C]
   const uint32_t bar0 = smem_u32(smem + S::kBarOff);
-  const auto slot = [](int g, uint32_t i) { return g * S::kStages + i % S::kStages; };
-  const auto full = [&](int g, uint32_t i) { return bar0 + 8u * slot(g, i); };
-  const auto empty = [&](int g, uint32_t i) {
-    return bar0 + 8u * (kGroups * S::kStages + slot(g, i));
-  };
-  const auto stage = [&](int g, uint32_t i) { return ring0 + slot(g, i) * kChunkBytes; };
+  // Item i of the ring sits in stage i % S::kStages, in the phase of parity
+  // (i / S::kStages) & 1 of full(i) and empty(i); resident items i < kItems
+  // in stage i, phase 0, never released.
+  const auto full = [&](uint32_t i) { return bar0 + 8u * (i % S::kStages); };
+  const auto empty = [&](uint32_t i) { return bar0 + 8u * (S::kStages + i % S::kStages); };
+  const auto stage = [&](uint32_t i) { return stage0 + (i % S::kStages) * S::kItemBytes; };
   const auto parity = [](uint32_t i) { return (i / S::kStages) & 1u; };
-  const uint32_t w_full = bar0 + 8u * (2 * kGroups * S::kStages);
-  const auto xbar = [&](uint32_t e) { return w_full + 8u + 8u * (e & 1u); };
+  const int units = num_boards * kTiles;
+  const int passes = (units + S::kGroups - 1) / S::kGroups;
 
-  for (int i = threadIdx.x; i < S::kSlice; i += kThreads) {
-    aff_s[i] = f_aff[c0 + i];
-    aff_s[S::kSlice + i] = f_aff[C + c0 + i];
-    aff_s[2 * S::kSlice + i] = l_aff[c0 + i];
-    aff_s[3 * S::kSlice + i] = l_aff[C + c0 + i];
-  }
-  for (int i = threadIdx.x; i < kMixPad; i += kThreads) bd_s[i] = i < kPos ? bd[i] : 0.0f;
-  // Rows 361.. of `a` stay zero from here on.
-  for (int i = threadIdx.x; i < S::kABytes / 16; i += kThreads) {
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (kFirst) {
+    for (int i = threadIdx.x; i < 2 * C; i += S::kThreads) aff_s[i] = f_aff[i];
   }
   if (threadIdx.x == 0) {
-    for (int g = 0; g < kGroups; ++g) {
-      for (int s = 0; s < S::kStages; ++s) {
-        mbar_init(full(g, s), 1);
-        mbar_init(empty(g, s), 4);
-      }
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), S::kConsumerWarps);
     }
-    mbar_init(w_full, 1);
-    mbar_init(xbar(0), R);
-    mbar_init(xbar(1), R);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  cluster_sync_all();
+  __syncthreads();
 
-  if (warp >= kConsumerWarps) {
-    // Producers: warp pw < 3 streams consumer group pw's WdT chunks as in
-    // trunk_broadcast_kernel; warp 3 copies this block's rows of Wf and Wl.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-    const int pw = warp - kConsumerWarps;
-    if (lane == 0 && pw == kGroups) {
-      mbar_expect_tx(w_full, 2 * S::kWBytes);
-      bulk_load(wf_s, packed + static_cast<size_t>(c0) * C, S::kWBytes, w_full);
-      bulk_load(wl_s, packed + static_cast<size_t>(C) * C + static_cast<size_t>(c0) * C,
-                S::kWBytes, w_full);
-    } else if (lane == 0) {
-      const bf16* stream = packed + 2 * C * C;
-      uint32_t ci = 0;
-      for (int board = cluster_id; board < num_boards; board += n_clusters) {
-        for (int r = 0; r < kTilesPerGroup; ++r) {
-          const int t = pw + kGroups * r;
-          for (int c = 0; c < kChunksPerTile; ++c, ++ci) {
-            mbar_wait(empty(pw, ci), parity(ci) ^ 1u);
-            mbar_expect_tx(full(pw, ci), kChunkBytes);
-            bulk_load(stage(pw, ci),
-                      stream + static_cast<size_t>(t * kChunksPerTile + c) * kChunkElems,
-                      kChunkBytes, full(pw, ci));
+  if (warp >= S::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kWideProducerRegs));
+    // Producer: W's items (n tile nt, K chunk kc) in the order nt * kKItems
+    // + kc, once if they fit the ring, else once a pass.
+    if (warp == S::kConsumerWarps && lane == 0) {
+      if constexpr (S::kResident) {
+        for (int i = 0; i < S::kItems; ++i) {
+          mbar_expect_tx(full(i), S::kItemBytes);
+          bulk_load(stage(i), w + static_cast<size_t>(i) * S::kItemElems, S::kItemBytes, full(i));
+        }
+      } else {
+        uint32_t ci = 0;
+        for (int P = blockIdx.x; P < passes; P += gridDim.x) {
+          for (int i = 0; i < S::kItems; ++i, ++ci) {
+            mbar_wait(empty(ci), parity(ci) ^ 1u);
+            mbar_expect_tx(full(ci), S::kItemBytes);
+            bulk_load(stage(ci), w + static_cast<size_t>(i) * S::kItemElems, S::kItemBytes,
+                      full(ci));
           }
         }
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::kConsumerRegs));
     const int g = warp >> 2;
     const int wq = warp & 3;
     const int t4 = lane & 3;
-    const float* f_a = aff_s;
-    const float* f_b = aff_s + S::kSlice;
-    const float* l_a = aff_s + 2 * S::kSlice;
-    const float* l_b = aff_s + 3 * S::kSlice;
-    uint32_t ci = 0, e = 0;  // WdT chunks taken, exchanges so far
-    const auto exchange = [&]() {
-      consumer_sync<kConsumerThreads>();
-      if (threadIdx.x == 0) {
-        fence_acq_rel_cluster();
-        for (int s = 0; s < R; ++s) mbar_arrive_cluster(cluster_map(xbar(e), s));
-      }
-      mbar_wait_cluster(xbar(e), (e >> 1) & 1u);
-      ++e;
-    };
-    mbar_wait(w_full, 0);
+    const bool lead = (threadIdx.x & 127) == 0;
+    uint32_t ci = 0;  // streamed items taken before this pass
+    int sb = 0;       // conv_first's staging buffer
 #ifdef P3_BROADCAST_PROFILE
-    long long phase_cycles[6] = {0, 0, 0, 0, 0, 0};
-    long long phase_t = clock64();
+    long long wide_cycles[4] = {0, 0, 0, 0};
+    long long wide_t = clock64();
+    constexpr int kP = kFirst ? 0 : 7;  // first counter of this kernel
 #endif
-
-    for (int board = cluster_id; board < num_boards; board += n_clusters) {
+    for (int P = blockIdx.x; P < passes; P += gridDim.x) {
+      const int u = S::kGroups * P + g;
+      const bool valid = u < units;
+      const int board = valid ? u / kTiles : 0;
+      const int t = u % kTiles;
+      const int p0 = t * kTileRows + wq * 16 + (lane >> 2);  // rows p0, p0 + 8
       const size_t boff = static_cast<size_t>(board) * kPos * C;
-      const bf16* xb = x + boff;
-
-      exchange();  // every block is done reading the previous board's act(z)
-      // act(x, f) of this block's channels into `a`, 16 bytes a thread.
-      for (int i = threadIdx.x; i < kPos * (S::kSlice / 8); i += kConsumerThreads) {
-        const int p = i / (S::kSlice / 8);
-        const int c8 = (i % (S::kSlice / 8)) * 8;
-        uint4 v = *reinterpret_cast<const uint4*>(xb + static_cast<size_t>(p) * C + c0 + c8);
-        const float4 alo = *reinterpret_cast<const float4*>(f_a + c8);
-        const float4 ahi = *reinterpret_cast<const float4*>(f_a + c8 + 4);
-        const float4 blo = *reinterpret_cast<const float4*>(f_b + c8);
-        const float4 bhi = *reinterpret_cast<const float4*>(f_b + c8 + 4);
-        v.x = act2(v.x, alo.x, blo.x, alo.y, blo.y);
-        v.y = act2(v.y, alo.z, blo.z, alo.w, blo.w);
-        v.z = act2(v.z, ahi.x, bhi.x, ahi.y, bhi.y);
-        v.w = act2(v.w, ahi.z, bhi.z, ahi.w, bhi.w);
-        *reinterpret_cast<uint4*>(a_p + p * S::kLdA + c8) = v;
-      }
-      exchange();  // every block's act(x) is written
-      P3_PHASE(0);
-
-      // conv_first: m = bf16(mish(act(x, f) . Wf[:, slice])) into m by
-      // stmatrix .trans, as trunk_broadcast_kernel.
-#pragma unroll 1
-      for (int r = 0; r < kTilesPerGroup; ++r) {
-        const int base = (g + kGroups * r) * kTileRows + wq * 16;
-        float acc[S::kAcc];
-        zero_acc(acc);
-        product_over_cluster<C>(acc, a_s, wf_s, base + (lane >> 2), t4);
-        const int mi = lane >> 3;
-        const uint32_t st =
-            m_s + ((mi >> 1) * kPCores + base / 8 + (mi & 1)) * 128 + (lane & 7) * 16;
+      uint32_t a[C / 16][4];
+      if (valid) {
+        load_x<C, C>(a, a_src + boff, p0, 0, t4);
+        if (kFirst) act_x<C, C>(a, p0, 0, aff_s, t4);
+      } else {
 #pragma unroll
-        for (int jp = 0; jp < S::kSlice / 16; ++jp) {
-          uint32_t v[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            v[k] = pack2(mish_f32(acc[8 * jp + 2 * k]), mish_f32(acc[8 * jp + 2 * k + 1]));
-          }
-          stmatrix_x4_trans(st + jp * 2 * kPCores * 128, v);
-        }
+        for (int k = 0; k < C / 16; ++k) a[k][0] = a[k][1] = a[k][2] = a[k][3] = 0u;
       }
-      fence_proxy_async();  // m's stores before the mix's wgmma reads
-      P3_PHASE(1);
-      exchange();  // every block's conv_first has read `a`; m is whole
-      P3_PHASE(2);
-
-      // The mix of this block's channels, z = bf16(WdT . m + bd), then
-      // act(z, l) into `a` (rows < 361).
+      P3_WIDE(0);
 #pragma unroll 1
-      for (int r = 0; r < kTilesPerGroup; ++r) {
-        const int q0 = (g + kGroups * r) * kTileRows + wq * 16 + (lane >> 2);
-        float acc[S::kAcc];
+      for (int nt = 0; nt < S::kNTiles; ++nt) {
+        float acc[S::kNTile / 2];
         zero_acc(acc);
         fence_regs(acc);
-        for (int c = 0; c < kChunksPerTile; ++c) {
-          mbar_wait(full(g, ci + c), parity(ci + c));
-          const uint32_t chunk = stage(g, ci + c);
+#pragma unroll
+        for (int kc = 0; kc < S::kKItems; ++kc) {
+          const uint32_t i = (S::kResident ? 0u : ci) + nt * S::kKItems + kc;
+          mbar_wait(full(i), S::kResident ? 0u : parity(i));
           wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {
-            wgmma_bf16_ss(acc, wdt_desc(chunk, ks), m_desc(m_s, 2 * c + ks));
-          }
+          for (int kk = 0; kk < 4; ++kk) wgmma_bf16(acc, a[4 * kc + kk], item_desc(stage(i), kk));
           wgmma_commit();
-          if (c > 0) {
-            wgmma_wait<1>();  // chunk c - 1 is read
-            if (lane == 0) mbar_arrive(empty(g, ci + c - 1));
+          if (!S::kResident && kc > 0) {
+            wgmma_wait<1>();  // item i - 1 is read
+            if (lane == 0) mbar_arrive(empty(i - 1));
           }
         }
+        uint4 res[2][S::kNTile / 32];
+        if (!kFirst && valid) load_residual<C, S::kNTile>(res, x + boff, p0, nt * S::kNTile, t4);
         wgmma_wait_all();
         fence_regs(acc);
-        if (lane == 0) mbar_arrive(empty(g, ci + kChunksPerTile - 1));
-        ci += kChunksPerTile;
-        P3_PHASE(3);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q = q0 + 8 * h;
-          if (q >= kPos) continue;
-          const float bdq = bd_s[q];
-#pragma unroll
-          for (int j = 0; j < S::kSlice / 8; ++j) {
-            const int c = 8 * j + 2 * t4;
-            const float2 la = *reinterpret_cast<const float2*>(l_a + c);
-            const float2 lb = *reinterpret_cast<const float2*>(l_b + c);
-            *reinterpret_cast<uint32_t*>(a_p + q * S::kLdA + c) =
-                pack2(act_f32(round_bf16(__fadd_rn(acc[4 * j + 2 * h], bdq)), la.x, lb.x),
-                      act_f32(round_bf16(__fadd_rn(acc[4 * j + 2 * h + 1], bdq)), la.y, lb.y));
-          }
+        if (!S::kResident && lane == 0) {
+          mbar_arrive(empty((S::kResident ? 0u : ci) + nt * S::kKItems + S::kKItems - 1));
         }
+        P3_WIDE(1);
+        if constexpr (kFirst) {
+          // m = bf16(mish(acc)), transposed by stmatrix into the staging
+          // tile [8 channel cores][8 position cores] (half the m item of
+          // this board, tile t and channels 64 nt ..), then one bulk copy
+          // out.
+          const uint32_t buf = staging0 + (2 * g + sb) * S::kItemBytes;
+          if (lead) bulk_wait_read<1>();  // the copy out of this buffer two passes ago
+          group_sync(1 + g);
+          const int mi = lane >> 3;
+          const uint32_t st = buf + ((mi >> 1) * 8 + 2 * wq + (mi & 1)) * 128 + (lane & 7) * 16;
+#pragma unroll
+          for (int jp = 0; jp < S::kNTile / 16; ++jp) {
+            uint32_t v[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              v[k] = pack2(mish_f32(acc[8 * jp + 2 * k]), mish_f32(acc[8 * jp + 2 * k + 1]));
+            }
+            stmatrix_x4_trans(st + jp * 2 * 8 * 128, v);
+          }
+          fence_proxy_async();
+          group_sync(1 + g);
+          if (lead && valid) {
+            bulk_store(dst + ((static_cast<size_t>(board) * kTiles + t) * (C / 8) +
+                              nt * (S::kNTile / 8)) * kMCoreRow,
+                       buf, S::kItemBytes);
+            bulk_commit();
+          }
+          sb ^= 1;
+        } else if (valid) {
+          uint32_t unused[S::kNTile / 16][4];
+          store_residual<C, S::kNTile>(acc, res, dst + boff, p0, nt * S::kNTile, t4, nullptr,
+                                    unused);
+        }
+        P3_WIDE(2);
       }
-      exchange();  // every block's act(z) is written
-
-      // conv_last over every block's act(z), + residual, this block's
-      // output channels (N in reduce_k_order: 8 contiguous a lane).
-#pragma unroll 1
-      for (int r = 0; r < kTilesPerGroup; ++r) {
-        const int p0 = (g + kGroups * r) * kTileRows + wq * 16 + (lane >> 2);
-        uint4 res[2][S::kSlice / 32];
-        load_residual<C, S::kSlice>(res, xb, p0, c0, t4);
-        float acc[S::kAcc];
-        zero_acc(acc);
-        product_over_cluster<C>(acc, a_s, wl_s, p0, t4);
-        uint32_t unused[S::kSlice / 16][4];
-        store_residual<C, S::kSlice>(acc, res, out + boff, p0, c0, t4, nullptr, unused);
-      }
-      P3_PHASE(4);
+      fence_regs(a);
+      if (!S::kResident) ci += S::kItems;
 #ifdef P3_BROADCAST_PROFILE
-      ++phase_cycles[5];
+      ++wide_cycles[3];
 #endif
     }
+    if (kFirst && lead) bulk_wait<0>();  // m is out before the block ends
 #ifdef P3_BROADCAST_PROFILE
-    if (threadIdx.x == 0 && rank == 0) {
-      for (int k = 0; k < 6; ++k) {
-        atomicAdd(&g_phase_cycles[k], static_cast<unsigned long long>(phase_cycles[k]));
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < 4; ++k) {
+        atomicAdd(&g_wide_cycles[kP + k], static_cast<unsigned long long>(wide_cycles[k]));
       }
     }
 #endif
   }
-  // No block exits while a peer may still read its `a` or arrive on its
-  // mbarriers.
-  __syncwarp();
-  cluster_sync_all();
+}
+
+// x: bf16 [num_boards, 361, C]; m: bf16 [num_boards, 6, C/8, 8, 64] (the
+// mix's B items); f_aff: f32 [2, C]; wf: Wf's items, `pack_broadcast`.
+template <int C>
+__global__ void __launch_bounds__(RowsShape<C, true>::kThreads, 1)
+trunk_broadcast_first_kernel(const bf16* __restrict__ x, bf16* __restrict__ m,
+                             const float* __restrict__ f_aff, const bf16* __restrict__ wf,
+                             int num_boards) {
+  broadcast_rows<C, true>(x, nullptr, m, f_aff, wf, num_boards);
+}
+
+// out: act(z) in, bf16 [num_boards, 361, C], the block's output over it;
+// x: the residual; wl: Wl's items, `pack_broadcast`.
+template <int C>
+__global__ void __launch_bounds__(RowsShape<C, false>::kThreads, 1)
+trunk_broadcast_last_kernel(bf16* out, const bf16* __restrict__ x,
+                            const bf16* __restrict__ wl, int num_boards) {
+  broadcast_rows<C, false>(out, x, out, nullptr, wl, num_boards);
+}
+
+// m as trunk_broadcast_first_kernel writes it; zact: act(z) out, bf16
+// [num_boards, 361, C]; wdt: the six 64-row WdT tiles, each A [64 q][384 p]
+// in core matrices; bd: f32 [361]; l_aff: f32 [2, C].
+template <int C>
+__global__ void __launch_bounds__(MixShape<C>::kThreads, 1)
+trunk_broadcast_mix_kernel(const bf16* __restrict__ m, bf16* __restrict__ zact,
+                           const bf16* __restrict__ wdt, const float* __restrict__ bd,
+                           const float* __restrict__ l_aff, int num_boards) {
+  using S = MixShape<C>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const uint32_t tiles = smem_u32(smem);
+  const uint32_t stage0 = smem_u32(smem + S::kRingOff);
+  const uint32_t bar0 = smem_u32(smem + S::kBarOff);
+  const auto full = [&](uint32_t i) { return bar0 + 8u * (i % S::kStages); };
+  const auto empty = [&](uint32_t i) { return bar0 + 8u * (S::kStages + i % S::kStages); };
+  const auto stage = [&](uint32_t i) { return stage0 + (i % S::kStages) * kMixItemBytes; };
+  const auto parity = [](uint32_t i) { return (i / S::kStages) & 1u; };
+  const uint32_t a_full = bar0 + 8u * (2 * S::kStages);
+  const int part = blockIdx.x % S::kParts;  // q tiles S::kGroups * part + g
+  const int first = blockIdx.x / S::kParts;
+  const int stride = gridDim.x / S::kParts;
+  const int units = num_boards * S::kNTiles;  // (board, channel tile)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), S::kConsumerWarps);
+    }
+    mbar_init(a_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= S::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kWideProducerRegs));
+    if (warp == S::kConsumerWarps && lane == 0) {
+      mbar_expect_tx(a_full, S::kGroups * kWdtTileBytes);
+      bulk_load(tiles, wdt + static_cast<size_t>(part) * S::kGroups * kWdtTileElems,
+                S::kGroups * kWdtTileBytes, a_full);
+      uint32_t ci = 0;
+      for (int v = first; v < units; v += stride) {
+        const int board = v / S::kNTiles;
+        const int nt = v % S::kNTiles;
+        const bf16* src = m + (static_cast<size_t>(board) * kTiles * (C / 8) +
+                               nt * (kMixNTile / 8)) * kMCoreRow;
+        for (int pk = 0; pk < kTiles; ++pk, ++ci) {
+          mbar_wait(empty(ci), parity(ci) ^ 1u);
+          mbar_expect_tx(full(ci), kMixItemBytes);
+          bulk_load(stage(ci), src + static_cast<size_t>(pk) * (C / 8) * kMCoreRow, kMixItemBytes,
+                    full(ci));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::kConsumerRegs));
+    const int g = warp >> 2;
+    const int wq = warp & 3;
+    const int t4 = lane & 3;
+    const uint32_t tile = tiles + g * kWdtTileBytes;
+    const int q0 = (S::kGroups * part + g) * kTileRows + wq * 16 + (lane >> 2);  // q0, q0 + 8
+    const float bdq[2] = {q0 < kPos ? bd[q0] : 0.0f, q0 + 8 < kPos ? bd[q0 + 8] : 0.0f};
+#ifdef P3_BROADCAST_PROFILE
+    long long wide_cycles[3] = {0, 0, 0};
+    long long wide_t = clock64();
+#endif
+    mbar_wait(a_full, 0);
+    uint32_t ci = 0;
+    for (int v = first; v < units; v += stride) {
+      const int board = v / S::kNTiles;
+      const int nt = v % S::kNTiles;
+      float acc[kMixNTile / 2];
+      zero_acc(acc);
+      fence_regs(acc);
+#pragma unroll
+      for (int pk = 0; pk < kTiles; ++pk) {
+        mbar_wait(full(ci + pk), parity(ci + pk));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_bf16_ss(acc, wdt_tile_desc(tile, 4 * pk + kk), item_desc(stage(ci + pk), kk));
+        }
+        wgmma_commit();
+        if (pk > 0) {
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty(ci + pk - 1));
+        }
+      }
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty(ci + kTiles - 1));
+      ci += kTiles;
+      P3_WIDE(0);
+      // act(bf16(acc + bd[q]), l) of rows q < 361: in each 32-column group
+      // qq the lane's columns are channels c = nt * 128 + 32 qq + 8 t4 ..
+      // +7 (m's channel order), pair jj at accumulator 4 (4 qq + jj) + 2 h.
+      bf16* zb = zact + static_cast<size_t>(board) * kPos * C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 8 * h;
+        if (q >= kPos) continue;
+#pragma unroll
+        for (int qq = 0; qq < kMixNTile / 32; ++qq) {
+          const int c = nt * kMixNTile + 32 * qq + 8 * t4;
+          uint32_t o[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int e = 4 * (4 * qq + jj) + 2 * h;
+            const float2 la = __ldg(reinterpret_cast<const float2*>(l_aff + c + 2 * jj));
+            const float2 lb = __ldg(reinterpret_cast<const float2*>(l_aff + C + c + 2 * jj));
+            o[jj] = pack2(act_f32(round_bf16(__fadd_rn(acc[e], bdq[h])), la.x, lb.x),
+                          act_f32(round_bf16(__fadd_rn(acc[e + 1], bdq[h])), la.y, lb.y));
+          }
+          *reinterpret_cast<uint4*>(zb + static_cast<size_t>(q) * C + c) =
+              make_uint4(o[0], o[1], o[2], o[3]);
+        }
+      }
+      P3_WIDE(1);
+#ifdef P3_BROADCAST_PROFILE
+      ++wide_cycles[2];
+#endif
+    }
+#ifdef P3_BROADCAST_PROFILE
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < 3; ++k) {
+        atomicAdd(&g_wide_cycles[4 + k], static_cast<unsigned long long>(wide_cycles[k]));
+      }
+    }
+#endif
+  }
+}
+
+// Resident blocks of the three wide kernels at C, once per process (one
+// card per process): conv_first, the mix, conv_last.
+template <int C>
+cudaError_t wide_resident(int* first, int* mix, int* last) {
+  static int r_first = 0, r_mix = 0, r_last = 0;
+  cudaError_t err = cudaSuccess;
+  if (r_first == 0) {
+    using F = RowsShape<C, true>;
+    using L = RowsShape<C, false>;
+    err = resident_blocks(trunk_broadcast_first_kernel<C>, F::kThreads, F::kSmem, &r_first);
+    if (err != cudaSuccess) return err;
+    err = resident_blocks(trunk_broadcast_mix_kernel<C>, MixShape<C>::kThreads,
+                          MixShape<C>::kSmem, &r_mix);
+    if (err != cudaSuccess) return err;
+    err = resident_blocks(trunk_broadcast_last_kernel<C>, L::kThreads, L::kSmem, &r_last);
+    if (err != cudaSuccess) return err;
+  }
+  *first = r_first;
+  *mix = r_mix;
+  *last = r_last;
+  return err;
+}
+
+// The persistent grid of conv_first or conv_last (S) on num_boards boards.
+template <typename S>
+int rows_grid(int num_boards, int resident) {
+  const int passes = (num_boards * kTiles + S::kGroups - 1) / S::kGroups;
+  return passes < resident ? passes : resident;
 }
 
 template <int C>
-int launch_broadcast_cluster(const void* x, void* out, const void* f_aff, const void* packed,
-                             const void* bd, const void* l_aff, int num_boards,
-                             cudaStream_t stream) {
-  using S = ClusterBroadcastShape<C>;
-  if (num_boards < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = trunk_broadcast_cluster_kernel<C>;
-  // Resident clusters on this card, once per process (one card per process).
-  static int resident = 0;
-  if (resident == 0) {
-    const cudaError_t err = resident_clusters(kernel, kThreads, S::kSmem, S::kCluster, &resident);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int clusters = num_boards < resident ? num_boards : resident;
-  const cudaError_t err = launch_clusters(
-      kernel, clusters * S::kCluster, kThreads, S::kSmem, S::kCluster, stream,
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const float*>(f_aff),
-      static_cast<const bf16*>(packed), static_cast<const float*>(bd),
-      static_cast<const float*>(l_aff), num_boards);
+int launch_broadcast_wide(const void* x, void* out, const void* f_aff, const void* packed,
+                          const void* bd, const void* l_aff, void* m, int num_boards,
+                          cudaStream_t stream) {
+  using F = RowsShape<C, true>;
+  using L = RowsShape<C, false>;
+  using M = MixShape<C>;
+  if (num_boards < 1 || m == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int r_first = 0, r_mix = 0, r_last = 0;
+  cudaError_t err = wide_resident<C>(&r_first, &r_mix, &r_last);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bf16* w = static_cast<const bf16*>(packed);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* ob = static_cast<bf16*>(out);
+  bf16* mb = static_cast<bf16*>(m);
+  trunk_broadcast_first_kernel<C><<<rows_grid<F>(num_boards, r_first), F::kThreads, F::kSmem,
+                                    stream>>>(xb, mb, static_cast<const float*>(f_aff), w,
+                                              num_boards);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int units = num_boards * M::kNTiles;
+  const int per_part = r_mix / M::kParts < units ? r_mix / M::kParts : units;
+  trunk_broadcast_mix_kernel<C><<<M::kParts * per_part, M::kThreads, M::kSmem, stream>>>(
+      mb, ob, w + 2 * C * C, static_cast<const float*>(bd), static_cast<const float*>(l_aff),
+      num_boards);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  trunk_broadcast_last_kernel<C><<<rows_grid<L>(num_boards, r_last), L::kThreads, L::kSmem,
+                                   stream>>>(ob, xb, w + C * C, num_boards);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// m: scratch of num_boards * 384 * channels bf16 at channels 256 and 384
+// (the mix's B), unused (may be null) below.
 extern "C" int p3_trunk_broadcast(const void* x, void* out, const void* f_aff,
                                   const void* packed, const void* bd, const void* l_aff,
-                                  int num_boards, int channels, void* stream) {
+                                  void* m, int num_boards, int channels, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (channels == 64) {
     return launch_broadcast<64>(x, out, f_aff, packed, bd, l_aff, num_boards, s);
@@ -805,34 +986,29 @@ extern "C" int p3_trunk_broadcast(const void* x, void* out, const void* f_aff,
     return launch_broadcast<128>(x, out, f_aff, packed, bd, l_aff, num_boards, s);
   }
   if (channels == 256) {
-    return launch_broadcast_cluster<256>(x, out, f_aff, packed, bd, l_aff, num_boards, s);
+    return launch_broadcast_wide<256>(x, out, f_aff, packed, bd, l_aff, m, num_boards, s);
   }
   if (channels == 384) {
-    return launch_broadcast_cluster<384>(x, out, f_aff, packed, bd, l_aff, num_boards, s);
+    return launch_broadcast_wide<384>(x, out, f_aff, packed, bd, l_aff, m, num_boards, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The blocks of the persistent grid at `channels` on this card (resident
-// blocks, or resident clusters times the cluster's blocks), or minus the
-// cudaError.
+// The blocks of the persistent grid at `channels` on this card (at 256 and
+// 384, of conv_first), or minus the cudaError.
 extern "C" int p3_trunk_broadcast_grid(int channels) {
-  int n = 0, per = 1;
+  int n = 0, mix = 0, last = 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (channels == 64) {
     err = resident_blocks(trunk_broadcast_kernel<64>, kThreads, BroadcastShape<64>::kSmem, &n);
   } else if (channels == 128) {
     err = resident_blocks(trunk_broadcast_kernel<128>, kThreads, BroadcastShape<128>::kSmem, &n);
   } else if (channels == 256) {
-    per = ClusterBroadcastShape<256>::kCluster;
-    err = resident_clusters(trunk_broadcast_cluster_kernel<256>, kThreads,
-                            ClusterBroadcastShape<256>::kSmem, per, &n);
+    err = wide_resident<256>(&n, &mix, &last);
   } else if (channels == 384) {
-    per = ClusterBroadcastShape<384>::kCluster;
-    err = resident_clusters(trunk_broadcast_cluster_kernel<384>, kThreads,
-                            ClusterBroadcastShape<384>::kSmem, per, &n);
+    err = wide_resident<384>(&n, &mix, &last);
   }
-  return err == cudaSuccess ? n * per : -static_cast<int>(err);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 #ifdef P3_BROADCAST_PROFILE
@@ -844,5 +1020,15 @@ extern "C" int p3_trunk_broadcast_phase_cycles(unsigned long long* out, int rese
     return static_cast<int>(cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero)));
   }
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles)));
+}
+
+// The wide kernels' clocks (see P3_WIDE): copies the 11 counters to `out`,
+// or zeroes them when `reset`.
+extern "C" int p3_trunk_broadcast_wide_cycles(unsigned long long* out, int reset) {
+  if (reset) {
+    const unsigned long long zero[11] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(g_wide_cycles, zero, sizeof(zero)));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_wide_cycles, sizeof(g_wide_cycles)));
 }
 #endif

@@ -83,19 +83,20 @@
 // hand-off to the next reduce would need 128 more registers a consumer
 // thread. So `trunk_segment_cluster_kernel` splits a board's positions over
 // a thread-block cluster (its own comment, below): each block keeps, in
-// place, the window of grid rows its tiles read, neighbours exchange
-// boundary rows through distributed shared memory, rank 0 multicasts each
-// weight item to the cluster, and the expand stores x, which the next
-// reduce reads back. A block is one consumer warpgroup a tile plus one
-// producer warp, one block per SM. Its shared memory:
-//   (256, 128): cluster of 2, 3 tiles a block (416 threads); a window of
-//     13 x 21 grid rows x 136 x 2 B = 74,256, 4 stages of a 128 x 128 chunk
-//     (131,072), one affine slot of 5 x 2 x 256 f32 (10,240), 12 mbarriers:
-//     215,664 B.
-//   (384, 192): cluster of 3, 2 tiles a block (288 threads); a window of
-//     10 x 21 x 200 x 2 B = 84,000, 5 stages of a 192 x 64 item, a chunk's
-//     K third (122,880), one affine slot of 5 x 2 x 384 f32 (15,360), 14
-//     mbarriers: 222,352 B.
+// place, the window of grid rows its tiles read, neighbours push boundary
+// rows into each other's windows by bulk copies through distributed shared
+// memory, rank 0 multicasts each weight item to the cluster, and the expand
+// stores x, which the next reduce reads back. A block is one consumer
+// warpgroup a tile plus a producer warpgroup, one block per SM. Its shared
+// memory:
+//   (256, 128): cluster of 2, 3 tiles a block (512 threads, 160 registers
+//     a consumer thread); a window of 13 x 21 grid rows x 136 x 2 B =
+//     74,256, 4 stages of a 128 x 128 chunk (131,072), one affine slot of
+//     5 x 2 x 256 f32 (10,240), 14 mbarriers: 215,680 B.
+//   (384, 192): cluster of 3, 2 tiles a block (384 threads, 240 registers
+//     a consumer thread); a window of 10 x 21 x 200 x 2 B = 84,000, 5 stages of a
+//     192 x 64 item, a chunk's K third (122,880), one affine slot of
+//     5 x 2 x 384 f32 (15,360), 16 mbarriers: 222,368 B.
 //
 // Widths: (C, CB) in {(64, 32), (128, 64), (256, 128), (384, 192)}, inner
 // in [0, 3]; others return cudaErrorInvalidValue (the Python wrapper
@@ -550,30 +551,43 @@ int launch_segment(const void* x, void* out, const void* aff, const void* chunks
 // kCluster), one consumer warpgroup a tile over all CB output columns
 // (m64nCBk16), and keeps one haloed buffer, holding only the window of
 // grid rows its tiles' taps read (its board rows and one more on each
-// side). One producer warp streams the weights; no register moves between
-// roles, and the launch bound gives a consumer thread 65,536 / (128 TB +
-// 32) registers (157 at TB = 3, 227 at TB = 2). The buffer is updated in
-// place: after the products of a 3x3 layer every block of the cluster
-// passes a consumer barrier over the cluster (`exchange`: every read of
-// every window is done), then a block stores its outputs into its own
-// window and, through distributed shared memory, into the windows of its
-// two neighbours where they hold the same board rows, and a second
-// exchange publishes them. The reduce stores the same way (one exchange: no
-// window is being read then). Weights stream as items: a chunk whole at
-// (256, 128), a chunk's three 64-channel K slices at (384, 192); every
-// consumer group of every block reads every item. Rank 0 fetches each item
-// once for the cluster with a multicast bulk copy; a stage's "empty"
-// mbarrier in rank 0 gathers the consumers of every block. Items pipeline
-// one by one: an item's products run while the next item's A fragments
-// load, and a stage is released as soon as its products are done. The
-// expand writes x; the next block's reduce reads it back (the register
-// hand-off of the smaller widths would need 128 more registers a consumer
-// thread at C = 256).
+// side). One lane of a producer warpgroup streams the weights; the
+// warpgroup hands its registers to the consumers (setmaxnreg).
 //
-// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s): a bottleneck
-// block of 3 inner layers is 366.7 MFLOP per board at (256, 128) and 825.1
-// at (384, 192), 1.068 and 2.403 ms per block at N = 2880 on the tensor
-// cores; x in and out takes 0.318 / 0.477 ms a call.
+// Layer boundaries. The buffer is updated in place. After the products of
+// a 3x3 layer every block passes one consumer barrier over the cluster
+// (`exchange`: every read of every window is done); then each block stores
+// its outputs into its own window, and one thread pushes the rows that a
+// neighbour's window holds to that neighbour with a bulk copy from shared
+// memory to distributed shared memory, which completes on the neighbour's
+// `rows_in` mbarrier (the neighbour arms it with the bytes it expects; two
+// alternate, so a push of the next step never counts towards a phase still
+// waiting). A block then waits only for its neighbours' rows. A layer thus
+// costs one cluster barrier and one wait on the neighbours, with 16-byte
+// aligned bulk copies in place of 4-byte remote stores. The reduce stores
+// and pushes without a barrier (no window is being read then: the last
+// layer's barrier followed every 3x3 read, and the expand reads only its
+// own rows), and the last 3x3 layer pushes nothing (only the expand, on
+// its own rows, reads its output).
+//
+// Weights stream as items, a chunk whole at (256, 128), a chunk's three
+// 64-channel K slices at (384, 192); every consumer group of every block
+// reads every item. Rank 0 fetches each item once for the cluster with a
+// multicast bulk copy; a stage's "empty" mbarrier in rank 0 gathers the
+// consumer warps of every block. Every product runs item by item with the
+// A fragments of one item double-buffered: an item's products run while the
+// next item's A loads (x and act(x) for the reduce, ldmatrix from the
+// window for the 3x3 and the expand), one loop for all three. The expand
+// writes x; the next block's reduce reads it back
+// (the register hand-off of the smaller widths would need 128 more
+// registers a consumer thread at C = 256).
+//
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s), on the work
+// chip_smoke.py `segment_work` counts: a bottleneck block of 3 inner layers
+// is 366.7 MFLOP per board at (256, 128) and 825.1 at (384, 192), 1.068 and
+// 2.403 ms per block at N = 2880 on the tensor cores; x in and out takes
+// 0.318 / 0.477 ms a call. The elementwise chain (act after every product,
+// 5 x 361 x CB mish a board-block) runs beside the products.
 
 // Haloed board rows (21 grid rows each) of the window of rank r, when a
 // block owns `tb` consecutive 64-position tiles: board rows first .. last of
@@ -591,6 +605,27 @@ __host__ __device__ constexpr int max_window_board_rows(int tb) {
   return m;
 }
 
+// The grid rows [push_first, push_first + push_rows) that rank `src` pushes
+// into the window of rank `dst`: the haloed rows from its first to its last
+// own position (positions and the zero halo cells between board rows),
+// within dst's window. Both windows lay grid rows out alike, so the range
+// is contiguous in both.
+__host__ __device__ constexpr int grid_row(int p) {
+  return (p / kBoard + 1) * kHaloW + p % kBoard + 1;
+}
+__host__ __device__ constexpr int push_first(int src, int dst, int tb) {
+  const int own = grid_row(kTileRows * tb * src);
+  const int win = window_first(dst, tb) * kHaloW;
+  return own > win ? own : win;
+}
+__host__ __device__ constexpr int push_rows(int src, int dst, int tb) {
+  const int last = kTileRows * tb * (src + 1) < kPos ? kTileRows * tb * (src + 1) : kPos;
+  const int own_end = grid_row(last - 1) + 1;
+  const int win_end = (window_first(dst, tb) + window_board_rows(dst, tb)) * kHaloW;
+  const int end = own_end < win_end ? own_end : win_end;
+  return end > push_first(src, dst, tb) ? end - push_first(src, dst, tb) : 0;
+}
+
 template <int C, int CB>
 struct WideShape {
   // (256, 128) keeps 3 tiles a block: at 2 (a cluster of 3) each weight
@@ -599,12 +634,25 @@ struct WideShape {
   static constexpr int kTB = kTiles / kCluster;  // tiles = consumer warpgroups a block
   static constexpr int kConsumerWarps = 4 * kTB;
   static constexpr int kConsumerThreads = 32 * kConsumerWarps;
-  static constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+  // + a producer warpgroup (one lane works), which hands its registers to
+  // the consumers by setmaxnreg: 24 / 160 a thread at (256, 128), 24 / 240
+  // at (384, 192). (With one producer warp and no setmaxnreg the launch
+  // bound left a consumer 128 / 168 registers, ptxas spilled, and the
+  // kernel ran slower on an H100.)
+  static constexpr int kThreads = kConsumerThreads + 128;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / kConsumerThreads / 8 * 8 > 240
+          ? 240
+          : (65536 - 128 * kProducerRegs) / kConsumerThreads / 8 * 8;
   static constexpr int kLdT = CB + 8;
+  static constexpr int kRowBytes = kLdT * 2;
   static constexpr int kWinRows = max_window_board_rows(kTB) * kHaloW;
-  static constexpr int kPlaneBytes = kWinRows * kLdT * 2;
+  static constexpr int kPlaneBytes = kWinRows * kRowBytes;
   static constexpr int kKSteps = CB / 16;
-  static constexpr int kItemKSteps = C == 256 ? kKSteps : 4;  // k16 steps an item
+  // k16 steps an item: the whole chunk at (256, 128) (64-row items ran
+  // slower there on an H100), a 64-row K slice at (384, 192).
+  static constexpr int kItemKSteps = C == 256 ? kKSteps : 4;
   static constexpr int kItems = kKSteps / kItemKSteps;        // items a chunk
   static constexpr int kItemK = 16 * kItemKSteps;
   static constexpr int kItemElems = CB * kItemK;  // B^T [CB n][kItemK k]
@@ -613,18 +661,19 @@ struct WideShape {
   static constexpr int kAcc = CB / 2;  // f32 accumulators a thread, m64nCB
   static constexpr int kAffBytes = kMaxLayers * 2 * C * 4;
   // As many stages (an item and two mbarriers each) as the block's shared
-  // memory holds beside the window, the affines and four mbarriers (at
+  // memory holds beside the window, the affines and six mbarriers (at
   // most 8).
-  static constexpr int kFit = (232448 - kPlaneBytes - kAffBytes - 4 * 8) / (kItemBytes + 2 * 8);
+  static constexpr int kFit = (232448 - kPlaneBytes - kAffBytes - 6 * 8) / (kItemBytes + 2 * 8);
   static constexpr int kStages = kFit < 8 ? kFit : 8;
   static constexpr int kPlaneOff = kStages * kItemBytes;
   static constexpr int kAffOff = kPlaneOff + kPlaneBytes;
   static constexpr int kBarOff = kAffOff + kAffBytes;
-  // full[s], empty[s]; aff_full, aff_empty; exchange[2]
-  static constexpr int kSmem = kBarOff + (2 * kStages + 4) * 8;
-  static_assert(kTB * kCluster == kTiles, "tiling");
+  // full[s], empty[s]; aff_full, aff_empty; exchange[2]; rows_in[2]
+  static constexpr int kSmem = kBarOff + (2 * kStages + 6) * 8;
+  static_assert(kTB * kCluster == kTiles && kSplit == 2, "tiling");
   static_assert(CB % 64 == 0 && kItems * kItemKSteps == kKSteps && kStages >= kItems, "items");
-  static_assert(kPlaneBytes % 16 == 0 && kAffOff % 16 == 0 && kBarOff % 8 == 0, "align");
+  static_assert(kPlaneBytes % 16 == 0 && kRowBytes % 16 == 0 && kAffOff % 16 == 0 &&
+                kBarOff % 8 == 0, "align");
   static_assert(kSmem <= 232448, "shared memory");
 };
 
@@ -637,30 +686,17 @@ __device__ __forceinline__ uint64_t item_desc(uint32_t item, int ks) {
 }
 
 // act(bf16(d), next layer) of the tile's rows into this block's window of
-// the haloed buffer at `plane` (shared address; `win0` its first grid row)
-// and, where a neighbour's window holds the row, into the neighbour's
-// (distributed shared memory).
+// the haloed buffer at `plane` (shared address; `win0` its first grid row),
+// then fence_proxy_async, since the rows may leave by a bulk copy.
 template <int C, int CB>
-__device__ __forceinline__ void store_act_cluster(const float (&d)[CB / 2], uint32_t plane,
-                                                  int win0, int rank, int p0, const float* an,
-                                                  int t4) {
+__device__ __forceinline__ void store_act_window(const float (&d)[CB / 2], uint32_t plane,
+                                                 int win0, int p0, const float* an, int t4) {
   using S = WideShape<C, CB>;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int p = p0 + 8 * h;
     if (p >= kPos) continue;
-    const int hr = halo_row(p);
-    uint32_t peer[2];
-    bool send[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int s = rank + 2 * k - 1;
-      const int w0 = window_first(s, S::kTB) * kHaloW;
-      send[k] = s >= 0 && s < S::kCluster && hr >= w0 &&
-                hr < w0 + window_board_rows(s, S::kTB) * kHaloW;
-      peer[k] = send[k] ? cluster_map(plane + (hr - w0) * S::kLdT * 2, s) : 0u;
-    }
-    const uint32_t row = plane + (hr - win0) * S::kLdT * 2;
+    const uint32_t row = plane + (halo_row(p) - win0) * S::kRowBytes;
 #pragma unroll
     for (int j = 0; j < CB / 8; ++j) {
       const int c = 8 * j + 2 * t4;
@@ -669,12 +705,9 @@ __device__ __forceinline__ void store_act_cluster(const float (&d)[CB / 2], uint
       const uint32_t v = pack2(act_f32(round_bf16(d[4 * j + 2 * h]), a.x, b.x),
                                act_f32(round_bf16(d[4 * j + 2 * h + 1]), a.y, b.y));
       asm volatile("st.shared.u32 [%0], %1;" ::"r"(row + c * 2), "r"(v) : "memory");
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        if (send[k]) st_cluster_u32(peer[k] + c * 2, v);
-      }
     }
   }
+  fence_proxy_async();
 }
 
 // x, out, aff as trunk_segment_kernel's; chunks: bf16 [n_blocks, 2 C/CB +
@@ -701,12 +734,14 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
   // Ring item i sits in stage i % kStages, in the phase of parity
   // (i / kStages) & 1 of full(i) and of empty(i) (rank 0's counts the
   // consumers of every block). The affines take one slot; exchange e uses
-  // exchange(e & 1) in its phase (e >> 1) & 1.
+  // exchange(e & 1) in its phase (e >> 1) & 1, push step e rows_in(e & 1)
+  // the same way.
   const auto full = [&](uint32_t i) { return bar0 + 8u * (i % S::kStages); };
   const auto empty = [&](uint32_t i) { return bar0 + 8u * (S::kStages + i % S::kStages); };
   const uint32_t aff_full = bar0 + 8u * (2 * S::kStages);
   const uint32_t aff_empty = aff_full + 8u;
   const auto xbar = [&](uint32_t e) { return aff_full + 16u + 8u * (e & 1u); };
+  const auto rows_in = [&](uint32_t e) { return aff_full + 32u + 8u * (e & 1u); };
   const auto parity = [](uint32_t i) { return (i / S::kStages) & 1u; };
   const int layers = 2 + inner;
   const int per_block = 2 * S::kSplit + 9 * inner;  // chunks per block
@@ -723,18 +758,21 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
     mbar_init(aff_empty, S::kConsumerWarps);
     mbar_init(xbar(0), R);
     mbar_init(xbar(1), R);
+    mbar_init(rows_in(0), 1);
+    mbar_init(rows_in(1), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // Every block's mbarriers and zeroed window before any peer uses them.
   cluster_sync_all();
 
-  if (warp == S::kConsumerWarps) {
+  if (warp >= S::kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(S::kProducerRegs));
     // Producer, one lane: per board and block the affines (this block's own
     // copy), then the block's chunks in stream order, item by item. Rank 0
     // multicasts every item once its stage is free in every block; each
     // block arms its own stage's expected bytes once the stage's previous
     // phase has completed.
-    if (lane == 0) {
+    if (warp == S::kConsumerWarps && lane == 0) {
       const uint32_t aff_bytes = layers * 2 * C * 4;
       const uint16_t mask = static_cast<uint16_t>((1u << R) - 1u);
       uint32_t it = 0, ai = 0;
@@ -762,6 +800,7 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
       }
     }
   } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::kConsumerRegs));
     const int g = warp >> 2;
     const int wq = warp & 3;
     const int t4 = lane & 3;
@@ -771,7 +810,14 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
     const int lp = base + (lane & 15);
     const int lrow = halo_row(lp < kPos ? lp : kPos - 1) - win0;  // ldmatrix row
     const int lcol = (lane >> 4) * 8;
-    uint32_t it = 0, ai = 0, e = 0;  // items, affine loads, exchanges so far
+    // Bytes this block's neighbours push into its window at each step.
+    uint32_t in_bytes = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = rank + 2 * k - 1;
+      if (s >= 0 && s < R) in_bytes += push_rows(s, rank, S::kTB) * S::kRowBytes;
+    }
+    uint32_t it = 0, ai = 0, e = 0, pe = 0;  // items, affine loads, exchanges, pushes
 #ifdef P3_SEGMENT_PROFILE
     long long phase_cycles[6] = {0, 0, 0, 0, 0, 0};
     long long phase_t = clock64();
@@ -791,7 +837,7 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
       if (lane == 0) mbar_arrive_cluster(cluster_map(empty(i), 0));
     };
     // A consumer barrier over the cluster: every block's shared-memory reads
-    // and stores before it are done and visible to every block after it.
+    // before it are done.
     const auto exchange = [&]() {
       consumer_sync<S::kConsumerThreads>();
       if (threadIdx.x == 0) {
@@ -801,26 +847,61 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
       mbar_wait_cluster(xbar(e), (e >> 1) & 1u);
       ++e;
     };
-    // acc += A . (the next kItems items), A the k16 steps of a whole chunk;
-    // then every item's products are done and its stage released.
-    const auto chunk_product = [&](float (&acc)[S::kAcc], uint32_t (&a)[S::kKSteps][4]) {
-      fence_regs(acc);
-      wgmma_fence();
+    // After every consumer stored its rows of the window (store_act_window):
+    // push the rows each neighbour's window holds, then wait for theirs.
+    const auto push = [&]() {
+      consumer_sync<S::kConsumerThreads>();
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(rows_in(pe), in_bytes);
 #pragma unroll
-      for (int ki = 0; ki < S::kItems; ++ki) {
-        const uint32_t b = item_at(it + ki);
-#pragma unroll
-        for (int kk = 0; kk < S::kItemKSteps; ++kk) {
-          wgmma_bf16(acc, a[ki * S::kItemKSteps + kk], item_desc<S::kItemK>(b, kk));
+        for (int k = 0; k < 2; ++k) {
+          const int s = rank + 2 * k - 1;
+          if (s < 0 || s >= R) continue;
+          const int first = push_first(rank, s, S::kTB);
+          const int rows = push_rows(rank, s, S::kTB);
+          if (rows == 0) continue;
+          const int w0 = window_first(s, S::kTB) * kHaloW;
+          bulk_copy_to_peer(cluster_map(plane + (first - w0) * S::kRowBytes, s),
+                            plane + (first - win0) * S::kRowBytes, rows * S::kRowBytes,
+                            cluster_map(rows_in(pe), s));
         }
       }
-      wgmma_commit();
+      mbar_wait(rows_in(pe), (pe >> 1) & 1u);
+      ++pe;
+    };
+    // acc += A . B over `n` consecutive items of the ring, item by item:
+    // item i's products run while item i + 1's A fragments load (`load(a,
+    // i)`) into the other register buffer; each item is released as soon
+    // as its products are done. n is a constant at every call, and the loop
+    // unrolls (rolled by two, it ran slower at both widths on an H100).
+    const auto run_items = [&](float (&acc)[S::kAcc], int n, auto&& load) {
+      uint32_t a[2][S::kItemKSteps][4];
+      fence_regs(acc);
+      load(a[0], 0);
+#pragma unroll
+      for (int i = 0; i < n; ++i) {
+        const uint32_t b = item_at(it);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < S::kItemKSteps; ++kk) {
+          wgmma_bf16(acc, a[i & 1][kk], item_desc<S::kItemK>(b, kk));
+        }
+        wgmma_commit();
+        if (i > 0) {
+          wgmma_wait<1>();  // item i - 1 is done: its stage and registers
+          release(it - 1);
+        }
+        if (i + 1 < n) {
+          fence_regs(a[(i + 1) & 1]);
+          load(a[(i + 1) & 1], i + 1);
+        }
+        ++it;
+      }
       wgmma_wait_all();
       fence_regs(acc);
-      fence_regs(a);
-#pragma unroll
-      for (int ki = 0; ki < S::kItems; ++ki) release(it + ki);
-      it += S::kItems;
+      fence_regs(a[0]);
+      fence_regs(a[1]);
+      release(it - 1);
     };
 
     for (int board = cluster_id; board < num_boards; board += n_clusters) {
@@ -831,86 +912,65 @@ trunk_segment_cluster_kernel(const bf16* x, bf16* out, const float* __restrict__
         mbar_wait(aff_full, ai & 1u);
         const float* af = aff_s;  // [layers][2][C]
 
-        // 1x1 reduce from x, K in kSplit chunks: act(h, layer 1). No window
-        // is being read: the last exchange followed every 3x3 read, and the
-        // expand reads only this block's own rows.
+        // 1x1 reduce from x, item i = input channels 64 i .. 64 i + 63:
+        // act(h, layer 1).
         {
           float acc[S::kAcc];
           zero_acc(acc);
-          for (int kc = 0; kc < S::kSplit; ++kc) {
-            uint32_t a[S::kKSteps][4];
-            load_x<C, CB>(a, cur, p0, kc, t4);
-            act_x<C, CB>(a, p0, kc, af, t4);
-            chunk_product(acc, a);
+          run_items(acc, C / S::kItemK, [&](uint32_t (&dst)[S::kItemKSteps][4], int i) {
+            load_x<C, S::kItemK>(dst, cur, p0, i, t4);
+            act_x<C, S::kItemK>(dst, p0, i, af, t4);
+          });
+          store_act_window<C, CB>(acc, plane, win0, p0, af + 2 * C, t4);
+          if (inner > 0) {
+            push();
+          } else {
+            consumer_sync<S::kConsumerThreads>();
           }
-          store_act_cluster<C, CB>(acc, plane, win0, rank, p0, af + 2 * C, t4);
-          exchange();
           P3_PHASE(0);
         }
 
-        // Inner 3x3 convolutions, one chunk per tap, item by item: step s
-        // (tap s / kItems, its K slice s % kItems) runs its products while
-        // step s + 1's A fragments load into the other register buffer.
+        // Inner 3x3 convolutions, one chunk per tap: item s is tap s / kItems,
+        // its K slice s % kItems.
         for (int j = 0; j < inner; ++j) {
-          constexpr int kSteps = 9 * S::kItems;
           float acc[S::kAcc];
           zero_acc(acc);
-          uint32_t a[2][S::kItemKSteps][4];
-          const auto load_step = [&](uint32_t (&dst)[S::kItemKSteps][4], int step) {
-            const int o = step / S::kItems;
+          run_items(acc, 9 * S::kItems, [&](uint32_t (&dst)[S::kItemKSteps][4], int i) {
+            const int o = i / S::kItems;
             const int shift = (o / 3 - 1) * kHaloW + (o % 3 - 1);
-            const uint32_t row = plane + ((lrow + shift) * S::kLdT + lcol) * 2 +
-                                 (step % S::kItems) * S::kItemK * 2;
+            const uint32_t row = plane + (lrow + shift) * S::kRowBytes + lcol * 2 +
+                                 (i % S::kItems) * S::kItemK * 2;
 #pragma unroll
             for (int kk = 0; kk < S::kItemKSteps; ++kk) ldmatrix_x4(dst[kk], row + kk * 32);
-          };
-          load_step(a[0], 0);
-          fence_regs(acc);
-#pragma unroll
-          for (int step = 0; step < kSteps; ++step) {
-            const uint32_t b = item_at(it);
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < S::kItemKSteps; ++kk) {
-              wgmma_bf16(acc, a[step & 1][kk], item_desc<S::kItemK>(b, kk));
-            }
-            wgmma_commit();
-            if (step > 0) {
-              wgmma_wait<1>();  // step - 1 is done: its item and registers
-              release(it - 1);
-            }
-            if (step + 1 < kSteps) {
-              fence_regs(a[(step + 1) & 1]);
-              load_step(a[(step + 1) & 1], step + 1);
-            }
-            ++it;
-          }
-          wgmma_wait_all();
-          fence_regs(acc);
-          fence_regs(a[0]);
-          fence_regs(a[1]);
-          release(it - 1);
+          });
           P3_PHASE(1);
           exchange();  // every window's reads of this layer are done
-          store_act_cluster<C, CB>(acc, plane, win0, rank, p0, af + (2 + j) * 2 * C, t4);
-          exchange();  // and its stores are visible
+          store_act_window<C, CB>(acc, plane, win0, p0, af + (2 + j) * 2 * C, t4);
+          if (j + 1 < inner) {
+            push();
+          } else {
+            consumer_sync<S::kConsumerThreads>();
+          }
           P3_PHASE(2);
         }
         // This block's affines are done with (every warp is past the
-        // exchange, so past its last read of them).
+        // last consumer barrier, so past its last read of them).
         if (lane == 0) mbar_arrive(aff_empty);
 
-        // 1x1 expand of the tile's rows, N in kSplit chunks, + residual (in
-        // 64-channel parts), in place in `out`.
+        // 1x1 expand of the tile's rows, N in kSplit chunks, K item by item
+        // from this block's own rows, + residual (in 64-channel parts), in
+        // place in `out`.
         {
-          const uint32_t row = plane + (lrow * S::kLdT + lcol) * 2;
-          uint32_t a[S::kKSteps][4];
-#pragma unroll
-          for (int ks = 0; ks < S::kKSteps; ++ks) ldmatrix_x4(a[ks], row + ks * 32);
+          const uint32_t row = plane + lrow * S::kRowBytes + lcol * 2;
           for (int nc = 0; nc < S::kSplit; ++nc) {
             float acc[S::kAcc];
             zero_acc(acc);
-            chunk_product(acc, a);
+            run_items(acc, S::kItems, [&](uint32_t (&dst)[S::kItemKSteps][4], int i) {
+#pragma unroll
+              for (int kk = 0; kk < S::kItemKSteps; ++kk) {
+                ldmatrix_x4(dst[kk], row + (i * S::kItemK + 16 * kk) * 2);
+              }
+            });
 #pragma unroll
             for (int part = 0; part < CB / 64; ++part) {
               const int c0 = nc * CB + 64 * part;
@@ -1015,6 +1075,19 @@ extern "C" int p3_trunk_segment_grid(int channels, int bottleneck) {
                             &n);
   }
   return err == cudaSuccess ? n * per : -static_cast<int>(err);
+}
+
+// The cluster kernel's row ranges, as it computes them, for the card tests:
+// the window of block `rank` (`window_first`, `window_board_rows`, in grid
+// rows) and the grid rows block `src` pushes into block `dst`'s window
+// after a layer (`push_first`, `push_rows`), when each block owns
+// `tiles_per_block` M tiles.
+extern "C" void p3_trunk_segment_cluster_rows(int rank, int src, int dst, int tiles_per_block,
+                                              int* out) {
+  out[0] = window_first(rank, tiles_per_block) * kHaloW;
+  out[1] = window_board_rows(rank, tiles_per_block) * kHaloW;
+  out[2] = push_first(src, dst, tiles_per_block);
+  out[3] = push_rows(src, dst, tiles_per_block);
 }
 
 #ifdef P3_SEGMENT_PROFILE

@@ -9,10 +9,12 @@ x [N, 361, C] bf16 (channels last, one row per board position):
 * `trunk_segment` runs a run of consecutive bottleneck blocks in one
   launch of `csrc/trunk_segment.cu` `p3_trunk_segment` (wgmma, weights
   staged by bulk-async copies, persistent blocks);
-* `trunk_broadcast` runs one broadcast block in one launch of
-  `csrc/trunk_broadcast.cu` `p3_trunk_broadcast` (wgmma for all three
-  products, the position mix streamed by bulk-async copies, persistent
-  blocks).
+* `trunk_broadcast` runs one broadcast block through
+  `csrc/trunk_broadcast.cu` `p3_trunk_broadcast`: one kernel at C <= 128
+  (wgmma for all three products, the position mix streamed by bulk-async
+  copies, persistent blocks), three at C = 256 and 384 (conv_first, the
+  mix, conv_last, each a warp-specialised wgmma GEMM with its part of the
+  elementwise chain fused).
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs its plain version (`trunk_segment_reference`,
@@ -28,12 +30,13 @@ Each wrapper counts its launches in `.launches`.
 
 Widths: the segment kernel takes (C, Cb) in SEGMENT_WIDTHS and the
 broadcast kernel C in BROADCAST_WIDTHS. At C = 64 and 128 a block holds a
-whole board; at C = 256 and 384 a board is split over a thread-block
-cluster (SEGMENT_CLUSTER, BROADCAST_CLUSTER: by positions for a segment,
-by channels for a broadcast block). A width below the smallest kernel
-width (`tiny`, C = 16, Cb = 8) runs the smallest kernel zero-padded
-(`segment_kernel_width`, `pad_segment`, `pad_broadcast`): x gets zero
-channels, the weights zero rows and columns and the affines a = b = 0, and
+whole board; at C = 256 and 384 a segment splits a board's positions over
+a thread-block cluster (SEGMENT_CLUSTER) and a broadcast block runs as
+three kernels (BROADCAST_WIDE) with m in device memory between them. A
+width below the smallest kernel width (`tiny`, C = 16, Cb = 8) runs the
+smallest kernel zero-padded (`segment_kernel_width`, `pad_segment`,
+`pad_broadcast`): x gets zero channels, the weights zero rows and columns
+and the affines a = b = 0, and
 the output is sliced back. That is exact in value: mish(0) = 0, so a padded
 channel stays 0 and adds +0 to every sum. `with_packed_segment` /
 `with_packed_broadcast` pack once, padded where needed. A width no kernel
@@ -43,8 +46,8 @@ The segment kernel reads its weights as `pack_segment` lays them out: a
 stream of Cb x Cb chunks in the shared-memory layout of the wgmma B operand,
 packed once on the host. `unpack_segment` inverts it, and
 `segment_tile_positions` / `TAP_SHIFTS` spell out the kernel's M tiling of
-the zero-haloed 21x21 grid. The broadcast kernel reads `pack_broadcast`'s
-layout (Wf and Wl as B operands, WdT as a stream of A-operand chunks),
+the zero-haloed 21x21 grid. The broadcast kernels read `pack_broadcast`'s
+layout (Wf and Wl as B operands, WdT as A-operand chunks or tiles),
 inverted by `unpack_broadcast`. The CPU tests hold all of them.
 """
 from __future__ import annotations
@@ -71,12 +74,19 @@ MIX_CHUNK_COLS = 32
 SEGMENT_WIDTHS = ((64, 32), (128, 64), (256, 128), (384, 192))
 BROADCAST_WIDTHS = (64, 128, 256, 384)
 MAX_INNER = 3
-# The widths whose kernel splits a board over a thread-block cluster, and
-# the cluster's blocks: a segment by M tiles (each block TILE_ROWS * 6 /
-# blocks positions), a broadcast block by channels (64 a block).
+# The segment widths whose kernel splits a board over a thread-block
+# cluster, and the cluster's blocks (each TILE_ROWS * 6 / blocks positions).
 SEGMENT_CLUSTER = {(256, 128): 2, (384, 192): 3}
-BROADCAST_CLUSTER = {256: 4, 384: 6}
-BROADCAST_SLICE = 64
+# The broadcast widths that run as three kernels (conv_first, the mix,
+# conv_last). conv_first's B items are BROADCAST_ITEM_WF = (N, K) = 64
+# output columns by 64 K rows of Wf (8 KB), conv_last's BROADCAST_ITEM_WL =
+# 128 by 64 of Wl (16 KB), each in the order (n tile, K chunk); the mix's
+# are m's, which conv_first writes as scratch [N, 6, C/8, 8, 64]: per board
+# and 64-position chunk, B^T [C channels][64 positions] in 8x8 core
+# matrices, read 128 channels (16 KB) at a time.
+BROADCAST_WIDE = (256, 384)
+BROADCAST_ITEM_WF = (64, 64)
+BROADCAST_ITEM_WL = (128, 64)
 # The segment kernel streams a chunk as items of this many K rows (input
 # channels) where it is not the whole chunk: at (384, 192) every consumer
 # group reads every item, a 192 x 64 third of the chunk.
@@ -364,26 +374,51 @@ def broadcast_packed_size(channels: int) -> int:
     return 2 * channels * channels + MIX_PAD * MIX_PAD
 
 
+def _wide_items(bt: torch.Tensor, item: Tuple[int, int]) -> torch.Tensor:
+    """B^T [C n][C k] -> the wide kernels' items: for each n tile and K
+    chunk of `item` = (n, k) (n tile major), the piece in core matrices
+    (`_to_cores`), flattened."""
+    C = bt.shape[0]
+    n_item, k_item = item
+    items = bt.reshape(C // n_item, n_item, C // k_item, k_item).transpose(1, 2)
+    return _to_cores(items).flatten()
+
+
+def _from_wide_items(flat: torch.Tensor, C: int, item: Tuple[int, int]) -> torch.Tensor:
+    """Inverse of `_wide_items`."""
+    n_item, k_item = item
+    items = _from_cores(flat.reshape(C // n_item, C // k_item, n_item * k_item), n_item,
+                        k_item)
+    return items.transpose(1, 2).reshape(C, C)
+
+
 def pack_broadcast(w: BroadcastWeights) -> torch.Tensor:
-    """The broadcast kernel's weights, bf16 [2 C^2 + 384^2], in the layouts
-    its wgmma descriptors read (`_to_cores`), packed once on the host:
+    """The broadcast kernels' weights, bf16 [2 C^2 + 384^2], in the layouts
+    their wgmma descriptors read (`_to_cores`), packed once on the host.
+    At C = 64 and 128 (one kernel):
     * Wf as B^T [n][k] (C x C), K (input channels) in `reduce_k_order`, so a
       lane's 16-byte load of x is its conv_first A fragments;
     * Wl as B^T [n][k], N (output channels) in `reduce_k_order`, so a lane's
-      conv_last accumulators are 8 contiguous channels of the residual; at
-      the cluster widths (BROADCAST_CLUSTER) its K too, since conv_last's A
-      is then loaded from shared memory as conv_first's is;
+      conv_last accumulators are 8 contiguous channels of the residual;
     * WdT [384, 384] as the mix's A stream: for each M tile t of 64
       destination rows q and each chunk c of MIX_CHUNK_COLS source columns
       p, the chunk WdT[64 t:, 32 c:] (64 x 32) at (t * 12 + c) * 2048.
-    A cluster block r reads rows 64 r .. 64 r + 63 of Wf's and Wl's B^T,
-    each contiguous (C * 64 elements from 64 r * C)."""
+    At BROADCAST_WIDE (three kernels):
+    * Wf and Wl as B^T [n][k] with K and N both in `reduce_k_order` (m's
+      and the output's channels 8 contiguous a lane), as
+      `BROADCAST_ITEM_WF` and `BROADCAST_ITEM_WL` items (`_wide_items`);
+    * WdT as six 64-row tiles, tile t = WdT[64 t:64 t + 64, :] (A [q][p],
+      64 x 384) at t * 24576."""
     C = w.wf.shape[0]
     order = reduce_k_order(C).to(w.wf.device)
+    if C in BROADCAST_WIDE:
+        wf, wl = (t[order][:, order].t() for t in (w.wf, w.wl))
+        return torch.cat([_wide_items(wf, BROADCAST_ITEM_WF), _wide_items(wl, BROADCAST_ITEM_WL),
+                          _to_cores(w.wdt.reshape(MIX_PAD // 64, 64, MIX_PAD)).flatten()
+                          ]).contiguous()
     ct = MIX_PAD // MIX_CHUNK_COLS
     wdt = w.wdt.reshape(MIX_PAD // 64, 64, ct, MIX_CHUNK_COLS).transpose(1, 2)
-    wl = w.wl[order] if C in BROADCAST_CLUSTER else w.wl
-    return torch.cat([_to_cores(w.wf[order].t()), _to_cores(wl[:, order].t()),
+    return torch.cat([_to_cores(w.wf[order].t()), _to_cores(w.wl[:, order].t()),
                       _to_cores(wdt).flatten()]).contiguous()
 
 
@@ -395,10 +430,16 @@ def unpack_broadcast(packed: torch.Tensor, channels: int
         raise ValueError(f"packed {tuple(packed.shape)} is not a broadcast block of C={C}")
     order = reduce_k_order(C).to(packed.device)
     wf = torch.empty((C, C), dtype=packed.dtype, device=packed.device)
-    wf[order] = _from_cores(packed[:C * C], C, C).t()
     wl = torch.empty_like(wf)
-    k_order = order if C in BROADCAST_CLUSTER else torch.arange(C, device=packed.device)
-    wl[k_order[:, None], order[None, :]] = _from_cores(packed[C * C:2 * C * C], C, C).t()
+    if C in BROADCAST_WIDE:
+        wf[order[:, None], order[None, :]] = _from_wide_items(packed[:C * C], C,
+                                                              BROADCAST_ITEM_WF).t()
+        wl[order[:, None], order[None, :]] = _from_wide_items(packed[C * C:2 * C * C], C,
+                                                              BROADCAST_ITEM_WL).t()
+        wdt = _from_cores(packed[2 * C * C:].reshape(MIX_PAD // 64, -1), 64, MIX_PAD)
+        return wf, wdt.reshape(MIX_PAD, MIX_PAD).contiguous(), wl
+    wf[order] = _from_cores(packed[:C * C], C, C).t()
+    wl[:, order] = _from_cores(packed[C * C:2 * C * C], C, C).t()
     ct = MIX_PAD // MIX_CHUNK_COLS
     wdt = (_from_cores(packed[2 * C * C:].reshape(MIX_PAD // 64, ct, -1), 64, MIX_CHUNK_COLS)
            .transpose(1, 2).reshape(MIX_PAD, MIX_PAD))
@@ -446,7 +487,7 @@ def _segment_kernel():
 
 def _broadcast_kernel():
     fn = load_library(SOURCE).p3_trunk_broadcast
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -504,7 +545,8 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
 
 def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     """One broadcast block: x [N, 361, C] bf16 -> a new tensor of the same
-    shape."""
+    shape. One call launches one kernel, or three at BROADCAST_WIDE; it
+    adds one to `.launches` either way."""
     C = w.wf.shape[0]
     width = broadcast_kernel_width(C)
     kc = width if width is not None else C
@@ -539,9 +581,13 @@ def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     if x.shape[0] == 0:
         return out[..., :C]
     fn = _broadcast_kernel()
+    # The three kernels at BROADCAST_WIDE pass m through device memory.
+    m = (torch.empty((x.shape[0] * MIX_PAD * kc,), dtype=torch.bfloat16, device=x.device)
+         if kc in BROADCAST_WIDE else None)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), f_aff.data_ptr(), w.packed.data_ptr(),
-                w.bd.data_ptr(), l_aff.data_ptr(), x.shape[0], kc, _stream(x))
+                w.bd.data_ptr(), l_aff.data_ptr(), None if m is None else m.data_ptr(),
+                x.shape[0], kc, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk broadcast kernel launch failed: cudaError {rc}")
     trunk_broadcast.launches += 1

@@ -1,7 +1,8 @@
 """Measure the fused trunk on an NVIDIA card, beyond what chip_smoke.py prints.
 
-    python3 probe_trunk.py segment [--baseline PATH]
+    python3 probe_trunk.py segment [--baseline PATH | --packed-baseline PATH]
     python3 probe_trunk.py broadcast [--baseline PATH]
+    python3 probe_trunk.py wide --earlier-tree DIR
     python3 probe_trunk.py ply
 
 segment: the segment kernel at the b12c128btl3 widths (C=128, Cb=64, a run
@@ -15,26 +16,46 @@ source file, which must have the C interface of the earlier wmma segment
 kernel (csrc/trunk.cu before the segment kernel moved to
 csrc/trunk_segment.cu: p3_trunk_segment(x, out, aff, wr, w9, we, N,
 n_blocks, inner, C, Cb, stream)), is timed in turns with this one:
-baseline, kernel, kernel, baseline. Then a build of csrc/trunk_segment.cu
+baseline, kernel, kernel, baseline. With --packed-baseline, a segment
+source with this kernel's C interface (the packed weight stream, e.g. an
+earlier commit's csrc/trunk_segment.cu with its headers beside it) is timed
+in turns with this one the same way. Then a build of csrc/trunk_segment.cu
 with -DP3_SEGMENT_PROFILE gives the clock cycles per board-block of each
 phase (consumer warpgroup 0, warp 0; of rank 0 in a cluster) at every
 width, and for the cluster kernel the cycles spent waiting for weight
 items.
 
 broadcast: the broadcast kernel at the b12c128btl3 (C=128), b8c64 (C=64)
-and cluster (C=256, 384) widths, seeded Gaussian inputs and weights, N in
-{512, 2880}, with the persistent grid's blocks: max
+and wide (C=256, 384: three kernels) widths, seeded Gaussian inputs and
+weights, N in {512, 2880}, with the persistent grid's blocks: max
 |d| / max |ref| against the plain version and device time per call (CUDA
-events, median of 5 runs of 10 calls). With --baseline, the broadcast
+events, median of 5 runs of 10 calls; at the wide widths also each of the
+three kernels' device time from profiler kernel records). With --baseline, the broadcast
 kernel of that source file, which must have the C interface of the earlier
 wmma broadcast kernel (csrc/trunk.cu before the redesign:
 p3_trunk_broadcast(x, out, f_aff, wf, wdt [368, 368], bd, l_aff, wl, N, C,
 stream)), is timed in turns with this one: baseline, kernel, kernel,
 baseline. Then a build of csrc/trunk_broadcast.cu with
 -DP3_BROADCAST_PROFILE gives the clock cycles per board of each phase
-(consumer warpgroup 0, warp 0; of rank 0 in a cluster) at every width,
-among them, at C <= 128, the wait for the previous board's mix to free the
-single-buffered m.
+(consumer warpgroup 0, warp 0) at C <= 128, among them the wait for the
+previous board's mix to free the single-buffered m, and at C = 256, 384
+the clock cycles per unit of each stage of the three kernels (thread 0 of
+each block: conv_first per 64-position tile, the mix per board and 128
+channels, conv_last per tile).
+
+wide: the wide kernels of this tree against those of an earlier tree of the
+repo (DIR, e.g. an earlier commit unpacked by `git archive`: its
+p3achygo_tpu_torch/csrc kernels built with nvcc, its weights packed by its
+own ops/trunk.py) and against their library products
+(chip_smoke.segment_library_products / broadcast_library_products), on
+the same seeded inputs and weights: the segment at (256, 128) with 4 blocks
+and (384, 192) with 5 (phase 15's b12c256btl3 and b14c384btl3 segments),
+the broadcast block at C = 256 and 384, N in {512, 2880}. Device time per
+call as chip_smoke.py phase 15 takes it (chip_smoke.device_timing over 10
+calls), in WIDE_ROUNDS rounds of the three in turns (earlier, this,
+library; then library, this, earlier; ...), every reading printed with the
+ratios this / earlier and this / library of each round. Both trees' outputs
+are held against the plain version at N = 512 first.
 
 ply: chip_smoke.py's self-play step (the bench mix, b12c128btl3 bf16 with
 seeded weights, B=256 fresh games) with the fused trunk and with
@@ -49,8 +70,11 @@ CPU mode. Builds go to a temporary directory.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
+import importlib.util
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +82,7 @@ import tempfile
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
@@ -77,12 +102,15 @@ WIDTHS = ((128, 64, 3), (64, 32, 2), (256, 128, 3), (384, 192, 3))  # (C, Cb, in
 BROADCAST_WIDTHS = (128, 64, 256, 384)
 N_TIMED = (512, 2880)
 PHASES = ("block-0 reduce", "3x3 products", "3x3 epilogues", "expand (+ next reduce)")
-CLUSTER_PHASES = ("reduce + store + exchange", "3x3 products", "3x3 exchanges + stores",
+CLUSTER_PHASES = ("reduce + store + push", "3x3 products", "3x3 exchange + store + push",
                   "expand + barrier")
 BROADCAST_PHASES = ("conv_first", "wait for m free", "barrier after conv_first",
                     "mix products", "mix epilogue + conv_last + store")
-CLUSTER_BROADCAST_PHASES = ("exchange + act(x) + exchange", "conv_first", "exchange",
-                            "mix products", "act(z) + exchange + conv_last + store")
+WIDE_SEGMENTS = ((256, 128, 3, 4), (384, 192, 3, 5))  # (C, Cb, inner, blocks), phase 15's
+WIDE_ROUNDS = 3
+WIDE_BROADCAST_STAGES = (("conv_first", ("x load + act(x)", "products", "mish + m store"), 0, 3),
+                         ("mix", ("products", "act(z) + store"), 4, 6),
+                         ("conv_last", ("act(z) load", "products", "residual + store"), 7, 10))
 
 
 def log(msg: str) -> None:
@@ -103,14 +131,15 @@ def kernel_fn(lib: ctypes.CDLL, name: str, n_pointers: int, n_ints: int):
     return fn
 
 
-def seeded_segment(C: int, cb: int, inner: int, gen: torch.Generator):
+def seeded_segment(C: int, cb: int, inner: int, gen: torch.Generator, blocks: int = 3):
     dev = torch.device("cuda")
     r = lambda *s: torch.rand(*s, generator=gen, device=dev)
     n = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    aff = torch.stack([0.7 + 0.6 * r(3, 2 + inner, C), 0.2 * (r(3, 2 + inner, C) - 0.5)], dim=2)
-    w = ops.SegmentWeights(aff.contiguous(), (n(3, C, cb) / C ** 0.5).bfloat16(),
-                           (n(3, inner, 9 * cb, cb) / (9 * cb) ** 0.5).bfloat16(),
-                           (n(3, cb, C) / cb ** 0.5).bfloat16())
+    aff = torch.stack([0.7 + 0.6 * r(blocks, 2 + inner, C),
+                       0.2 * (r(blocks, 2 + inner, C) - 0.5)], dim=2)
+    w = ops.SegmentWeights(aff.contiguous(), (n(blocks, C, cb) / C ** 0.5).bfloat16(),
+                           (n(blocks, inner, 9 * cb, cb) / (9 * cb) ** 0.5).bfloat16(),
+                           (n(blocks, cb, C) / cb ** 0.5).bfloat16())
     return ops.with_packed_segment(w)
 
 
@@ -167,6 +196,41 @@ def phase_cycles(lib: ctypes.CDLL, name: str, fn, x, out, args, n: int):
     return [c / cycles[units] for i, c in enumerate(cycles) if i != units]
 
 
+def wide_cycles(lib: ctypes.CDLL, fn, x, out, args):
+    """The 11 clock counters of the wide broadcast kernels (profile build)
+    over 10 calls after a warm-up."""
+    read = lib.p3_trunk_broadcast_wide_cycles
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    call(fn, x, out, args)
+    torch.cuda.synchronize()
+    read(None, 1)
+    for _ in range(10):
+        call(fn, x, out, args)
+    torch.cuda.synchronize()
+    cycles = (ctypes.c_ulonglong * 11)()
+    if read(cycles, 0) != 0:
+        raise RuntimeError("reading the wide kernels' clocks failed")
+    return list(cycles)
+
+
+def kernel_ms(fn, calls: int = 10) -> dict:
+    """{kernel name: device ms per call} of `fn` from profiler kernel records."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(trunk_\w+?_kernel)<", e.key)
+            name = m.group(1) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def grid_blocks(lib: ctypes.CDLL, name: str, *widths: int) -> int:
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_int] * len(widths)
@@ -179,10 +243,12 @@ def phase_line(names, per) -> str:
                      for name, p in zip(names, per)) + f"; total {sum(per):.0f}"
 
 
-def probe_segment(baseline: str | None, smi: str) -> None:
+def probe_segment(baseline: str | None, smi: str, packed_baseline: str | None = None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
         base = kernel_fn(build(baseline, tmp), "p3_trunk_segment", 6, 5) if baseline else None
+        packed_base = (kernel_fn(build(packed_baseline, tmp), "p3_trunk_segment", 4, 5)
+                       if packed_baseline else None)
         prof_lib = build(os.path.join(cuda_build.CSRC_DIR, ops.SEGMENT_SOURCE), tmp,
                          "-DP3_SEGMENT_PROFILE")
         prof_fn = kernel_fn(prof_lib, "p3_trunk_segment", 4, 5)
@@ -195,7 +261,13 @@ def probe_segment(baseline: str | None, smi: str) -> None:
                 _, rel = chip_smoke.rel_err(kernel(), ops.trunk_segment_reference(x, w))
                 gflop = chip_smoke.segment_work(w, N)[0] / 1e9
                 row = f"C={C} Cb={cb} 3x{inner} N={N} ({gflop:.1f} GFLOP): max rel {rel:.3e}"
-                if base is not None:
+                if packed_base is not None:
+                    base_args = (w.aff.data_ptr(), w.packed.data_ptr(), N, 3, inner, C, cb)
+                    old = lambda: call(packed_base, x, out, base_args)
+                    t = [event_ms(old), event_ms(kernel), event_ms(kernel), event_ms(old)]
+                    row += (f"; packed baseline {t[0]:.4f}/{t[3]:.4f} ms, kernel {t[1]:.4f}/"
+                            f"{t[2]:.4f} ms ({gflop / min(t[1], t[2]):.1f} TFLOP/s)")
+                elif base is not None:
                     old = lambda: call(base, x, out, (w.aff.data_ptr(), w.wr.data_ptr(),
                                                       w.w9.data_ptr(), w.we.data_ptr(),
                                                       N, 3, inner, C, cb))
@@ -224,7 +296,7 @@ def probe_broadcast(baseline: str | None, smi: str) -> None:
                 if baseline else None)
         prof_lib = build(os.path.join(cuda_build.CSRC_DIR, ops.SOURCE), tmp,
                          "-DP3_BROADCAST_PROFILE")
-        prof_fn = kernel_fn(prof_lib, "p3_trunk_broadcast", 6, 2)
+        prof_fn = kernel_fn(prof_lib, "p3_trunk_broadcast", 7, 2)
         for C in BROADCAST_WIDTHS:
             w = seeded_broadcast(C, gen)
             wdt368 = w.wdt[:368, :368].contiguous()  # the wmma kernel's padding
@@ -247,15 +319,108 @@ def probe_broadcast(baseline: str | None, smi: str) -> None:
                     t = event_ms(kernel)
                     row += f"; kernel {t:.4f} ms ({gflop / t:.1f} TFLOP/s)"
                 row += f"; grid {grid_blocks(prof_lib, 'p3_trunk_broadcast_grid', C)} blocks"
+                wide = C in ops.BROADCAST_WIDE
+                if wide:
+                    row += "; " + ", ".join(f"{name} {ms:.4f} ms"
+                                            for name, ms in kernel_ms(kernel).items())
                 log(f"broadcast: {row} [{smi}]")
+                m = (torch.empty(N * ops.MIX_PAD * C, dtype=torch.bfloat16, device="cuda")
+                     if wide else None)
                 args = (w.f_aff.data_ptr(), w.packed.data_ptr(), w.bd.data_ptr(),
+                        w.l_aff.data_ptr(), None if m is None else m.data_ptr(), N, C)
+                if not wide:
+                    per = phase_cycles(prof_lib, "p3_trunk_broadcast_phase_cycles", prof_fn, x,
+                                       out, args, 6)
+                    log(f"broadcast phases C={C} N={N}, clock cycles per board: "
+                        f"{phase_line(BROADCAST_PHASES, per)} [{smi}]")
+                    continue
+                cyc = wide_cycles(prof_lib, prof_fn, x, out, args)
+                for stage, names, first, units in WIDE_BROADCAST_STAGES:
+                    per = [c / cyc[units] for c in cyc[first:units]]
+                    log(f"broadcast stages C={C} N={N}, {stage}, clock cycles per unit: "
+                        f"{phase_line(names, per)} [{smi}]")
+
+
+def earlier_kernels(tree: str, tmp: str):
+    """(the earlier tree's ops/trunk.py as a module, its segment entry point,
+    its broadcast entry point), its two kernel sources built at once. The
+    earlier broadcast has no m scratch argument (6 pointers)."""
+    spec = importlib.util.spec_from_file_location(
+        "earlier_trunk", os.path.join(tree, "p3achygo_tpu_torch", "ops", "trunk.py"))
+    old_ops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old_ops)
+    csrc = os.path.join(tree, "p3achygo_tpu_torch", "csrc")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        seg = pool.submit(build, os.path.join(csrc, old_ops.SEGMENT_SOURCE), tmp)
+        bc = pool.submit(build, os.path.join(csrc, old_ops.SOURCE), tmp)
+        return (old_ops, kernel_fn(seg.result(), "p3_trunk_segment", 4, 5),
+                kernel_fn(bc.result(), "p3_trunk_broadcast", 6, 2))
+
+
+def turns(fns: dict, smi: str, what: str) -> None:
+    """WIDE_ROUNDS rounds of chip_smoke.device_timing (10 calls) of each fn
+    in `fns` ({"earlier", "this", "library"}), in turns, the order reversed
+    every other round; logs every reading and each round's ratios."""
+    names = list(fns)
+    got = {k: [] for k in names}
+    for i in range(WIDE_ROUNDS):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            ms, how = chip_smoke.device_timing(fns[k], 10)
+            got[k].append(ms)
+            if how != "profiler kernel records":
+                log(f"wide: {what} {k} round {i} timed by {how}")
+    ratio = lambda a, b: [x / y for x, y in zip(got[a], got[b])]
+    span = lambda v: f"{min(v):.4f}-{max(v):.4f}"
+    log(f"wide: {what}: " + "; ".join(f"{k} {'/'.join(f'{t:.4f}' for t in got[k])} ms"
+                                      for k in names)
+        + f"; this/earlier {span(ratio('this', 'earlier'))}; this/library "
+          f"{span(ratio('this', 'library'))} (device ms per call, device_timing, "
+          f"{WIDE_ROUNDS} rounds in turns) [{smi}]")
+
+
+def probe_wide(tree: str, smi: str) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        old_ops, old_seg, old_bc = earlier_kernels(tree, tmp)
+        for C, cb, inner, blocks in WIDE_SEGMENTS:
+            w = seeded_segment(C, cb, inner, gen, blocks)
+            old_packed = old_ops.pack_segment(w)
+            for N in N_TIMED:
+                x = torch.randn(N, 361, C, generator=gen, device="cuda").bfloat16()
+                out = torch.empty_like(x)
+                args = (w.aff.data_ptr(), old_packed.data_ptr(), N, blocks, inner, C, cb)
+                fns = {"earlier": lambda: call(old_seg, x, out, args),
+                       "this": lambda: ops.trunk_segment(x, w),
+                       "library": chip_smoke.segment_library_products(w, x)}
+                what = f"segment C={C} Cb={cb} {blocks}x{inner} N={N}"
+                if N == min(N_TIMED):
+                    want = ops.trunk_segment_reference(x, w)
+                    fns["earlier"]()
+                    rel = (chip_smoke.rel_err(out, want)[1],
+                           chip_smoke.rel_err(fns["this"](), want)[1])
+                    log(f"wide: {what}: max rel vs plain, earlier {rel[0]:.3e}, this "
+                        f"{rel[1]:.3e}")
+                turns(fns, smi, what)
+        for C in ops.BROADCAST_WIDE:
+            w = seeded_broadcast(C, gen)
+            old_packed = old_ops.pack_broadcast(w)
+            for N in N_TIMED:
+                x = torch.randn(N, 361, C, generator=gen, device="cuda").bfloat16()
+                out = torch.empty_like(x)
+                args = (w.f_aff.data_ptr(), old_packed.data_ptr(), w.bd.data_ptr(),
                         w.l_aff.data_ptr(), N, C)
-                per = phase_cycles(prof_lib, "p3_trunk_broadcast_phase_cycles", prof_fn, x,
-                                   out, args, 6)
-                names = (CLUSTER_BROADCAST_PHASES if C in ops.BROADCAST_CLUSTER
-                         else BROADCAST_PHASES)
-                log(f"broadcast phases C={C} N={N}, clock cycles per board: "
-                    f"{phase_line(names, per)} [{smi}]")
+                fns = {"earlier": lambda: call(old_bc, x, out, args),
+                       "this": lambda: ops.trunk_broadcast(x, w),
+                       "library": chip_smoke.broadcast_library_products(w, x)}
+                what = f"broadcast C={C} N={N}"
+                if N == min(N_TIMED):
+                    want = ops.trunk_broadcast_reference(x, w)
+                    fns["earlier"]()
+                    rel = (chip_smoke.rel_err(out, want)[1],
+                           chip_smoke.rel_err(fns["this"](), want)[1])
+                    log(f"wide: {what}: max rel vs plain, earlier {rel[0]:.3e}, this "
+                        f"{rel[1]:.3e}")
+                turns(fns, smi, what)
 
 
 def ply_run(eval_fn, seed: int):
@@ -316,20 +481,29 @@ def probe_ply(smi: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("segment", "broadcast", "ply"))
+    parser.add_argument("what", choices=("segment", "broadcast", "wide", "ply"))
     parser.add_argument("--baseline",
                         help="an earlier kernel source: for segment, one with the wr/w9/we "
                              "C interface; for broadcast, one with the wf/wdt/wl C interface")
+    parser.add_argument("--packed-baseline",
+                        help="for segment: an earlier segment source with this kernel's C "
+                             "interface (the packed weight stream)")
+    parser.add_argument("--earlier-tree",
+                        help="for wide: the root of an earlier tree of this repo")
     args = parser.parse_args()
+    if args.what == "wide" and not args.earlier_tree:
+        parser.error("wide needs --earlier-tree")
     if not torch.cuda.is_available():
         raise SystemExit("probe_trunk: needs an NVIDIA card (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.smi_line()
     if args.what == "segment":
-        probe_segment(args.baseline, smi)
+        probe_segment(args.baseline, smi, args.packed_baseline)
     elif args.what == "broadcast":
         probe_broadcast(args.baseline, smi)
+    elif args.what == "wide":
+        probe_wide(args.earlier_tree, smi)
     else:
         probe_ply(smi)
     return 0

@@ -7,6 +7,7 @@ but no JAX (the repo's conftest imports JAX, hence `--noconftest`):
     python -m pytest -o addopts= --noconftest -m cuda tests/test_torch_cuda.py
 """
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from p3achygo_tpu_torch.models.model import build_model, init_params
 from p3achygo_tpu_torch.nn.serve_q import ServeQNet, calibrate
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
 from p3achygo_tpu_torch.ops import conv_i8 as ci
+from p3achygo_tpu_torch.ops.cuda_build import load_library
 from p3achygo_tpu_torch.ops import liberties as tl
 from p3achygo_tpu_torch.ops import trunk as tk
 from p3achygo_tpu_torch.mcts.tree import make_tree
@@ -94,8 +96,9 @@ def test_callers_on_card_agree_with_cpu(boards):
 
 
 # Every width the trunk kernels take: (64, 32) / 64 and (128, 64) / 128 a
-# board a block; (256, 128) / 256 and (384, 192) / 384 a board over a
-# cluster; tiny (16, 8) / 16 through the smallest kernels zero-padded.
+# board a block; (256, 128) and (384, 192) a board over a cluster, 256 and
+# 384 a broadcast block as three kernels; tiny (16, 8) / 16 through the
+# smallest kernels zero-padded.
 TRUNK_NAMES = ["b8c64", "b12c128btl3", "b12c256btl3", "b14c384btl3", "tiny"]
 CLUSTER_NAMES = ["b12c256btl3", "b14c384btl3"]
 
@@ -134,12 +137,15 @@ def test_trunk_kernels_equal_plain(trunks, device, name, N):
 
 
 @pytest.mark.parametrize("name", CLUSTER_NAMES)
-@pytest.mark.parametrize("N", [1, 2, 5, 13])
+@pytest.mark.parametrize("N", [1, 2, 5, 13, 133, 512])
 def test_cluster_kernels_below_and_off_the_cluster_size(trunks, device, name, N):
-    """The cluster kernels (2 blocks a segment cluster at C = 256, 6 at 384;
-    4 and 6 a broadcast cluster) on fewer boards than a cluster has blocks
-    and on counts that are no multiple of it: every board computed, equal
-    to the plain version."""
+    """The kernels of the C = 256 / 384 widths (the segment over a cluster
+    of 2 / 3 blocks; the broadcast block as three kernels, conv_first's
+    and conv_last's units a board's 64-position tile, two or three a block
+    pass, the mix's grid even) on fewer boards than a cluster, a block pass
+    or the persistent grid, on counts that are no multiple of them and on
+    more boards than the grid: every board computed, equal to the plain
+    version."""
     fn = trunks[name]
     channels = fn.segments[0].weights.wr.shape[1]
     gen = torch.Generator(device=device).manual_seed(20 + N)
@@ -151,6 +157,74 @@ def test_cluster_kernels_below_and_off_the_cluster_size(trunks, device, name, N)
         for b in range(N):
             assert rel_err(got[b], want[b])[1] <= KERNEL_TOL, (kern.__name__, b)
         x = want
+
+
+@pytest.mark.parametrize("name", CLUSTER_NAMES)
+def test_wide_kernels_launch_nothing_for_an_empty_batch(trunks, device, name):
+    """N = 0 at the C = 256 / 384 widths: an empty result of the input's
+    shape, no launch of either kernel."""
+    fn = trunks[name]
+    before = (tk.trunk_segment.launches, tk.trunk_broadcast.launches)
+    for kern, _, w in fn.segments:
+        channels = fn.segments[0].weights.wr.shape[1]
+        out = kern(torch.zeros((0, 361, channels), dtype=torch.bfloat16, device=device), w)
+        assert out.shape == (0, 361, channels) and out.dtype == torch.bfloat16
+    assert (tk.trunk_segment.launches, tk.trunk_broadcast.launches) == before
+
+
+@pytest.mark.parametrize("C,cb", list(tk.SEGMENT_CLUSTER))
+def test_cluster_pushes_bring_every_halo_row(device, C, cb):
+    """After a layer, block s of a segment cluster pushes the grid rows the
+    built kernel computes (`p3_trunk_segment_cluster_rows`: one contiguous
+    range, the same rows in both windows) to each neighbour r: the range
+    lies in both windows, holds only positions s owns (and halo cells, zero
+    in both), and every position of s that a tap of r's tiles reads is in
+    it. The kernel's windows are `tk.cluster_window`'s. The bytes fit a bulk
+    copy (rows of (Cb + 8) * 2 bytes, a multiple of 16)."""
+    fn = load_library(tk.SEGMENT_SOURCE).p3_trunk_segment_cluster_rows
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = None
+    R = tk.SEGMENT_CLUSTER[(C, cb)]
+    tb = 6 // R
+
+    def kernel_rows(rank, src, dst):
+        out = (ctypes.c_int * 4)()
+        fn(rank, src, dst, tb, out)
+        return tuple(out)
+
+    assert (cb + 8) * 2 % 16 == 0
+    tiles = tk.segment_tile_positions()
+    owner = {p: r for r in range(R) for p in tiles[r * tb:(r + 1) * tb].flatten().tolist()
+             if p >= 0}
+    windows = [kernel_rows(r, 0, 0)[:2] for r in range(R)]
+    assert windows == [tk.cluster_window(r, tb) for r in range(R)]
+    for r in range(R):
+        mine = tiles[r * tb:(r + 1) * tb].flatten()
+        p = torch.where(mine >= 0, mine, 360)
+        read = set()
+        for shift in tk.TAP_SHIFTS:
+            for g in (tk.halo_row(p) + shift).tolist():
+                hi, hj = g // 21, g % 21
+                if 1 <= hi <= 19 and 1 <= hj <= 19:
+                    read.add((hi - 1) * 19 + hj - 1)
+        for s in range(R):
+            if s == r:
+                continue
+            first, n = kernel_rows(0, s, r)[2:]
+            needed = {q for q in read if owner[q] == s}
+            assert bool(needed) == (abs(s - r) == 1) == (n > 0)
+            if n == 0:
+                continue
+            for w_first, w_rows in (windows[s], windows[r]):
+                assert w_first <= first and first + n <= w_first + w_rows
+            pushed = set()
+            for g in range(first, first + n):
+                hi, hj = g // 21, g % 21
+                if 1 <= hi <= 19 and 1 <= hj <= 19:
+                    q = (hi - 1) * 19 + hj - 1
+                    assert owner[q] == s
+                    pushed.add(q)
+            assert needed <= pushed
 
 
 @pytest.mark.parametrize("name", TRUNK_NAMES)

@@ -4,9 +4,11 @@ came from and puts each element where the wgmma B descriptor reads it, the
 reduce's K order matches what each lane loads, and the M tiling of the
 zero-haloed grid covers the board exactly once with every tap in bounds;
 at the cluster widths, each block's window of the grid holds every tap of
-its tiles and its neighbours send it every position it does not own, and
-each block's slice of the weights sits where its descriptors read. All
-checks are exact."""
+its tiles and its neighbours' pushes bring it every position it does not
+own. For the broadcast kernels (csrc/trunk_broadcast.cu) the packed
+weights sit where the descriptors read, and at C = 256 and 384 conv_first's
+stores of m meet the mix's descriptor and the channel orders of the three
+kernels agree. All checks are exact."""
 import numpy as np
 import pytest
 import torch
@@ -217,22 +219,42 @@ def test_broadcast_packed_weights_unpack_to_the_originals(C):
 @pytest.mark.parametrize("C", ops.BROADCAST_WIDTHS)
 def test_broadcast_packed_chunks_sit_where_the_descriptor_reads(C):
     """Each k16 step of conv_first, conv_last and the mix, read from the
-    packed image with the kernel's descriptors (w_desc: LBO 128, SBO C/8 *
-    128; wdt_desc: LBO 128, SBO 512 within a 64 x 32 chunk), is the operand
-    the product needs: B^T [n][k] of Wf with K in reduce_k_order, of Wl with
-    N in reduce_k_order (and K, at the cluster widths), and A [q][p] of
-    WdT."""
+    packed image with the kernels' descriptors, is the operand the product
+    needs. At C = 64, 128 (w_desc: LBO 128, SBO C/8 * 128; wdt_desc: LBO
+    128, SBO 512 within a 64 x 32 chunk): B^T [n][k] of Wf with K in
+    reduce_k_order, of Wl with N in reduce_k_order, and A [q][p] of WdT.
+    At C = 256, 384 (item_desc: LBO 128, SBO 1024 within an item of
+    BROADCAST_ITEM_WF or _WL = (n, 64); wdt_tile_desc: LBO 128, SBO 48 * 128
+    within a 64-row tile): B^T [n][k] of Wf and of Wl with K and N in
+    reduce_k_order, item (n tile, K chunk) at (nt * C/64 + kc) * n * 64, and
+    WdT's tile t at t * 24576."""
     w = _bc_weights(C, seed=C + 1)
     img = ops.pack_broadcast(w).view(torch.int16)
     order = ops.reduce_k_order(C)
-    l_order = order if C in ops.BROADCAST_CLUSTER else torch.arange(C)
     wf, wl, wdt = (t.view(torch.int16) for t in (w.wf, w.wl, w.wdt))
+    if C in ops.BROADCAST_WIDE:
+        for mat, base, (n_item, k_item) in ((wf, 0, ops.BROADCAST_ITEM_WF),
+                                            (wl, C * C, ops.BROADCAST_ITEM_WL)):
+            for nt in range(C // n_item):
+                for kc in range(C // k_item):
+                    item = img[base + (nt * (C // k_item) + kc) * n_item * k_item:]
+                    n = order[nt * n_item:(nt + 1) * n_item]
+                    for kk in range(k_item // 16):
+                        k = order[kc * k_item + 16 * kk:kc * k_item + 16 * kk + 16]
+                        assert torch.equal(_desc_read(item, kk * 256, 128, 1024, n_item),
+                                           mat[k][:, n].t())
+        for t in range(6):
+            tile = img[2 * C * C + t * 64 * 384:]
+            for s in range(24):
+                assert torch.equal(_desc_read(tile, s * 256, 128, 48 * 128, 64),
+                                   wdt[64 * t:64 * t + 64, 16 * s:16 * s + 16])
+        return
     for ks in range(C // 16):
         k = torch.arange(16 * ks, 16 * ks + 16)
         assert torch.equal(_desc_read(img, ks * 256, 128, C // 8 * 128, C),
                            wf[order[k]].t())
         assert torch.equal(_desc_read(img[C * C:], ks * 256, 128, C // 8 * 128, C),
-                           wl[l_order[k]][:, order].t())
+                           wl[k][:, order].t())
     stream = img[2 * C * C:]
     per_tile = ops.MIX_PAD // ops.MIX_CHUNK_COLS
     for t in range(6):
@@ -246,8 +268,7 @@ def test_broadcast_packed_chunks_sit_where_the_descriptor_reads(C):
 
 @pytest.mark.parametrize("C", [64, 128])
 def test_broadcast_m_stores_meet_the_mix_descriptor(C):
-    """(C = 64 is also the 64-channel slice of m that each block of a
-    cluster kernel stores, at C = 256 and 384.) conv_first's accumulators (element d[4j + 2h + e] of lane l of warp
+    """conv_first's accumulators (element d[4j + 2h + e] of lane l of warp
     wq: row 64 T + 16 wq + l//4 + 8h, column 8j + 2(l%4) + e), stored by
     `stmatrix .trans` at the kernel's lane addresses (st_addr), give an
     image of m from which the mix's descriptor (m_desc: LBO 128, SBO 48 *
@@ -384,29 +405,85 @@ def test_cluster_items_sit_where_the_descriptor_reads(C, cb):
                                        bt[n0:n0 + ns, k:k + 16])
 
 
-@pytest.mark.parametrize("C", list(ops.BROADCAST_CLUSTER))
-def test_cluster_broadcast_slices_sit_where_the_descriptors_read(C):
-    """Block r of a broadcast cluster (C / 64 blocks) copies rows 64 r ..
-    64 r + 63 of Wf's and of Wl's B^T, 64 * C contiguous elements from
-    64 r * C, and reads k-step 4 s + kk of them (block s's channels 64 s ..
-    64 s + 63 in reduce_k_order) with LBO 128, SBO C/8 * 128: Wf's and Wl's
-    columns of its own output channels over all of K."""
-    R = ops.BROADCAST_CLUSTER[C]
-    assert R * ops.BROADCAST_SLICE == C
-    w = _bc_weights(C, seed=C + 3)
-    img = ops.pack_broadcast(w).view(torch.int16)
-    order = ops.reduce_k_order(C)
-    wf, wl = w.wf.view(torch.int16), w.wl.view(torch.int16)
-    for r in range(R):
-        cols = order[64 * r:64 * r + 64]  # Wl's N is in reduce_k_order
-        f_rows = img[64 * r * C:64 * (r + 1) * C]
-        l_rows = img[C * C + 64 * r * C:C * C + 64 * (r + 1) * C]
-        for s in range(R):
+def _m_offset(C, t, c, p):
+    """Element offset of m[channel c][position 64 t + p] in one board's
+    block of the wide kernels' m scratch [6, C/8, 8, 64]: chunk t, channel
+    core c // 8, position core p // 8, row c % 8, column p % 8."""
+    return ((t * (C // 8) + c // 8) * 8 + p // 8) * 64 + (c % 8) * 8 + p % 8
+
+
+@pytest.mark.parametrize("C", list(ops.BROADCAST_WIDE))
+def test_wide_broadcast_m_stores_meet_the_mix_descriptor(C):
+    """conv_first at C = 256, 384: the accumulators of a 64-column pass nt
+    (BROADCAST_ITEM_WF; element d[4j + 2h + e] of lane l of warp wq: row
+    16 wq + l//4 + 8h of tile t, column 8j + 2(l%4) + e), stored by
+    `stmatrix .trans` at the kernel's lane addresses into the 8 KB staging
+    tile and copied whole to m at ((t * C/8) + 8 nt) * 512, give one
+    board's m, every element written once; the mix reads each 128-channel item (tile t, channel tile
+    ct, 16 KB at (t * C/8 + 16 ct) * 512) with item_desc (LBO 128, SBO 1024)
+    as B^T [128 channel rows][16 positions] of each k16 step."""
+    n_tile = ops.BROADCAST_ITEM_WF[0]
+    m = torch.arange(384 * C, dtype=torch.int32).reshape(384, C)  # m[position][column]
+    img = torch.full((384 * C,), -1, dtype=torch.int32)
+    for t in range(6):
+        for nt in range(C // n_tile):
+            staging = torch.full((n_tile * 64,), -1, dtype=torch.int32)
+            for wq in range(4):
+                for jp in range(n_tile // 16):
+                    addr = []
+                    for lane in range(32):
+                        mi = lane >> 3
+                        addr.append(((mi >> 1) * 8 + 2 * wq + (mi & 1)) * 128
+                                    + (lane & 7) * 16 + jp * 2 * 8 * 128)
+                    for k in range(4):
+                        j, h = 2 * jp + k // 2, k % 2
+                        for lane in range(32):
+                            for e in range(2):
+                                row, col = 2 * (lane % 4) + e, lane // 4
+                                byte = addr[8 * k + row] + col * 2
+                                assert staging[byte // 2] == -1
+                                staging[byte // 2] = m[64 * t + 16 * wq + lane // 4 + 8 * h,
+                                                       n_tile * nt + 8 * j + 2 * (lane % 4) + e]
+            assert bool((staging >= 0).all())
+            start = (t * (C // 8) + nt * (n_tile // 8)) * 512
+            img[start:start + n_tile * 64] = staging
+    assert bool((img >= 0).all())
+    rng = np.random.default_rng(C)
+    for c, p in rng.integers(0, [C, 384], (64, 2)):
+        assert img[_m_offset(C, p // 64, c, p % 64)] == m[p, c]
+    for t in range(6):
+        for ct in range(C // 128):
+            item = img[(t * (C // 8) + 16 * ct) * 512:]
             for kk in range(4):
-                k = order[torch.arange(64 * s + 16 * kk, 64 * s + 16 * kk + 16)]
-                assert set(k.tolist()) <= set(range(64 * s, 64 * s + 64))
-                ks = 4 * s + kk
-                assert torch.equal(_desc_read(f_rows, ks * 256, 128, C // 8 * 128, 64),
-                                   wf[k][:, 64 * r:64 * r + 64].t())
-                assert torch.equal(_desc_read(l_rows, ks * 256, 128, C // 8 * 128, 64),
-                                   wl[k][:, cols].t())
+                assert torch.equal(_desc_read(item, kk * 256, 128, 1024, 128),
+                                   m[64 * t + 16 * kk:64 * t + 16 * kk + 16,
+                                     128 * ct:128 * ct + 128].t())
+
+
+@pytest.mark.parametrize("C", list(ops.BROADCAST_WIDE))
+def test_wide_broadcast_channel_orders_agree(C):
+    """At C = 256, 384 m's rows hold the channels in reduce_k_order (Wf's N
+    is packed so), and the mix's lane t4 holds, in each 32-column group qq
+    of a 128-channel pass ct, accumulator columns 8j + 2 t4 + e (j = 4 qq ..
+    4 qq + 3), which are the 8 contiguous channels 128 ct + 32 qq + 8 t4 ..
+    +7 that its 16-byte store of act(z) writes; conv_last's N (Wl's) is in
+    the same order, so its lane's columns are the 8 contiguous channels of
+    its residual and output."""
+    order = ops.reduce_k_order(C)
+    w = _bc_weights(C, seed=C + 9)
+    n_item, k_item = ops.BROADCAST_ITEM_WF
+    img = ops.pack_broadcast(w).view(torch.int16)
+    wf = w.wf.view(torch.int16)
+    for ct in range(C // 128):
+        for qq in range(4):
+            for t4 in range(4):
+                cols = [128 * ct + 8 * j + 2 * t4 + e
+                        for j in range(4 * qq, 4 * qq + 4) for e in (0, 1)]
+                first = 128 * ct + 32 * qq + 8 * t4
+                assert [int(order[n]) for n in cols] == list(range(first, first + 8))
+    # conv_first's output column n (m's row n) is Wf's column order[n]: the
+    # first k16 step of every n tile holds it.
+    for nt in range(C // n_item):
+        item = img[nt * (C // k_item) * n_item * k_item:]
+        got = _desc_read(item, 0, 128, 1024, n_item)
+        assert torch.equal(got, wf[order[:16]][:, order[nt * n_item:(nt + 1) * n_item]].t())
