@@ -13,12 +13,15 @@ fallback):
              (csrc/trunk_segment.cu) and the int8 conv kernel
              (csrc/conv_i8.cu) with one nvcc each, started together;
              prints each build's seconds, ptxas' register/spill lines and
-             each trunk kernel's count of HGMMA (wgmma) and of all SASS
-             instructions from `cuobjdump -sass`: every width of both trunk
-             kernels (at C = 256 and 384 the segment's cluster kernel and
-             the broadcast block's three kernels, conv_first, the mix and
-             conv_last) must be there with a count > 0, each source held to
-             its own counts
+             each trunk kernel's count of HGMMA (wgmma), HMMA (mma.sync)
+             and all SASS instructions from `cuobjdump -sass`: every width
+             of both trunk kernels (at C = 256 and 384 the segment's
+             cluster kernel and the broadcast block's three kernels,
+             conv_first, the mix and conv_last; at tiny's the small
+             kernels) must be there with a count > 0 of its route's
+             instructions (`trunk_kernel_routes`: HGMMA, tiny's segment
+             HMMA, tiny's broadcast both), each source held to its own
+             counts
              (where cuobjdump is missing the line says so); for conv_i8
              every mode's count of IMMA and GMMA (s8 tensor-core)
              instructions must be > 0 and of IDP4A 0.
@@ -51,9 +54,10 @@ fallback):
              finite). Times at N = 512 and 2880 (device time and wall time
              per call): the fused trunk, the plain trunk, ServeNet's trunk
              and ServeNet's whole forward, and each kernel against its
-             plain version; for the segment and broadcast kernels at both N
-             also their FLOP count, TFLOP/s, bound and share of it, and
-             library_products_ms: the same products alone (segment: bf16
+             plain version; for the segment and broadcast kernels of both
+             configurations at both N also their FLOP count, TFLOP/s,
+             bound and share of it (b8c64's with the plain version's
+             device ms), and library_products_ms: the same products alone (segment: bf16
              F.conv2d for the 3x3s, bf16 torch.matmul for the 1x1s;
              broadcast: bf16 torch.matmul for x.Wf, the batched WdT.m and
              z.Wl), a yardstick the port never calls, since no single
@@ -272,12 +276,14 @@ fallback):
              profiler, in which the cluster segment kernel and the three
              wide broadcast kernels must each have kernel records (the
              records and kernels per wrapper call are printed).
-             Then tiny (16, 8) through the smallest kernels zero-padded:
-             the same kernel and trunk checks; at N = 512 and 2880 each
-             kernel's row as above, its bound on tiny's own work and the
-             padded work's beside it, and its plain version's device ms;
-             one fused eval finite; TINY_PLIES plies of fused self-play
-             (launches per ply) and one profiled ply.
+             Then tiny (16, 8) / 16 on its own kernels: the same kernel
+             and trunk checks; each wrapper call runs exactly one kernel,
+             tiny's own, and no other (no pad or slice); at N = 512 and
+             2880 each kernel's row as above and its plain version's
+             device ms; one fused eval finite; TINY_PLIES plies of fused
+             self-play (launches per ply) and one profiled ply, whose
+             trunk kernel records are tiny's two kernels alone, one a
+             wrapper call.
 
 Phases 7, 8, 9, 10, 11, 12, 13, 14 and 15 print {"learn": ...}, {"gen":
 ...}, {"search": ...}, {"gtp": ...}, {"bus": ...}, {"transformer": ...},
@@ -416,9 +422,9 @@ TRUNK_TOL = 4e-2
 KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broadcast)
 # Phase 15: the fused trunk at the widths whose kernels split a board over a
 # thread-block cluster (segment (256, 128) and (384, 192), broadcast 256 and
-# 384), full depth, and tiny (16, 8) through the smallest kernels zero-
-# padded. The plain versions at these widths take up to ~1 s a call at
-# N = 2880, so they are timed over WIDE_PLAIN_CALLS calls.
+# 384), full depth, and tiny (16, 8) / 16 on its own kernels. The plain
+# versions at the wide widths take up to ~1 s a call at N = 2880, so they
+# are timed over WIDE_PLAIN_CALLS calls.
 WIDE_CONFIGS = ("b12c256btl3", "b14c384btl3")
 WIDE_SEED = 15
 # 4 plies a config (6 before the forwards and tiny's timings were added: a
@@ -431,10 +437,13 @@ WIDE_PLAIN_CALLS = 2
 # call is checked at every N of TRUNK_BATCHES): the plain b14c384btl3 trunk
 # takes seconds at 2880.
 WIDE_TRUNK_BATCHES = (1, 7, 64, 512)
-PADDED_CONFIG = "tiny"
+TINY_CONFIG = "tiny"
+# tiny's kernels, by the wrapper that launches them.
+SMALL_KERNELS = {trunk_ops.trunk_segment: "trunk_segment_small_kernel<16,8>",
+                 trunk_ops.trunk_broadcast: "trunk_broadcast_small_kernel<16>"}
 # Phase 15 also times the whole bf16 forward at each wide config, the model
 # with the fused trunk against ServeNet's folded forward, over this many
-# calls a row, and tiny's padded kernels in self-play over TINY_PLIES plies.
+# calls a row, and tiny's kernels in self-play over TINY_PLIES plies.
 WIDE_FORWARD_CALLS = 3
 TINY_PLIES = 1
 # Published peaks of one H100 SXM (dense bf16 tensor rate, HBM3), for bounds.
@@ -878,6 +887,32 @@ def segment_library_products(w, x):
     return run
 
 
+def trunk_kernel_routes(broadcast: bool) -> dict:
+    """{kernel<widths>: the tensor-core instructions it must hold} of every
+    width of the broadcast (or segment) kernels: HGMMA (wgmma) for all but
+    tiny's, whose segment runs on HMMA (mma.sync) and whose broadcast block
+    on both (the mix on wgmma, conv_first and conv_last on mma.sync)."""
+    if broadcast:
+        routes = {}
+        for c in trunk_ops.BROADCAST_WIDTHS:
+            if c == trunk_ops.BROADCAST_SMALL:
+                routes[f"trunk_broadcast_small_kernel<{c}>"] = ("HGMMA", "HMMA")
+            elif c in trunk_ops.BROADCAST_WIDE:
+                routes.update({f"trunk_broadcast_{k}_kernel<{c}>": ("HGMMA",)
+                               for k in ("first", "mix", "last")})
+            else:
+                routes[f"trunk_broadcast_kernel<{c}>"] = ("HGMMA",)
+        return routes
+    routes = {}
+    for c, cb in trunk_ops.SEGMENT_WIDTHS:
+        if (c, cb) == trunk_ops.SEGMENT_SMALL:
+            routes[f"trunk_segment_small_kernel<{c},{cb}>"] = ("HMMA",)
+        else:
+            kind = "_cluster" if (c, cb) in trunk_ops.SEGMENT_CLUSTER else ""
+            routes[f"trunk_segment{kind}_kernel<{c},{cb}>"] = ("HGMMA",)
+    return routes
+
+
 def sass_counts(source: str, ops=("HGMMA",)):
     """({kernel<widths>: instructions naming one of `ops`}, {kernel<widths>:
     SASS instructions}) in the built library of `source`, from `cuobjdump
@@ -892,7 +927,8 @@ def sass_counts(source: str, ops=("HGMMA",)):
     counts, size, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(trunk_(?:segment|broadcast)(?:_cluster|_first|_mix|_last)?_kernel"
+            m = re.search(r"(trunk_(?:segment|broadcast)(?:_cluster|_first|_mix|_last|_small)?"
+                          r"_kernel"
                           r"|conv_i8_kernel)I((?:Li\d+E)+)", line)
             widths = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
             name = (f"{m.group(1)}<{widths}>" if m
@@ -1004,22 +1040,31 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
     plain trunks, the fused model against the plain bf16 model, and times.
     Inputs are stem activations of the boards of phase 2.
     Returns ({kernel name: max |d|}, {timed row: (device ms, wall ms)},
-    {"<kernel>@N": each trunk kernel's row at each timed N})."""
+    {"<kernel>@N": each trunk kernel's row at each timed N}, {config:
+    the same rows of each other config of TRUNK_CONFIGS, with the plain
+    version's device ms})."""
     max_err = {"trunk_segment": 0.0, "trunk_broadcast": 0.0}
-    times, kernel_rows = {}, {}
+    times, kernel_rows, other_rows = {}, {}, {}
+    plains = {trunk_ops.trunk_segment: trunk_ops.trunk_segment_reference,
+              trunk_ops.trunk_broadcast: trunk_ops.trunk_broadcast_reference}
     for name in TRUNK_CONFIGS:
         model = (forward_model if name == TRUNK_CONFIGS[0]
                  else seeded_model(name, device, gen))
         model.dtype = torch.bfloat16
         stem = stem_activations(model, boards, max(TRUNK_BATCHES))
-        first = check_trunk(name, model, stem, max_err,
-                            TRUNK_TIMED if name == TRUNK_CONFIGS[0] else (), kernel_rows)
+        rows = kernel_rows if name == TRUNK_CONFIGS[0] else other_rows.setdefault(name, {})
+        first = check_trunk(name, model, stem, max_err, TRUNK_TIMED, rows)
         if name != TRUNK_CONFIGS[0]:
+            for kern, plain in plains.items():
+                x, w = first[kern.__name__]
+                for N in TRUNK_TIMED:
+                    k_t, p_t, _ = time_kernel_and_plain(kern, plain, w, x[:N])
+                    rows[f"{kern.__name__}@{N}"].update(wall_ms=k_t[1], plain_ms=p_t[0])
+                    log(f"phase 5: {name} {kern.__name__} N={N}: wall {k_t[1]:.4f} ms per "
+                        f"call; plain device {p_t[0]:.3f} ms")
             continue
-        for kern in (trunk_ops.trunk_segment, trunk_ops.trunk_broadcast):
+        for kern, plain in plains.items():
             x, w = first[kern.__name__]
-            plain = (trunk_ops.trunk_segment_reference if kern is trunk_ops.trunk_segment
-                     else trunk_ops.trunk_broadcast_reference)
             k_t, p_t, bound = time_kernel_and_plain(kern, plain, w, x[:max(TRUNK_TIMED)])
             times[kern.__name__], times[kern.__name__ + "_plain"] = k_t, p_t
             times[kern.__name__ + "_bound"] = bound
@@ -1052,7 +1097,7 @@ def phase_trunk(device, boards, forward_model, forward_batch, gen):
             f"{times[k + '_plain'][0]:.4f} ms; wall {times[k][1]:.4f} vs "
             f"{times[k + '_plain'][1]:.4f} ms; bound {times[k + '_bound'][0]:.4f} ms "
             f"({times[k + '_bound'][1]})")
-    return max_err, times, kernel_rows
+    return max_err, times, kernel_rows, other_rows
 
 
 def kernel_row(kern, w, x, phase: str = "5"):
@@ -1107,6 +1152,34 @@ def check_ply(prev, active, move, pi, after, what: str) -> None:
     err = float((pis.sum(-1) - 1.0).abs().max())
     if err > 1e-4 or pis.shape[1] != NUM_MOVES:
         raise AssertionError(f"{what}: pi_improved sums off by {err}")
+
+
+def cuda_kernel_counts(fn, calls: int = 10, attempts: int = 10) -> dict:
+    """{kernel: launches per call} of every CUDA kernel that `calls` calls of
+    `fn` run, from the profiler's kernel records: the port's kernels named
+    as `kernel_records` names them, others by their profiler key. A kernel
+    with any record counts at least 1, so a dropped record (device_timing)
+    does not hide one, nor a kernel that ran once in the calls. CUPTI
+    sometimes keeps no record of a whole profile: such a profile is taken
+    again, up to `attempts` profiles."""
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+                continue
+            m = re.search(r"((?:trunk|point)_\w*?kernel)(<[\d, ]+>)?", e.key)
+            name = m.group(1) + (m.group(2) or "").replace(" ", "") if m else e.key
+            out[name] = out.get(name, 0) + e.count
+        if out:
+            break
+        log(f"cuda_kernel_counts: a profile of {calls} calls kept no kernel record; taken again")
+    return {k: max(1, round(n / calls)) for k, n in out.items()}
 
 
 def kernel_records(prof) -> dict:
@@ -1211,7 +1284,7 @@ def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS,
 
 def phase_wide_trunk(device, boards, gen):
     """Phase 15: the fused trunk at the widths whose kernels split a board
-    over a thread-block cluster (WIDE_CONFIGS) and tiny's zero-padded route,
+    over a thread-block cluster (WIDE_CONFIGS) and at tiny's (TINY_CONFIG),
     weights seeded from WIDE_SEED. Returns ({kernel: max |d|}, {config:
     measurements})."""
     cpu_gen = torch.Generator().manual_seed(WIDE_SEED)
@@ -1302,61 +1375,63 @@ def phase_wide_trunk(device, boards, gen):
         del model, trunk_fn, fused, f32_out, bf16_out
         torch.cuda.empty_cache()
 
-    # tiny: the smallest kernels, zero-padded.
+    # tiny: its own kernels (SEGMENT_SMALL, BROADCAST_SMALL).
     t0 = time.perf_counter()
-    model = seeded_model(PADDED_CONFIG, device, cpu_gen)
+    model = seeded_model(TINY_CONFIG, device, cpu_gen)
     model.dtype = torch.bfloat16
     stem = stem_activations(model, boards, max(TRUNK_BATCHES))
     rows = {}
-    first = check_trunk(PADDED_CONFIG, model, stem, max_err, TRUNK_TIMED, rows, phase="15",
+    first = check_trunk(TINY_CONFIG, model, stem, max_err, TRUNK_TIMED, rows, phase="15",
                         trunk_batches=WIDE_TRUNK_BATCHES)
-    for kern, (x, w) in first.items():
-        if w.kernel_aff is None:
-            raise AssertionError(f"{PADDED_CONFIG} {kern} did not run zero-padded")
-    # Each row's bound is on tiny's own work (kernel_row); the padded work
-    # the kernel does is beside it.
+    # One kernel a wrapper call, tiny's own, and no other (no pad or slice).
+    calls_kernels = {}
+    for kern, name in SMALL_KERNELS.items():
+        x, w = first[kern.__name__]
+        got = cuda_kernel_counts(lambda: kern(x, w), 10)
+        if got != {name: 1}:
+            raise AssertionError(f"phase 15 {TINY_CONFIG}: a {kern.__name__} call ran {got}, "
+                                 f"not one {name}")
+        calls_kernels[kern.__name__] = got
+    log(f"phase 15: {TINY_CONFIG}: CUDA kernels a wrapper call {calls_kernels}")
     for kern, plain in plains.items():
         x, w = first[kern.__name__]
         for N in TRUNK_TIMED:
             k_t, p_t, _ = time_kernel_and_plain(kern, plain, w, x[:N], 10)
             row = rows[f"{kern.__name__}@{N}"]
-            padded = padded_bound(kern, w, N)
-            row.update(wall_ms=k_t[1], plain_ms=p_t[0], padded_bound_ms=padded[0],
-                       padded_bound_by=padded[1])
-            log(f"phase 15: {PADDED_CONFIG} {kern.__name__} N={N}: wall {k_t[1]:.4f} ms per "
-                f"call; plain device {p_t[0]:.3f} ms; bound of the padded work "
-                f"{padded[0]:.4f} ms ({padded[1]})")
+            row.update(wall_ms=k_t[1], plain_ms=p_t[0])
+            log(f"phase 15: {TINY_CONFIG} {kern.__name__} N={N}: wall {k_t[1]:.4f} ms per "
+                f"call; plain device {p_t[0]:.3f} ms")
     before = {k: k.launches for k in plains}
     out = make_eval_fn(model, use_fused_trunk=True)(type(boards)(*[t[:64] for t in boards]))
     torch.cuda.synchronize()
     for f in out._fields:
         if not bool(torch.isfinite(getattr(out, f)).all()):
-            raise AssertionError(f"phase 15 {PADDED_CONFIG} fused eval {f} not finite")
+            raise AssertionError(f"phase 15 {TINY_CONFIG} fused eval {f} not finite")
     if any(k.launches <= before[k] for k in plains):
-        raise AssertionError(f"phase 15 {PADDED_CONFIG}: the fused eval launched no kernel")
+        raise AssertionError(f"phase 15 {TINY_CONFIG}: the fused eval launched no kernel")
     launches, plies_s, _, profiled = phase_selfplay(
         device, model, gen, make_eval_fn(model, use_fused_trunk=True), TINY_PLIES,
-        f"15 {PADDED_CONFIG}", profiled_ply=True)
-    info[PADDED_CONFIG] = {"seconds": time.perf_counter() - t0, "rows": rows,
-                           "launches": launches,
-                           "launches_per_ply": {k: n / TINY_PLIES for k, n in launches.items()},
-                           "profiled_ply": profiled,
-                           "plies_s": plies_s,
-                           "kernel_width": {"segment": list(trunk_ops.SEGMENT_WIDTHS[0]),
-                                            "broadcast": trunk_ops.BROADCAST_WIDTHS[0]}}
-    log(f"phase 15: {PADDED_CONFIG} through the padded kernels: fused eval on 64 boards "
-        f"finite; {plies_s:.3f} plies/s; {time.perf_counter() - t0:.1f} s")
+        f"15 {TINY_CONFIG}", profiled_ply=True)
+    # The profiled ply ran tiny's kernels and no other trunk kernel, one a
+    # wrapper call (a dropped profiler record reads one low).
+    records = {k: n for k, n in profiled["kernel_records"].items()
+               if k.startswith("trunk_")}
+    for kern, name in SMALL_KERNELS.items():
+        calls = profiled["wrapper_calls"][kern.__name__]
+        if not (calls > 0 and calls - 1 <= records.get(name, 0) <= calls):
+            raise AssertionError(f"phase 15 {TINY_CONFIG}: the profiled ply's {kern.__name__} "
+                                 f"calls {calls} ran {records}")
+    if set(records) != set(SMALL_KERNELS.values()):
+        raise AssertionError(f"phase 15 {TINY_CONFIG}: the profiled ply ran {records}")
+    info[TINY_CONFIG] = {"seconds": time.perf_counter() - t0, "rows": rows,
+                         "launches": launches,
+                         "launches_per_ply": {k: n / TINY_PLIES for k, n in launches.items()},
+                         "kernels_per_wrapper_call": calls_kernels,
+                         "profiled_ply": profiled,
+                         "plies_s": plies_s}
+    log(f"phase 15: {TINY_CONFIG} on its own kernels: fused eval on 64 boards finite; "
+        f"{plies_s:.3f} plies/s; {time.perf_counter() - t0:.1f} s")
     return max_err, info
-
-
-def padded_bound(kern, w, n: int):
-    """The bound (ms, by) of the work a zero-padded call does: w padded to
-    the smallest kernel width, packed as the kernel reads it."""
-    if kern is trunk_ops.trunk_segment:
-        padded = trunk_ops.pad_segment(w, *trunk_ops.SEGMENT_WIDTHS[0])
-        return bound_ms(*segment_work(padded._replace(packed=w.packed), n))
-    padded = trunk_ops.pad_broadcast(w, trunk_ops.BROADCAST_WIDTHS[0])
-    return bound_ms(*broadcast_work(padded._replace(packed=w.packed), n))
 
 
 def play_learn(sl: RLSlice, device):
@@ -3448,27 +3523,26 @@ def main() -> int:
     log(f"phase 1: built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc, started together: " + ", ".join(
             f"{s} {cuda_build.build_seconds(s):.2f} s" for s in sources) + ")")
-    hgmma = {}
-    cluster = lambda widths: "_cluster" if widths in trunk_ops.SEGMENT_CLUSTER else ""
-    broadcast = lambda c: ([f"trunk_broadcast_{k}_kernel<{c}>" for k in ("first", "mix", "last")]
-                           if c in trunk_ops.BROADCAST_WIDE else [f"trunk_broadcast_kernel<{c}>"])
-    for src, kernel_widths in (
-            (trunk_ops.SOURCE, [k for c in trunk_ops.BROADCAST_WIDTHS for k in broadcast(c)]),
-            (trunk_ops.SEGMENT_SOURCE, [f"trunk_segment{cluster((c, cb))}_kernel<{c},{cb}>"
-                                        for c, cb in trunk_ops.SEGMENT_WIDTHS])):
+    tensor_core = {}
+    for src, routes in ((trunk_ops.SOURCE, trunk_kernel_routes(broadcast=True)),
+                        (trunk_ops.SEGMENT_SOURCE, trunk_kernel_routes(broadcast=False))):
         for line in cuda_build.build_log(src).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"phase 1: {line.strip()}")
-        found = sass_counts(src)
-        if found is None:
-            log(f"phase 1: {src}: cuobjdump not found, HGMMA instructions not counted")
+        found = {op: sass_counts(src, (op,)) for op in ("HGMMA", "HMMA")}
+        if found["HGMMA"] is None:
+            log(f"phase 1: {src}: cuobjdump not found, tensor-core instructions not counted")
             continue
-        counts, size = found
-        hgmma.update(counts)
-        log(f"phase 1: {src}: HGMMA (wgmma) instructions per kernel: {counts}; "
-            f"SASS instructions per kernel: {size}")
-        if any(counts.get(k, 0) <= 0 for k in kernel_widths):
-            raise AssertionError(f"{src}: a kernel of {kernel_widths} has no wgmma: {counts}")
+        size = found["HGMMA"][1]
+        counts = {k: {op: found[op][0][k] for op in found} for k in size}
+        tensor_core.update(counts)
+        log(f"phase 1: {src}: HGMMA (wgmma) and HMMA (mma.sync) instructions per kernel: "
+            f"{counts}; SASS instructions per kernel: {size}")
+        short = {k: ops for k, ops in routes.items()
+                 if any(counts.get(k, {}).get(op, 0) <= 0 for op in ops)}
+        if short:
+            raise AssertionError(f"{src}: kernels without their tensor-core instructions "
+                                 f"{short}: {counts}")
     for line in cuda_build.build_log(conv_ops.SOURCE).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"phase 1: {line.strip()}")
@@ -3485,7 +3559,8 @@ def main() -> int:
     log(f"phase 4: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
         f"(informative; {smi})")
 
-    trunk_err, trunk_times, kernel_rows = phase_trunk(device, boards, model, forward_batch,
+    trunk_err, trunk_times, kernel_rows, other_rows = phase_trunk(device, boards, model,
+                                                                  forward_batch,
                                                       cpu_gen)
     fused_launches, f_plies_s, f_moves_s, fused_profiled = phase_selfplay(
         device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6,
@@ -3576,29 +3651,27 @@ def main() -> int:
             "bound_ms": trunk_times[name + "_bound"][0],
             "bound_by": trunk_times[name + "_bound"][1],
             "library_ms": None,
-            "hgmma": {k: v for k, v in hgmma.items() if k.startswith(name)},
+            "tensor_core_instructions": {k: v for k, v in tensor_core.items()
+                                         if k.startswith(name)},
             "timed_batch": n_big,
             "timing": "device time per call from profiler kernel records, "
                       "b12c128btl3, first call of the trunk",
             "library_products_ms": kernel_rows[f"{name}@{n_big}"]["library_products_ms"],
             "by_batch": {k: v for k, v in kernel_rows.items() if k.startswith(name + "@")},
-            "by_width": {cfg: {
-                "launches_phase15": wide_info[cfg]["launches"][name],
-                "launches_per_ply": wide_info[cfg]["launches_per_ply"][name],
-                **{k: v for k, v in wide_info[cfg]["rows"].items()
-                   if k.startswith(name + "@")}} for cfg in WIDE_CONFIGS},
-            "padded": {
-                "what": f"{PADDED_CONFIG} runs the smallest kernel zero-padded (phase 15); "
-                        "bound_ms on its own work, padded_bound_ms on the padded work",
-                "launches_per_ply": wide_info[PADDED_CONFIG]["launches_per_ply"][name],
-                **{k: v for k, v in wide_info[PADDED_CONFIG]["rows"].items()
-                   if k.startswith(name + "@")}},
+            "by_width": {
+                **{cfg: {"launches_phase15": wide_info[cfg]["launches"][name],
+                         "launches_per_ply": wide_info[cfg]["launches_per_ply"][name],
+                         **{k: v for k, v in wide_info[cfg]["rows"].items()
+                            if k.startswith(name + "@")}}
+                   for cfg in WIDE_CONFIGS + (TINY_CONFIG,)},
+                **{cfg: {k: v for k, v in rows.items() if k.startswith(name + "@")}
+                   for cfg, rows in other_rows.items()}},
         })
     kernels[1]["also_replaces"] = "p3achygo_tpu/nn/trunk_kernel.py:146 (btl branch)"
     # Kernel launches per wrapper call and per ply, from the CUDA kernel
     # records of one profiled ply of each fused self-play (phases 6, 15).
     profiled = {TRUNK_CONFIGS[0]: fused_profiled,
-                **{cfg: wide_info[cfg]["profiled_ply"] for cfg in WIDE_CONFIGS + (PADDED_CONFIG,)}}
+                **{cfg: wide_info[cfg]["profiled_ply"] for cfg in WIDE_CONFIGS + (TINY_CONFIG,)}}
     for entry in kernels[:3]:
         name = entry["name"]
         entry["kernels_profiled_ply"] = {cfg: {

@@ -3,8 +3,8 @@
 // (global to shared, shared to global, shared to a peer's shared memory),
 // thread-block clusters (rank, distributed shared memory, cluster barriers,
 // remote mbarrier arrivals, multicast bulk copies, cluster launches), wgmma
-// with f32 accumulators, stmatrix, and the no-swizzle shared-memory
-// descriptor.
+// with f32 accumulators, mma.sync, ldmatrix, stmatrix, and the no-swizzle
+// shared-memory descriptor.
 #pragma once
 
 #include <cstdint>
@@ -123,6 +123,27 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// d += a . b on the tensor cores, one warp, bf16 operands, f32 accumulators
+// (mma.sync). With g = lane / 4, t = lane % 4: m16n8k16's A fragment a[0]
+// = (row g, k 2t, 2t + 1), a[1] = (row g + 8, the same k), a[2] = (row g,
+// k 2t + 8, 2t + 9), a[3] = (row g + 8, k 2t + 8, 2t + 9); B b0 = (k 2t,
+// 2t + 1, column g), b1 = (k 2t + 8, 2t + 9, column g); d[0], d[1] = (row g,
+// columns 2t, 2t + 1), d[2], d[3] = (row g + 8, the same). m16n8k8 takes
+// a0, a1 and b0 alone (K = 8).
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // Stores four 8x8 bf16 matrices transposed: register i of lane t holds row

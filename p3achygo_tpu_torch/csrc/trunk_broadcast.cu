@@ -80,9 +80,11 @@
 // runs as three kernels, conv_first, the mix and conv_last (their own
 // comment, below).
 //
-// Widths: C in {64, 128, 256, 384}; others return cudaErrorInvalidValue
-// (the Python wrapper refuses them first, and runs narrower blocks, such as
-// C = 16, zero-padded to 64).
+// `tiny`'s C = 16 has a kernel of its own, `trunk_broadcast_small_kernel`
+// (8 boards a mix; its comment, below).
+//
+// Widths: C in {16, 64, 128, 256, 384}; others return cudaErrorInvalidValue
+// (the Python wrapper refuses them first).
 //
 // Interface: plain C, for ctypes. Pointers are device pointers, 16-byte
 // aligned; `stream` is a cudaStream_t; `num_boards` >= 1. The function sets
@@ -971,14 +973,358 @@ int launch_broadcast_wide(const void* x, void* out, const void* f_aff, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- C = 16, `tiny`: a group of boards a mix ------------------------------
+//
+// Replaces the broadcast branch of `_make_kernel` at the width of tiny
+// (config/ci-tiny.json, the scale-out dry run), which ran before as the
+// C = 64 kernel zero-padded: 16x its 1x1 products, 4x its mix, 4x its bytes.
+//
+// What bounds it on an H100: x in and out, 23 KB a board (66.5 MB at
+// N = 2880, 0.0200 ms at 3.35 TB/s). The products are 4.2 MFLOP a board,
+// nearly all of them the 361 x 361 mix (0.012 ms at N = 2880); the
+// elementwise chain (act(x, f), mish(h), act(z, l): 48 mish a position,
+// ~5e7 at N = 2880) ~0.025 ms on the SMs' MUFU lanes. One board cannot feed
+// the mix's tensor cores (N = 16), and would read WdT (295 KB) from L2 for
+// 23 KB of its own bytes. So:
+//
+//  - A group of kSmallGroup = 8 boards is one mix: m of the 8 boards, B^T
+//    [8 x 16 channels][384 positions] in shared memory (98 KB), N = 128, so
+//    each WdT chunk serves 8 boards (wgmma m64n128k16, A = WdT chunks by
+//    descriptor, streamed as in the C <= 128 kernel: three producer lanes, a
+//    ring per consumer warpgroup, q tiles g and g + 3 for warpgroup g). WdT's
+//    L2 reads fall 8x. Blocks walk groups by grid stride; the last group's
+//    missing boards compute zeros and store nothing.
+//  - conv_first and conv_last on mma.sync m16n8k16 (K = N = 16) from
+//    registers. x is loaded 8 bytes a lane: channels 4t .. 4t + 3 of rows g,
+//    g + 8, the A fragment with K in `small_k_order`; act(x, f), two
+//    n-tiles, mish, and m stored transposed by stmatrix .trans (positions
+//    361 .. 383 and missing boards zero, so the mix's K padding adds
+//    nothing). The mix's m64n128 accumulators of board b are conv_last's A
+//    fragments (bd, round, act(z, l) in registers); Wl's columns are in
+//    `small_k_order`, so a lane's outputs are 4 contiguous channels and the
+//    residual is loaded, and the output stored, 8 bytes a lane. Wf and Wl
+//    are mma B fragments (`pack_broadcast`), in registers for the kernel.
+//  - conv_first takes a warp's 16 units in batches of four, the next
+//    batch's x loads in flight while this one computes.
+//  - m is single-buffered as in the C <= 128 kernel: a group's first x loads
+//    and products run before the wait for every warp's mix of the group
+//    before (m_free).
+//  - No atomics: two calls on the same input give identical bits.
+//
+// Tried on an H100 and not kept: all 16 units' loads at once (slower),
+// 10 ring stages (slower); every WdT chunk copied from the same 4 KB ran no
+// faster, so the mix does not wait on WdT's L2 reads (a multicast across a
+// cluster would not help). The probe build's clocks (probe_trunk.py broadcast)
+// split a group into conv_first, the mix and its epilogue.
+//
+// Shared memory: m 98,304 B, three rings of 8 stages x 4 KB (98,304), 49
+// mbarriers: 197,000 B, one 512-thread block an SM.
+
+constexpr int kSmallGroup = 8;  // boards a group: the mix's N = 8 x 16
+
+template <int C>
+struct SmallBroadcastShape {
+  static constexpr int kStages = 8;  // per consumer warpgroup
+  static constexpr int kN = kSmallGroup * C;
+  static constexpr int kMBytes = kN * kMixPad * 2;
+  static constexpr int kRingOff = kMBytes;
+  static constexpr int kBarOff = kRingOff + kGroups * kStages * kChunkBytes;
+  static constexpr int kSmem = kBarOff + (2 * kGroups * kStages + 1) * 8;
+  static_assert(C == 16 && kN == 128, "the small kernel's fragments are for C = 16");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// x, out: bf16 [num_boards, 361, 16]; f_aff, l_aff: f32 [2, 16]; packed:
+// bf16 [2 x 256 + 384^2], `pack_broadcast` (Wf's and Wl's B fragment words
+// [n-tile][k-group][32 lanes], then the WdT chunk stream of the C <= 128
+// kernel); bd: f32 [361].
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+trunk_broadcast_small_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                             const float* __restrict__ f_aff, const bf16* __restrict__ packed,
+                             const float* __restrict__ bd, const float* __restrict__ l_aff,
+                             int num_boards) {
+  using S = SmallBroadcastShape<C>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const uint32_t m_s = smem_u32(smem);
+  const uint32_t ring0 = smem_u32(smem + S::kRingOff);
+  const uint32_t bar0 = smem_u32(smem + S::kBarOff);
+  const auto slot = [](int g, uint32_t i) { return g * S::kStages + i % S::kStages; };
+  const auto full = [&](int g, uint32_t i) { return bar0 + 8u * slot(g, i); };
+  const auto empty = [&](int g, uint32_t i) {
+    return bar0 + 8u * (kGroups * S::kStages + slot(g, i));
+  };
+  const auto stage = [&](int g, uint32_t i) { return ring0 + slot(g, i) * kChunkBytes; };
+  const auto parity = [](uint32_t i) { return (i / S::kStages) & 1u; };
+  const uint32_t m_free = bar0 + 8u * (2 * kGroups * S::kStages);  // phase k: group k's mix done
+  const int n_groups = (num_boards + kSmallGroup - 1) / kSmallGroup;
+
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < kGroups; ++g) {
+      for (int s = 0; s < S::kStages; ++s) {
+        mbar_init(full(g, s), 1);
+        mbar_init(empty(g, s), 4);
+      }
+    }
+    mbar_init(m_free, kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // Producers: lane 0 of warp pw < 3 streams warpgroup pw's WdT chunks
+    // (per group its tiles pw and pw + 3, 12 chunks each).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    const int pw = warp - kConsumerWarps;
+    if (lane == 0 && pw < kGroups) {
+      const bf16* stream = packed + 2 * C * C;
+      uint32_t ci = 0;
+      for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+        for (int r = 0; r < kTilesPerGroup; ++r) {
+          const int t = pw + kGroups * r;
+          for (int c = 0; c < kChunksPerTile; ++c, ++ci) {
+            mbar_wait(empty(pw, ci), parity(ci) ^ 1u);
+            mbar_expect_tx(full(pw, ci), kChunkBytes);
+            bulk_load(stage(pw, ci),
+                      stream + static_cast<size_t>(t * kChunksPerTile + c) * kChunkElems,
+                      kChunkBytes, full(pw, ci));
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int g = warp >> 2;
+    const int wq = warp & 3;
+    const int t4 = lane & 3;
+    // B fragment words: [n-tile][k-group] of Wf (K in small_k_order) and of
+    // Wl (N in small_k_order).
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(packed);
+    uint32_t wf[4], wl[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wf[k] = __ldg(words + 32 * k + lane);
+      wl[k] = __ldg(words + C * C / 2 + 32 * k + lane);
+    }
+    const float4 fa = __ldg(reinterpret_cast<const float4*>(f_aff + 4 * t4));
+    const float4 fb = __ldg(reinterpret_cast<const float4*>(f_aff + C + 4 * t4));
+    // conv_last's K (z's channels) 2t, 2t + 1 and 8 + 2t, 8 + 2t + 1.
+    const float2 la0 = __ldg(reinterpret_cast<const float2*>(l_aff + 2 * t4));
+    const float2 la1 = __ldg(reinterpret_cast<const float2*>(l_aff + 8 + 2 * t4));
+    const float2 lb0 = __ldg(reinterpret_cast<const float2*>(l_aff + C + 2 * t4));
+    const float2 lb1 = __ldg(reinterpret_cast<const float2*>(l_aff + C + 8 + 2 * t4));
+    uint32_t ci = 0;  // WdT chunks taken so far
+    int i = 0;        // groups this block has run
+#ifdef P3_BROADCAST_PROFILE
+    long long phase_cycles[6] = {0, 0, 0, 0, 0, 0};  // [5]: groups
+    long long phase_t = clock64();
+#endif
+    for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x, ++i) {
+      const int board0 = grp * kSmallGroup;
+
+      // conv_first: m = bf16(mish(act(x, f) . Wf)). Warp w's unit k < 16 is
+      // board board0 + k / 2, rows 16 s .. 16 s + 15 with s = w + 12 (k % 2),
+      // in batches of four units; a batch's x loads are in flight while the
+      // batch before computes.
+      const auto load_units = [&](uint32_t (&a)[4][4], int kb) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int board = board0 + (kb + kk) / 2;
+          const int p = 16 * (warp + kConsumerWarps * (kk % 2)) + (lane >> 2);
+          uint2 v0 = make_uint2(0u, 0u), v1 = make_uint2(0u, 0u);
+          if (board < num_boards) {
+            const bf16* xb = x + static_cast<size_t>(board) * kPos * C + 4 * t4;
+            if (p < kPos) v0 = __ldg(reinterpret_cast<const uint2*>(xb + p * C));
+            if (p + 8 < kPos) v1 = __ldg(reinterpret_cast<const uint2*>(xb + (p + 8) * C));
+          }
+          a[kk][0] = v0.x;
+          a[kk][1] = v1.x;
+          a[kk][2] = v0.y;
+          a[kk][3] = v1.y;
+        }
+      };
+      uint32_t next[4][4];
+      load_units(next, 0);
+#pragma unroll 1
+      for (int kb = 0; kb < 2 * kSmallGroup; kb += 4) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[kk][r] = next[kk][r];
+        }
+        if (kb + 4 < 2 * kSmallGroup) load_units(next, kb + 4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int b = (kb + kk) / 2;
+          const int s = warp + kConsumerWarps * (kk % 2);
+          const int p = 16 * s + (lane >> 2);
+          if (board0 + b < num_boards) {
+            if (p < kPos) {
+              a[kk][0] = act2_small(a[kk][0], fa.x, fb.x, fa.y, fb.y);
+              a[kk][2] = act2_small(a[kk][2], fa.z, fb.z, fa.w, fb.w);
+            }
+            if (p + 8 < kPos) {
+              a[kk][1] = act2_small(a[kk][1], fa.x, fb.x, fa.y, fb.y);
+              a[kk][3] = act2_small(a[kk][3], fa.z, fb.z, fa.w, fb.w);
+            }
+          }
+          float h0[4], h1[4];
+          zero_acc(h0);
+          zero_acc(h1);
+          mma_16816(h0, a[kk], wf[0], wf[1]);
+          mma_16816(h1, a[kk], wf[2], wf[3]);
+          if (kb == 0 && kk == 0 && i > 0) {
+            P3_PHASE(0);
+            mbar_wait(m_free, (i - 1) & 1);  // the group before has read m
+            P3_PHASE(1);
+          }
+          // stmatrix: matrix mi = lane / 8 is n-tile mi / 2 (channels
+          // 8 (mi / 2) ..), rows 8 (mi % 2) .. of the unit; the lane gives
+          // the address of its channel row lane % 8.
+          const uint32_t v[4] = {pack2(mish_small(h0[0]), mish_small(h0[1])),
+                                 pack2(mish_small(h0[2]), mish_small(h0[3])),
+                                 pack2(mish_small(h1[0]), mish_small(h1[1])),
+                                 pack2(mish_small(h1[2]), mish_small(h1[3]))};
+          const int mi = lane >> 3;
+          stmatrix_x4_trans(
+              m_s + ((2 * b + (mi >> 1)) * kPCores + 2 * s + (mi & 1)) * 128 + (lane & 7) * 16,
+              v);
+        }
+      }
+      fence_proxy_async();  // m's stores before the mix's wgmma reads
+      P3_PHASE(0);
+      consumer_sync<kConsumerThreads>();
+      P3_PHASE(2);
+
+      // Per q tile: z = WdT . m (12 chunks from the ring), then for each
+      // board x + act(bf16(z + bd), l) . Wl from registers.
+#pragma unroll 1
+      for (int r = 0; r < kTilesPerGroup; ++r) {
+        const int q0 = (g + kGroups * r) * kTileRows + wq * 16 + (lane >> 2);  // rows q0, q0 + 8
+        uint2 res[kSmallGroup][2];
+#pragma unroll
+        for (int b = 0; b < kSmallGroup; ++b) {
+          res[b][0] = res[b][1] = make_uint2(0u, 0u);
+          if (board0 + b < num_boards) {
+            const bf16* xb = x + static_cast<size_t>(board0 + b) * kPos * C + 4 * t4;
+            if (q0 < kPos) res[b][0] = __ldg(reinterpret_cast<const uint2*>(xb + q0 * C));
+            if (q0 + 8 < kPos) res[b][1] = __ldg(reinterpret_cast<const uint2*>(xb + (q0 + 8) * C));
+          }
+        }
+        float acc[S::kN / 2];
+        zero_acc(acc);
+        fence_regs(acc);
+        for (int c = 0; c < kChunksPerTile; ++c) {
+          mbar_wait(full(g, ci + c), parity(ci + c));
+          const uint32_t chunk = stage(g, ci + c);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            wgmma_bf16_ss(acc, wdt_desc(chunk, ks), m_desc(m_s, 2 * c + ks));
+          }
+          wgmma_commit();
+          if (c > 0) {
+            wgmma_wait<1>();  // chunk c - 1 is read
+            if (lane == 0) mbar_arrive(empty(g, ci + c - 1));
+          }
+        }
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (lane == 0) {
+          mbar_arrive(empty(g, ci + kChunksPerTile - 1));
+          if (r + 1 == kTilesPerGroup) mbar_arrive(m_free);
+        }
+        ci += kChunksPerTile;
+        P3_PHASE(3);
+
+        // Board b's columns 16 b .. 16 b + 15 are accumulators 8 b .. 8 b + 7:
+        // pairs (row q0, z channels 2t, 2t + 1), (q0 + 8, the same),
+        // (q0, 8 + 2t, 8 + 2t + 1), (q0 + 8, the same): conv_last's A.
+        const float bd0 = q0 < kPos ? __ldg(bd + q0) : 0.0f;
+        const float bd1 = q0 + 8 < kPos ? __ldg(bd + q0 + 8) : 0.0f;
+#pragma unroll
+        for (int b = 0; b < kSmallGroup; ++b) {
+          if (board0 + b >= num_boards) continue;
+          const uint32_t al[4] = {
+              act2_small(pack2(__fadd_rn(acc[8 * b], bd0), __fadd_rn(acc[8 * b + 1], bd0)),
+                         la0.x, lb0.x, la0.y, lb0.y),
+              act2_small(pack2(__fadd_rn(acc[8 * b + 2], bd1), __fadd_rn(acc[8 * b + 3], bd1)),
+                         la0.x, lb0.x, la0.y, lb0.y),
+              act2_small(pack2(__fadd_rn(acc[8 * b + 4], bd0), __fadd_rn(acc[8 * b + 5], bd0)),
+                         la1.x, lb1.x, la1.y, lb1.y),
+              act2_small(pack2(__fadd_rn(acc[8 * b + 6], bd1), __fadd_rn(acc[8 * b + 7], bd1)),
+                         la1.x, lb1.x, la1.y, lb1.y)};
+          float y0[4], y1[4];
+          zero_acc(y0);
+          zero_acc(y1);
+          mma_16816(y0, al, wl[0], wl[1]);  // output channels 4t, 4t + 1
+          mma_16816(y1, al, wl[2], wl[3]);  // 4t + 2, 4t + 3
+          bf16* ob = out + static_cast<size_t>(board0 + b) * kPos * C + 4 * t4;
+          if (q0 < kPos) {
+            const uint2 rv = res[b][0];
+            *reinterpret_cast<uint2*>(ob + q0 * C) = make_uint2(
+                pack2(__fadd_rn(bf16_lo(rv.x), y0[0]), __fadd_rn(bf16_hi(rv.x), y0[1])),
+                pack2(__fadd_rn(bf16_lo(rv.y), y1[0]), __fadd_rn(bf16_hi(rv.y), y1[1])));
+          }
+          if (q0 + 8 < kPos) {
+            const uint2 rv = res[b][1];
+            *reinterpret_cast<uint2*>(ob + (q0 + 8) * C) = make_uint2(
+                pack2(__fadd_rn(bf16_lo(rv.x), y0[2]), __fadd_rn(bf16_hi(rv.x), y0[3])),
+                pack2(__fadd_rn(bf16_lo(rv.y), y1[2]), __fadd_rn(bf16_hi(rv.y), y1[3])));
+          }
+        }
+        P3_PHASE(4);
+      }
+#ifdef P3_BROADCAST_PROFILE
+      ++phase_cycles[5];
+#endif
+    }
+#ifdef P3_BROADCAST_PROFILE
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < 6; ++k) {
+        atomicAdd(&g_phase_cycles[k], static_cast<unsigned long long>(phase_cycles[k]));
+      }
+    }
+#endif
+  }
+}
+
+template <int C>
+int launch_broadcast_small(const void* x, void* out, const void* f_aff, const void* packed,
+                           const void* bd, const void* l_aff, int num_boards,
+                           cudaStream_t stream) {
+  using S = SmallBroadcastShape<C>;
+  if (num_boards < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = trunk_broadcast_small_kernel<C>;
+  static int resident = 0;
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(kernel, kThreads, S::kSmem, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int groups = (num_boards + kSmallGroup - 1) / kSmallGroup;
+  const int grid = groups < resident ? groups : resident;
+  kernel<<<grid, kThreads, S::kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out),
+      static_cast<const float*>(f_aff), static_cast<const bf16*>(packed),
+      static_cast<const float*>(bd), static_cast<const float*>(l_aff), num_boards);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // m: scratch of num_boards * 384 * channels bf16 at channels 256 and 384
-// (the mix's B), unused (may be null) below.
+// (the mix's B), unused (may be null) at the other widths.
 extern "C" int p3_trunk_broadcast(const void* x, void* out, const void* f_aff,
                                   const void* packed, const void* bd, const void* l_aff,
                                   void* m, int num_boards, int channels, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (channels == 16) {
+    return launch_broadcast_small<16>(x, out, f_aff, packed, bd, l_aff, num_boards, s);
+  }
   if (channels == 64) {
     return launch_broadcast<64>(x, out, f_aff, packed, bd, l_aff, num_boards, s);
   }
@@ -999,7 +1345,10 @@ extern "C" int p3_trunk_broadcast(const void* x, void* out, const void* f_aff,
 extern "C" int p3_trunk_broadcast_grid(int channels) {
   int n = 0, mix = 0, last = 0;
   cudaError_t err = cudaErrorInvalidValue;
-  if (channels == 64) {
+  if (channels == 16) {
+    err = resident_blocks(trunk_broadcast_small_kernel<16>, kThreads,
+                          SmallBroadcastShape<16>::kSmem, &n);
+  } else if (channels == 64) {
     err = resident_blocks(trunk_broadcast_kernel<64>, kThreads, BroadcastShape<64>::kSmem, &n);
   } else if (channels == 128) {
     err = resident_blocks(trunk_broadcast_kernel<128>, kThreads, BroadcastShape<128>::kSmem, &n);

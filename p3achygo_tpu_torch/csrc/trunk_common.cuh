@@ -76,6 +76,37 @@ __device__ __forceinline__ uint32_t act2(uint32_t v, float a0, float b0, float a
   return pack2(act_f32(lo_f(v), a0, b0), act_f32(hi_f(v), a1, b1));
 }
 
+// mish_f32 for the tiny-width kernels (C = 16), whose time is the
+// elementwise chain's: the same rounding points in fewer instructions.
+// t = 2^(-|x| log2 e) by one ex2.approx.ftz (a few f32 ulp from expf, ~1e-6
+// relative where |x| is large, against expf's range reduction of six more
+// instructions); n = (x >= 0 ? 1 : t^2) + 2t and d = n + (x >= 0 ? 2t^2 : 2)
+// each one fma whose product by 2 is exact, so each rounds once, where the
+// plain version rounds. Like mish_f32's division, the exp moves a rare bf16
+// rounding by one unit (KERNEL_TOL).
+__device__ __forceinline__ float mish_small(float x) {
+  float t;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fabsf(x) * -1.4426950408889634f));
+  const float tt = __fmul_rn(t, t);
+  const bool pos = x >= 0.0f;
+  const float n = __fmaf_rn(t, 2.0f, pos ? 1.0f : tt);
+  const float d = __fmaf_rn(pos ? tt : 1.0f, 2.0f, n);
+  float q;
+  asm("div.approx.ftz.f32 %0, %1, %2;" : "=f"(q) : "f"(n), "f"(d));
+  return __fmul_rn(x, q);
+}
+
+// The low and high bf16 of a pair as f32, one instruction each.
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+// act2 with mish_small: bf16 pair v -> bf16(mish(v * a + b)) per half.
+__device__ __forceinline__ uint32_t act2_small(uint32_t v, float a0, float b0, float a1,
+                                               float b1) {
+  return pack2(mish_small(__fadd_rn(__fmul_rn(bf16_lo(v), a0), b0)),
+               mish_small(__fadd_rn(__fmul_rn(bf16_hi(v), a1), b1)));
+}
+
 template <int N>
 __device__ __forceinline__ void zero_acc(float (&d)[N]) {
 #pragma unroll

@@ -98,10 +98,12 @@
 //     192 x 64 item, a chunk's K third (122,880), one affine slot of
 //     5 x 2 x 384 f32 (15,360), 16 mbarriers: 222,368 B.
 //
-// Widths: (C, CB) in {(64, 32), (128, 64), (256, 128), (384, 192)}, inner
-// in [0, 3]; others return cudaErrorInvalidValue (the Python wrapper
-// refuses them first, and runs narrower trunks, such as (16, 8), zero-
-// padded to (64, 32)).
+// `tiny`'s (16, 8) has a kernel of its own, `trunk_segment_small_kernel`
+// (many boards an SM, x in registers, mma.sync; its comment, below).
+//
+// Widths: (C, CB) in {(16, 8), (64, 32), (128, 64), (256, 128), (384, 192)},
+// inner in [0, 3]; others return cudaErrorInvalidValue (the Python wrapper
+// refuses them first).
 //
 // Interface: plain C, for ctypes. Pointers are device pointers, 16-byte
 // aligned; `stream` is a cudaStream_t; `num_boards` >= 1. The function sets
@@ -1029,6 +1031,375 @@ int launch_segment_cluster(const void* x, void* out, const void* aff, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the small kernel: (C, CB) = (16, 8), `tiny` --------------------------
+//
+// Replaces `_make_segment_kernel` / `_make_kernel`'s btl branch at the width
+// of tiny (config/ci-tiny.json, the scale-out dry run), which ran before as
+// the (64, 32) kernel zero-padded: 16x its products and 4x its bytes.
+//
+// What bounds it on an H100: a 3-block segment of one 3x3 layer a block is
+// 1.8 MFLOP a board against 23 KB of x in and out, so bytes (66.5 MB at
+// N = 2880, 0.0199 ms at 3.35 TB/s) bound it, and products (0.0052 ms) do
+// not. Next comes the elementwise chain: 32 mish a position and block,
+// ~1.0e8 at N = 2880, each two MUFU operations (ex2 and the reciprocal;
+// ~0.048 ms on the SMs' 16 MUFU lanes at 1.98 GHz), three selects and the
+// bf16 packing on the half-rate integer pipe, ~15 instructions in all
+// (mish_small). In practice the chain and the products' dependency chains
+// decide the time (PERF.md). So the design moves x once, keeps everything
+// between in registers and shared memory, keeps several boards an SM in
+// flight, and spends few instructions that are not the chain's:
+//
+//  - A board a block of kSmallWarps warps, several blocks an SM (no
+//    persistent 512-thread block): one block's barriers and load waits
+//    overlap the others' work. Blocks walk boards by grid stride; the next
+//    board's x comes by one bulk copy (cp.async.bulk, 11,552 bytes) into
+//    shared memory on an mbarrier while this board computes.
+//  - x lives in registers from the first reduce to the last expand. A board
+//    is 24 M tiles of 16 rows (23 hold positions); warp w owns tiles w,
+//    w + 4, ... and keeps their x as mma fragments: lane t of a quad loads
+//    channels 4t .. 4t + 3 of rows g, g + 8, which are logical k (2t, 2t + 1,
+//    2t + 8, 2t + 9) of the reduce's m16n8k16 A fragment (ops/trunk.py
+//    `small_k_order`), and the expand's two m16n8k8 n-tiles put the same
+//    four channels in the same lane's accumulators, with We's columns in
+//    that order. So the expand adds the residual in registers and the next
+//    block's reduce reads act(x) from there; x is stored once, at the end.
+//  - The 3x3 on the tensor cores from a zero-haloed 21x21 grid of the
+//    bottleneck in shared memory, 16 bytes a position (one ldmatrix row):
+//    taps paired into m16n8k16 steps (one ldmatrix.x4 each), the ninth tap
+//    m16n8k8 (ldmatrix.x2). Accumulators of the reduce and of a 3x3 layer
+//    go to the grid after act; the last 3x3 layer's feed the expand from
+//    registers (the accumulator layout is the m16n8k8 A layout). Two grids
+//    alternate, so a layer needs one barrier of its block (its input
+//    written), none between the last 3x3, the expand, the next reduce and
+//    its store.
+//  - Weights as mma B fragments, packed on the host (`pack_segment`): per
+//    block 4 + 9 inner words a lane (two reduce, nine a 3x3 layer, two
+//    expand), loaded coalesced from L1 / L2 once a block and board.
+//  - mish_small: one ex2 and one reciprocal, n and d by exact fmas.
+//  - No atomics: two calls on the same input give identical bits.
+//
+// Tried on an H100 and not kept, none faster: 5 to 8 blocks an SM with
+// fewer registers (spills), 8 or 6 warps a board, a non-persistent grid, x
+// in shared memory between blocks with tiles interleaved two or three at a
+// time, one reciprocal shared by two mish.
+//
+// Shared memory a block: x 11,552 B, two grids 2 x 441 x 16 B, an
+// mbarrier: 25,672 B; 128 threads, at most 128 registers a thread, four
+// blocks an SM.
+
+constexpr int kSmallWarps = 4;
+constexpr int kSmallThreads = 32 * kSmallWarps;
+constexpr int kSmallTiles = 24;  // 16-row M tiles: 384 rows >= 361
+constexpr int kSmallLive = (kPos + 15) / 16;  // 23 tiles hold positions
+constexpr int kSmallTPW = kSmallTiles / kSmallWarps;  // tiles a warp
+constexpr int kSmallMinBlocks = 4;  // blocks an SM (registers: <= 128 a thread)
+
+template <int C, int CB>
+struct SmallShape {
+  static constexpr int kXBytes = kPos * C * 2;
+  static constexpr int kRowBytes = CB * 2;  // a grid row: one position's bottleneck
+  static constexpr int kGridBytes = kHaloGrid * kRowBytes;
+  static constexpr int kGridOff = kXBytes;
+  static constexpr int kBarOff = kGridOff + 2 * kGridBytes;
+  static constexpr int kSmem = kBarOff + 8;
+  static_assert(C == 16 && CB == 8, "the small kernel's fragments are for (16, 8)");
+  static_assert(kXBytes % 16 == 0 && kGridOff % 16 == 0 && kBarOff % 8 == 0, "align");
+};
+
+// acc = act(x, a, b) . Wr: x the tile's fragment (rows g, g + 8; channels
+// 4t .. 4t + 3, as the A fragment), a / b the reduce affine of those
+// channels, w0 / w1 the lane's B fragment; acc rows g, g + 8, bottleneck
+// channels 2t, 2t + 1.
+__device__ __forceinline__ void small_reduce(float (&acc)[4], const uint32_t (&x)[4],
+                                             float4 a, float4 b, uint32_t w0, uint32_t w1) {
+  const uint32_t frag[4] = {act2_small(x[0], a.x, b.x, a.y, b.y),
+                            act2_small(x[1], a.x, b.x, a.y, b.y),
+                            act2_small(x[2], a.z, b.z, a.w, b.w),
+                            act2_small(x[3], a.z, b.z, a.w, b.w)};
+  zero_acc(acc);
+  mma_16816(acc, frag, w0, w1);
+}
+
+// act(bf16(acc), a, b) of rows p0 (acc 0, 1) and p0 + 8 (acc 2, 3),
+// channels 2t, 2t + 1, into the grid at `grid` (pad rows not stored).
+// Plain stores, which the compiler orders against the barriers.
+__device__ __forceinline__ void small_store(unsigned char* grid, int p0, const float (&acc)[4],
+                                            float2 a, float2 b, int t4) {
+  const uint32_t v0 = act2_small(pack2(acc[0], acc[1]), a.x, b.x, a.y, b.y);
+  const uint32_t v1 = act2_small(pack2(acc[2], acc[3]), a.x, b.x, a.y, b.y);
+  if (p0 < kPos) *reinterpret_cast<uint32_t*>(grid + halo_row(p0) * 16 + t4 * 4) = v0;
+  if (p0 + 8 < kPos) *reinterpret_cast<uint32_t*>(grid + halo_row(p0 + 8) * 16 + t4 * 4) = v1;
+}
+
+// ldmatrix without the "memory" clobber of hopper.cuh's, so that the
+// compiler may interleave one tile's grid reads with another's products and
+// stores (a layer reads one grid and stores into the other). The address
+// comes from a base laundered after each barrier (`launder`), which keeps
+// every read after the barrier that publishes its grid.
+__device__ __forceinline__ void small_ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void small_ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+__device__ __forceinline__ uint32_t launder(uint32_t v) {
+  asm volatile("" : "+r"(v)::"memory");
+  return v;
+}
+
+// acc = the 3x3 over the grid for the tile whose ldmatrix row of this lane
+// is at `row` (grid address of position min(p_base + lane % 16, 360)); `off`
+// the byte shifts of taps (2k + lane / 16) for k < 4 and of tap 8; w9 the
+// lane's nine B words, tap by tap.
+__device__ __forceinline__ void small_conv3x3(float (&acc)[4], uint32_t row, const int (&off)[5],
+                                              const uint32_t (&w9)[9]) {
+  zero_acc(acc);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t a[4];
+    small_ldsm_x4(a, row + off[k]);
+    mma_16816(acc, a, w9[2 * k], w9[2 * k + 1]);
+  }
+  uint32_t a0, a1;
+  small_ldsm_x2(a0, a1, row + off[4]);
+  mma_1688(acc, a0, a1, w9[8]);
+}
+
+// x += act(bf16(acc), a, b) . We (rows g, g + 8): the expand's two n-tiles
+// put channels 4t, 4t + 1 (we0) and 4t + 2, 4t + 3 (we1) in this lane.
+__device__ __forceinline__ void small_expand(uint32_t (&x)[4], const float (&acc)[4], float2 a,
+                                             float2 b, uint32_t we0, uint32_t we1) {
+  const uint32_t a0 = act2_small(pack2(acc[0], acc[1]), a.x, b.x, a.y, b.y);
+  const uint32_t a1 = act2_small(pack2(acc[2], acc[3]), a.x, b.x, a.y, b.y);
+  float y0[4], y1[4];
+  zero_acc(y0);
+  zero_acc(y1);
+  mma_1688(y0, a0, a1, we0);
+  mma_1688(y1, a0, a1, we1);
+  x[0] = pack2(__fadd_rn(bf16_lo(x[0]), y0[0]), __fadd_rn(bf16_hi(x[0]), y0[1]));
+  x[1] = pack2(__fadd_rn(bf16_lo(x[1]), y0[2]), __fadd_rn(bf16_hi(x[1]), y0[3]));
+  x[2] = pack2(__fadd_rn(bf16_lo(x[2]), y1[0]), __fadd_rn(bf16_hi(x[2]), y1[1]));
+  x[3] = pack2(__fadd_rn(bf16_lo(x[3]), y1[2]), __fadd_rn(bf16_hi(x[3]), y1[3]));
+}
+
+// x, out: bf16 [num_boards, 361, 16]; aff: f32 [n_blocks, 2 + inner, 2,
+// 16] (layers over the bottleneck use entries 0 .. 7); w: the B fragment
+// words, u32 [n_blocks, 4 + 9 inner, 32 lanes] (`pack_segment`).
+template <int C, int CB>
+__global__ void __launch_bounds__(kSmallThreads, kSmallMinBlocks)
+trunk_segment_small_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                           const float* __restrict__ aff, const uint32_t* __restrict__ w,
+                           int num_boards, int n_blocks, int inner) {
+  using S = SmallShape<C, CB>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const uint32_t xs = smem_u32(smem);
+  // Grid c of the two (c = 0, 1).
+  const auto grid = [&](int c) { return smem + S::kGridOff + c * S::kGridBytes; };
+  const uint32_t bar = smem_u32(smem + S::kBarOff);
+  const int layers = 2 + inner;
+  const int words = 4 + 9 * inner;  // B words a lane and block
+
+  for (int i = threadIdx.x; i < 2 * S::kGridBytes / 16; i += kSmallThreads) {
+    reinterpret_cast<uint4*>(smem + S::kGridOff)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const auto load_board = [&](int board) {
+    mbar_expect_tx(bar, S::kXBytes);
+    bulk_load(xs, x + static_cast<size_t>(board) * kPos * C, S::kXBytes, bar);
+  };
+  if (threadIdx.x == 0) load_board(blockIdx.x);
+
+  // This lane's rows of its tile i (M tile warp + kSmallWarps * i): p0(i)
+  // and p0(i) + 8, and its ldmatrix row's grid offset (pad rows read
+  // position 360), recomputed where used rather than held in registers.
+  const auto p0 = [&](int i) { return 16 * (warp + kSmallWarps * i) + (lane >> 2); };
+  const auto lrow = [&](int i) {
+    const int p = 16 * (warp + kSmallWarps * i) + (lane & 15);
+    return static_cast<uint32_t>(halo_row(p < kPos ? p : kPos - 1) * 16);
+  };
+  int off[5];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int o = 2 * k + (lane >> 4);
+    off[k] = ((o / 3 - 1) * kHaloW + (o % 3 - 1)) * 16;
+  }
+  off[4] = (kHaloW + 1) * 16;  // tap 8: (+1, +1)
+  const auto live = [&](int i) { return warp + kSmallWarps * i < kSmallLive; };
+  const auto aff4 = [&](int blk, int l, int ab) {
+    return __ldg(reinterpret_cast<const float4*>(aff + ((blk * layers + l) * 2 + ab) * C +
+                                                 4 * t4));
+  };
+  const auto aff2 = [&](int blk, int l, int ab) {
+    return __ldg(reinterpret_cast<const float2*>(aff + ((blk * layers + l) * 2 + ab) * C +
+                                                 2 * t4));
+  };
+  const auto word = [&](int blk, int k) {
+    return __ldg(w + (static_cast<size_t>(blk) * words + k) * 32 + lane);
+  };
+
+#ifdef P3_SEGMENT_PROFILE
+  // Warp 0's clocks (probe_trunk.py): [0] the board's x wait and read and
+  // block 0's reduce, [1] the layer barriers, [2] 3x3 layers before a
+  // block's last, [3] the last 3x3 + expand + next reduce, [4] board-blocks,
+  // [5] the output stores.
+  long long phase_cycles[6] = {0, 0, 0, 0, 0, 0};
+  long long phase_t = clock64();
+#endif
+  int cur = 0;  // the grid the next layer reads
+  uint32_t phase = 0;
+  for (int board = blockIdx.x; board < num_boards; board += gridDim.x, phase ^= 1u) {
+    mbar_wait(bar, phase);
+    uint32_t xr[kSmallTPW][4];
+#pragma unroll
+    for (int i = 0; i < kSmallTPW; ++i) {
+      uint2 v0 = make_uint2(0u, 0u), v1 = make_uint2(0u, 0u);
+      if (p0(i) < kPos) v0 = *reinterpret_cast<const uint2*>(smem + p0(i) * 32 + t4 * 8);
+      if (p0(i) + 8 < kPos) v1 = *reinterpret_cast<const uint2*>(smem + (p0(i) + 8) * 32 + t4 * 8);
+      xr[i][0] = v0.x;
+      xr[i][1] = v1.x;
+      xr[i][2] = v0.y;
+      xr[i][3] = v1.y;
+    }
+    __syncthreads();  // every warp has x: the next board may land
+    if (threadIdx.x == 0 && board + static_cast<int>(gridDim.x) < num_boards) {
+      load_board(board + gridDim.x);
+    }
+
+    if (inner == 0) {
+      // No 3x3: each tile runs every block from registers.
+      for (int blk = 0; blk < n_blocks; ++blk) {
+        const float4 ra = aff4(blk, 0, 0), rb = aff4(blk, 0, 1);
+        const float2 ea = aff2(blk, 1, 0), eb = aff2(blk, 1, 1);
+        const uint32_t w0 = word(blk, 0), w1 = word(blk, 1);
+        const uint32_t we0 = word(blk, 2), we1 = word(blk, 3);
+#pragma unroll
+        for (int i = 0; i < kSmallTPW; ++i) {
+          if (!live(i)) continue;
+          float acc[4];
+          small_reduce(acc, xr[i], ra, rb, w0, w1);
+          small_expand(xr[i], acc, ea, eb, we0, we1);
+        }
+      }
+    } else {
+      // Block 0's reduce from x: act(h, layer 1) into grid `cur`.
+      {
+        const float4 ra = aff4(0, 0, 0), rb = aff4(0, 0, 1);
+        const float2 na = aff2(0, 1, 0), nb = aff2(0, 1, 1);
+        const uint32_t w0 = word(0, 0), w1 = word(0, 1);
+#pragma unroll
+        for (int i = 0; i < kSmallTPW; ++i) {
+          if (!live(i)) continue;
+          float acc[4];
+          small_reduce(acc, xr[i], ra, rb, w0, w1);
+          small_store(grid(cur), p0(i), acc, na, nb, t4);
+        }
+      }
+      P3_PHASE(0);
+      for (int blk = 0; blk < n_blocks; ++blk) {
+        for (int j = 0; j < inner; ++j) {
+          __syncthreads();  // grid `cur` is written
+          P3_PHASE(1);
+          const uint32_t src = launder(smem_u32(grid(cur)));
+          unsigned char* dst = grid(cur ^ 1);
+          uint32_t w9[9];
+#pragma unroll
+          for (int o = 0; o < 9; ++o) w9[o] = word(blk, 2 + 9 * j + o);
+          if (j + 1 < inner) {
+            // act(h, layer 2 + j) into the other grid.
+            const float2 na = aff2(blk, 2 + j, 0), nb = aff2(blk, 2 + j, 1);
+#pragma unroll
+            for (int i = 0; i < kSmallTPW; ++i) {
+              if (!live(i)) continue;
+              float acc[4];
+              small_conv3x3(acc, src + lrow(i), off, w9);
+              small_store(dst, p0(i), acc, na, nb, t4);
+            }
+            P3_PHASE(2);
+          } else {
+            // The last 3x3, the expand + residual and, if a block follows,
+            // its reduce and act(h, its layer 1) into the other grid, tile
+            // by tile.
+            const float2 ea = aff2(blk, layers - 1, 0), eb = aff2(blk, layers - 1, 1);
+            const uint32_t we0 = word(blk, words - 2), we1 = word(blk, words - 1);
+            const bool has_next = blk + 1 < n_blocks;
+            const int nx = has_next ? blk + 1 : blk;
+            const float4 ra = aff4(nx, 0, 0), rb = aff4(nx, 0, 1);
+            const float2 na = aff2(nx, 1, 0), nb = aff2(nx, 1, 1);
+            const uint32_t w0 = word(nx, 0), w1 = word(nx, 1);
+#pragma unroll
+            for (int i = 0; i < kSmallTPW; ++i) {
+              if (!live(i)) continue;
+              float acc[4];
+              small_conv3x3(acc, src + lrow(i), off, w9);
+              small_expand(xr[i], acc, ea, eb, we0, we1);
+              if (has_next) {
+                small_reduce(acc, xr[i], ra, rb, w0, w1);
+                small_store(dst, p0(i), acc, na, nb, t4);
+              }
+            }
+            P3_PHASE(3);
+          }
+          cur ^= 1;
+        }
+#ifdef P3_SEGMENT_PROFILE
+        ++phase_cycles[4];
+#endif
+      }
+    }
+
+    bf16* xo = out + static_cast<size_t>(board) * kPos * C;
+#pragma unroll
+    for (int i = 0; i < kSmallTPW; ++i) {
+      if (p0(i) < kPos) {
+        *reinterpret_cast<uint2*>(xo + p0(i) * C + 4 * t4) = make_uint2(xr[i][0], xr[i][2]);
+      }
+      if (p0(i) + 8 < kPos) {
+        *reinterpret_cast<uint2*>(xo + (p0(i) + 8) * C + 4 * t4) = make_uint2(xr[i][1], xr[i][3]);
+      }
+    }
+    P3_PHASE(5);
+  }
+#ifdef P3_SEGMENT_PROFILE
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 6; ++k) {
+      atomicAdd(&g_phase_cycles[k], static_cast<unsigned long long>(phase_cycles[k]));
+    }
+  }
+#endif
+}
+
+template <int C, int CB>
+int launch_segment_small(const void* x, void* out, const void* aff, const void* w,
+                         int num_boards, int n_blocks, int inner, cudaStream_t stream) {
+  using S = SmallShape<C, CB>;
+  if (num_boards < 1 || n_blocks < 1 || inner < 0 || inner > kMaxInner) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = trunk_segment_small_kernel<C, CB>;
+  static int resident = 0;
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(kernel, kSmallThreads, S::kSmem, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = num_boards < resident ? num_boards : resident;
+  kernel<<<grid, kSmallThreads, S::kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const float*>(aff),
+      static_cast<const uint32_t*>(w), num_boards, n_blocks, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int p3_trunk_segment(const void* x, void* out, const void* aff,
@@ -1036,6 +1407,9 @@ extern "C" int p3_trunk_segment(const void* x, void* out, const void* aff,
                                 int inner, int channels, int bottleneck,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (channels == 16 && bottleneck == 8) {
+    return launch_segment_small<16, 8>(x, out, aff, chunks, num_boards, n_blocks, inner, s);
+  }
   if (channels == 64 && bottleneck == 32) {
     return launch_segment<64, 32>(x, out, aff, chunks, num_boards, n_blocks, inner, s);
   }
@@ -1059,7 +1433,10 @@ extern "C" int p3_trunk_segment(const void* x, void* out, const void* aff,
 extern "C" int p3_trunk_segment_grid(int channels, int bottleneck) {
   int n = 0, per = 1;
   cudaError_t err = cudaErrorInvalidValue;
-  if (channels == 64 && bottleneck == 32) {
+  if (channels == 16 && bottleneck == 8) {
+    err = resident_blocks(trunk_segment_small_kernel<16, 8>, kSmallThreads,
+                          SmallShape<16, 8>::kSmem, &n);
+  } else if (channels == 64 && bottleneck == 32) {
     err = resident_blocks(trunk_segment_kernel<64, 32>, kThreads, Shape<64, 32>::kSmem, &n);
   } else if (channels == 128 && bottleneck == 64) {
     err = resident_blocks(trunk_segment_kernel<128, 64>, kThreads, Shape<128, 64>::kSmem, &n);

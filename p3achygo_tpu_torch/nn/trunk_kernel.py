@@ -145,8 +145,8 @@ def build_trunk_weights(config, model: P3achyGoModel
 def _pack_segment(blocks: List[List[torch.Tensor]], channels: int
                   ) -> SegmentWeights:
     """Per-block flat arrays -> the segment kernel's stacked weights, with
-    the kernel's weight stream (`with_packed_segment`, once, here; zero-
-    padded below the smallest kernel width) for the widths it takes."""
+    the kernel's weight stream (`with_packed_segment`, once, here) for the
+    widths it takes."""
     affs, wr, w9, we = [], [], [], []
     for arrs in blocks:
         layers = [arrs[k:k + 3] for k in range(0, len(arrs), 3)]

@@ -29,26 +29,26 @@ rounding by one unit.
 Each wrapper counts its launches in `.launches`.
 
 Widths: the segment kernel takes (C, Cb) in SEGMENT_WIDTHS and the
-broadcast kernel C in BROADCAST_WIDTHS. At C = 64 and 128 a block holds a
-whole board; at C = 256 and 384 a segment splits a board's positions over
-a thread-block cluster (SEGMENT_CLUSTER) and a broadcast block runs as
-three kernels (BROADCAST_WIDE) with m in device memory between them. A
-width below the smallest kernel width (`tiny`, C = 16, Cb = 8) runs the
-smallest kernel zero-padded (`segment_kernel_width`, `pad_segment`,
-`pad_broadcast`): x gets zero channels, the weights zero rows and columns
-and the affines a = b = 0, and
-the output is sliced back. That is exact in value: mish(0) = 0, so a padded
-channel stays 0 and adds +0 to every sum. `with_packed_segment` /
-`with_packed_broadcast` pack once, padded where needed. A width no kernel
-takes raises on the card; nothing falls back to the plain version.
+broadcast kernel C in BROADCAST_WIDTHS. `tiny`'s (16, 8) and 16
+(SEGMENT_SMALL, BROADCAST_SMALL) have kernels of their own: the segment a
+board a block of SMALL_WARPS warps, several blocks an SM, x in registers as
+mma.sync fragments; the broadcast block SMALL_GROUP boards a mix. At C = 64
+and 128 a block holds a whole board; at C = 256 and 384 a segment splits a
+board's positions over a thread-block cluster (SEGMENT_CLUSTER) and a
+broadcast block runs as three kernels (BROADCAST_WIDE) with m in device
+memory between them. `with_packed_segment` / `with_packed_broadcast` pack
+once. A width no kernel takes raises on the card; nothing falls back to
+the plain version.
 
 The segment kernel reads its weights as `pack_segment` lays them out: a
 stream of Cb x Cb chunks in the shared-memory layout of the wgmma B operand,
-packed once on the host. `unpack_segment` inverts it, and
+packed once on the host, or at SEGMENT_SMALL each lane's mma B fragment
+words (`small_k_order`). `unpack_segment` inverts it, and
 `segment_tile_positions` / `TAP_SHIFTS` spell out the kernel's M tiling of
 the zero-haloed 21x21 grid. The broadcast kernels read `pack_broadcast`'s
-layout (Wf and Wl as B operands, WdT as A-operand chunks or tiles),
-inverted by `unpack_broadcast`. The CPU tests hold all of them.
+layout (Wf and Wl as B operands or, at BROADCAST_SMALL, B fragment words;
+WdT as A-operand chunks or tiles), inverted by `unpack_broadcast`. The CPU
+tests hold all of them.
 """
 from __future__ import annotations
 
@@ -71,9 +71,18 @@ MIX_CHUNK_COLS = 32
 # Widths the kernels take: (channels, bottleneck) for a segment, channels
 # for a broadcast block; the segment kernel takes up to MAX_INNER 3x3
 # layers a block.
-SEGMENT_WIDTHS = ((64, 32), (128, 64), (256, 128), (384, 192))
-BROADCAST_WIDTHS = (64, 128, 256, 384)
+SEGMENT_WIDTHS = ((16, 8), (64, 32), (128, 64), (256, 128), (384, 192))
+BROADCAST_WIDTHS = (16, 64, 128, 256, 384)
 MAX_INNER = 3
+# tiny's widths, whose kernels take their weights as mma.sync B fragments
+# (`_mma_b_words`): the segment a board a block of SMALL_WARPS warps, warp w
+# owning the SMALL_TILE_ROWS-row M tiles w, w + SMALL_WARPS, ...; the
+# broadcast block SMALL_GROUP boards a mix.
+SEGMENT_SMALL = (16, 8)
+BROADCAST_SMALL = 16
+SMALL_WARPS = 4
+SMALL_TILE_ROWS = 16
+SMALL_GROUP = 8
 # The segment widths whose kernel splits a board over a thread-block
 # cluster, and the cluster's blocks (each TILE_ROWS * 6 / blocks positions).
 SEGMENT_CLUSTER = {(256, 128): 2, (384, 192): 3}
@@ -111,13 +120,9 @@ class SegmentWeights(NamedTuple):
     wr: torch.Tensor  # bf16 [n_blocks, C, Cb] 1x1 reduce, [Cin, Cout]
     w9: torch.Tensor  # bf16 [n_blocks, inner, 9 * Cb, Cb] 3x3 in OFFSETS order
     we: torch.Tensor  # bf16 [n_blocks, Cb, C] 1x1 expand
-    packed: Optional[torch.Tensor] = None  # bf16 [n_blocks, chunks, Cb' * Cb']:
-    #                    `pack_segment` of the above at the kernel's width
-    #                    (C', Cb') = `segment_kernel_width`, what the kernel
-    #                    reads (needed on the card only)
-    kernel_aff: Optional[torch.Tensor] = None  # f32 [n_blocks, 2 + inner, 2,
-    #                    C']: aff zero-padded to the kernel's width, where it
-    #                    is wider than C (the kernel reads aff otherwise)
+    packed: Optional[torch.Tensor] = None  # bf16 [n_blocks, chunks, Cb * Cb]:
+    #                    `pack_segment` of the above, what the kernel reads
+    #                    (needed on the card only)
 
 
 class BroadcastWeights(NamedTuple):
@@ -129,13 +134,9 @@ class BroadcastWeights(NamedTuple):
     bd: torch.Tensor  # f32 [361]
     l_aff: torch.Tensor  # f32 [2, C]
     wl: torch.Tensor  # bf16 [C, C]
-    packed: Optional[torch.Tensor] = None  # bf16 [2 C'^2 + 384^2]:
-    #                    `pack_broadcast` of the above at the kernel's width
-    #                    C' = `broadcast_kernel_width`, what the kernel reads
+    packed: Optional[torch.Tensor] = None  # bf16 [2 C^2 + 384^2]:
+    #                    `pack_broadcast` of the above, what the kernel reads
     #                    (needed on the card only)
-    kernel_aff: Optional[torch.Tensor] = None  # f32 [2, 2, C']: f_aff and
-    #                    l_aff zero-padded to the kernel's width, where it is
-    #                    wider than C (the kernel reads them otherwise)
 
 
 def _round(t: torch.Tensor) -> torch.Tensor:
@@ -219,6 +220,52 @@ def reduce_k_order(channels: int) -> torch.Tensor:
     return 32 * (ks // 2) + 8 * ((l % 8) // 2) + 4 * (ks % 2) + 2 * (l // 8) + l % 2
 
 
+def small_k_order() -> torch.Tensor:
+    """int64 [16]: the channel at each logical K index of the small kernels'
+    16-channel products (the reduce, conv_first) and at each logical N index
+    (output column) of their 16-channel outputs (the expand, conv_last).
+    Lane t of a quad loads channels 4t .. 4t + 3 of a row, 8 bytes, which
+    are logical k (2t, 2t + 1) and (2t + 8, 2t + 9) of the mma.m16n8k16 A
+    fragment; an output's two 8-column n-tiles put columns 2t, 2t + 1 of
+    n-tile j in the same lane, channels 4t + 2j, 4t + 2j + 1."""
+    l = torch.arange(16)
+    return 4 * ((l % 8) // 2) + 2 * (l // 8) + l % 2
+
+
+def _mma_b_fragments(k: int, n: int, kperm: torch.Tensor, nperm: torch.Tensor):
+    """(rows [K/8, 32, 2], columns [N/8, 32]) of the mma.sync B fragments of
+    a [K, N] matrix whose logical K index i is row kperm[i] and logical N
+    index j column nperm[j]: for n-tile nt, k-group kg (8 K rows: b0 of a
+    m16n8k16 k-step is its group 2s, b1 group 2s + 1; a m16n8k8 step one
+    group) and lane l (g = l // 4, t = l % 4), the 32-bit word holds logical
+    (k 8 kg + 2t, n 8 nt + g) in its low half and (k 8 kg + 2t + 1, the same
+    n) in its high half."""
+    lane = torch.arange(32, device=kperm.device)
+    e = torch.arange(2, device=kperm.device)
+    rows = kperm[8 * torch.arange(k // 8, device=kperm.device)[:, None, None]
+                 + 2 * (lane % 4)[None, :, None] + e[None, None, :]]
+    cols = nperm[8 * torch.arange(n // 8, device=nperm.device)[:, None]
+                 + (lane // 4)[None, :]]
+    return rows, cols
+
+
+def _mma_b_words(w: torch.Tensor, kperm: torch.Tensor, nperm: torch.Tensor) -> torch.Tensor:
+    """w [..., K, N] -> its B fragment words as bf16 [..., N/8, K/8, 32, 2]
+    (n-tile, k-group, lane, half; `_mma_b_fragments`)."""
+    rows, cols = _mma_b_fragments(*w.shape[-2:], kperm.to(w.device), nperm.to(w.device))
+    return w[..., rows[None], cols[:, None, :, None]]
+
+
+def _from_mma_b_words(words: torch.Tensor, k: int, n: int, kperm: torch.Tensor,
+                      nperm: torch.Tensor) -> torch.Tensor:
+    """Inverse of `_mma_b_words`: [..., N/8, K/8, 32, 2] -> [..., K, N]."""
+    rows, cols = _mma_b_fragments(k, n, kperm.to(words.device), nperm.to(words.device))
+    lead = words.shape[:-4]
+    w = words.new_empty((*lead, k, n))
+    w[..., rows[None], cols[:, None, :, None]] = words
+    return w
+
+
 def _chunks_per_block(channels: int, cb: int, inner: int) -> int:
     return 2 * (channels // cb) + 9 * inner
 
@@ -252,12 +299,24 @@ def pack_segment(w: SegmentWeights) -> torch.Tensor:
     no-swizzle K-major layout of a wgmma B descriptor, so one bulk copy
     lands it ready to use. Kc is Cb, or SEGMENT_ITEM_K where the kernel
     streams a chunk as Cb / Kc items: then item i (K rows i Kc .. i Kc +
-    Kc - 1) is laid out so, at element i * Cb * Kc of the chunk."""
+    Kc - 1) is laid out so, at element i * Cb * Kc of the chunk.
+
+    At SEGMENT_SMALL a "chunk" is one 64-element group of mma B fragment
+    words, a 32-bit word a lane (`_mma_b_words`), in the same order: the
+    reduce's two k-groups (K in `small_k_order`), nine a 3x3 layer (k-group
+    o = tap o), the expand's two n-tiles (N in `small_k_order`)."""
     n_blocks, layers = w.aff.shape[:2]
     C, cb = w.wr.shape[1:]
-    if cb % 32 or C % cb:
-        raise ValueError(f"pack_segment needs Cb % 32 == 0 and C % Cb == 0, got {(C, cb)}")
     split, inner = C // cb, layers - 2
+    if (C, cb) == SEGMENT_SMALL:
+        small, nat = small_k_order(), torch.arange(72)
+        parts = ((_mma_b_words(w.wr, small, nat[:cb]), 2),
+                 (_mma_b_words(w.w9, nat, nat[:cb]), 9 * inner),
+                 (_mma_b_words(w.we, nat[:cb], small), 2))
+        return torch.cat([t.reshape(n_blocks, n, 64) for t, n in parts], dim=1).contiguous()
+    if cb % 32 or C % cb:
+        raise ValueError(f"pack_segment needs Cb % 32 == 0 and C % Cb == 0, or "
+                         f"{SEGMENT_SMALL}, got {(C, cb)}")
     order = reduce_k_order(C).to(w.wr.device)
     wr, we = w.wr[:, order, :], w.we[:, :, order]  # [nb, K, Cb], [nb, Cb, N]
     mats = [wr[:, kc * cb:(kc + 1) * cb, :] for kc in range(split)]
@@ -278,6 +337,15 @@ def unpack_segment(packed: torch.Tensor, channels: int, inner: int
     if cb * cb != cc or n_chunks != _chunks_per_block(channels, cb, inner):
         raise ValueError(f"packed {tuple(packed.shape)} is not a segment of "
                          f"C={channels}, inner={inner}")
+    if (channels, cb) == SEGMENT_SMALL:
+        small, nat = small_k_order(), torch.arange(72)
+        wr = _from_mma_b_words(packed[:, :2].reshape(n_blocks, 1, 2, 32, 2), channels, cb,
+                               small, nat[:cb])
+        w9 = _from_mma_b_words(packed[:, 2:2 + 9 * inner].reshape(n_blocks, inner, 1, 9, 32, 2),
+                               9 * cb, cb, nat, nat[:cb])
+        we = _from_mma_b_words(packed[:, 2 + 9 * inner:].reshape(n_blocks, 2, 1, 32, 2), cb,
+                               channels, nat[:cb], small)
+        return wr, w9, we
     ik = SEGMENT_ITEM_K.get((channels, cb), cb)
     b = _from_cores(packed.reshape(n_blocks, n_chunks, cb // ik, cb * ik), cb, ik)
     b = b.transpose(2, 3).reshape(n_blocks, n_chunks, cb, cb).transpose(2, 3)  # [.., k, n]
@@ -291,83 +359,31 @@ def unpack_segment(packed: torch.Tensor, channels: int, inner: int
 
 
 def segment_kernel_width(channels: int, bottleneck: int) -> Optional[Tuple[int, int]]:
-    """The (C, Cb) the segment kernel runs a segment of (channels,
-    bottleneck) at: its own width if a kernel takes it, the smallest kernel
-    width if it fits inside it (zero-padded), else None."""
-    if (channels, bottleneck) in SEGMENT_WIDTHS:
-        return channels, bottleneck
-    smallest = SEGMENT_WIDTHS[0]
-    if channels <= smallest[0] and bottleneck <= smallest[1]:
-        return smallest
-    return None
+    """(channels, bottleneck) if a segment kernel takes that width, else
+    None."""
+    return (channels, bottleneck) if (channels, bottleneck) in SEGMENT_WIDTHS else None
 
 
 def broadcast_kernel_width(channels: int) -> Optional[int]:
-    """The C the broadcast kernel runs a block of `channels` at (as
-    `segment_kernel_width`)."""
-    if channels in BROADCAST_WIDTHS:
-        return channels
-    return BROADCAST_WIDTHS[0] if channels <= BROADCAST_WIDTHS[0] else None
-
-
-def pad_segment(w: SegmentWeights, channels: int, bottleneck: int) -> SegmentWeights:
-    """w zero-padded to (channels, bottleneck): affines a = b = 0 and zero
-    rows and columns of every weight past the real ones (`packed` dropped)."""
-    n_blocks, layers = w.aff.shape[:2]
-    C, cb = w.wr.shape[1:]
-    inner = layers - 2
-    aff = w.aff.new_zeros((n_blocks, layers, 2, channels))
-    aff[..., :C] = w.aff
-    wr = w.wr.new_zeros((n_blocks, channels, bottleneck))
-    wr[:, :C, :cb] = w.wr
-    w9 = w.w9.new_zeros((n_blocks, inner, 9, bottleneck, bottleneck))
-    w9[..., :cb, :cb] = w.w9.reshape(n_blocks, inner, 9, cb, cb)
-    we = w.we.new_zeros((n_blocks, bottleneck, channels))
-    we[:, :cb, :C] = w.we
-    return SegmentWeights(aff, wr, w9.reshape(n_blocks, inner, 9 * bottleneck, bottleneck),
-                          we)
-
-
-def pad_broadcast(w: BroadcastWeights, channels: int) -> BroadcastWeights:
-    """w zero-padded to `channels` (as `pad_segment`; WdT and bd as they are)."""
-    C = w.wf.shape[0]
-
-    def pad(t: torch.Tensor, shape) -> torch.Tensor:
-        out = t.new_zeros(shape)
-        out[tuple(slice(0, n) for n in t.shape)] = t
-        return out
-
-    return BroadcastWeights(pad(w.f_aff, (2, channels)), pad(w.wf, (channels, channels)),
-                            w.wdt, w.bd, pad(w.l_aff, (2, channels)),
-                            pad(w.wl, (channels, channels)))
+    """`channels` if a broadcast kernel takes that width, else None."""
+    return channels if channels in BROADCAST_WIDTHS else None
 
 
 def with_packed_segment(w: SegmentWeights) -> SegmentWeights:
-    """w with what the segment kernel reads, packed once: `packed` (and
-    `kernel_aff` where the kernel runs it zero-padded); w as it is where no
-    kernel takes its width."""
+    """w with what the segment kernel reads, `packed`, packed once; w as it
+    is where no kernel takes its width."""
     C, cb = w.wr.shape[1:]
-    width = segment_kernel_width(C, cb)
-    if width is None or w.aff.shape[1] - 2 > MAX_INNER:
+    if segment_kernel_width(C, cb) is None or w.aff.shape[1] - 2 > MAX_INNER:
         return w
-    if width == (C, cb):
-        return w._replace(packed=pack_segment(w))
-    padded = pad_segment(w, *width)
-    return w._replace(packed=pack_segment(padded), kernel_aff=padded.aff)
+    return w._replace(packed=pack_segment(w))
 
 
 def with_packed_broadcast(w: BroadcastWeights) -> BroadcastWeights:
-    """w with what the broadcast kernel reads, packed once (as
-    `with_packed_segment`)."""
-    C = w.wf.shape[0]
-    width = broadcast_kernel_width(C)
-    if width is None:
+    """w with what the broadcast kernel reads, `packed`, packed once; w as
+    it is where no kernel takes its width."""
+    if broadcast_kernel_width(w.wf.shape[0]) is None:
         return w
-    if width == C:
-        return w._replace(packed=pack_broadcast(w))
-    padded = pad_broadcast(w, width)
-    return w._replace(packed=pack_broadcast(padded),
-                      kernel_aff=torch.stack([padded.f_aff, padded.l_aff]))
+    return w._replace(packed=pack_broadcast(w))
 
 
 def broadcast_packed_size(channels: int) -> int:
@@ -408,16 +424,24 @@ def pack_broadcast(w: BroadcastWeights) -> torch.Tensor:
       and the output's channels 8 contiguous a lane), as
       `BROADCAST_ITEM_WF` and `BROADCAST_ITEM_WL` items (`_wide_items`);
     * WdT as six 64-row tiles, tile t = WdT[64 t:64 t + 64, :] (A [q][p],
-      64 x 384) at t * 24576."""
+      64 x 384) at t * 24576.
+    At BROADCAST_SMALL: Wf's and Wl's mma B fragment words
+    (`_mma_b_words`, [n-tile][k-group][lane][half]), Wf's K and Wl's N in
+    `small_k_order`, then WdT's chunk stream as at C = 64 and 128."""
     C = w.wf.shape[0]
+    ct = MIX_PAD // MIX_CHUNK_COLS
+    wdt = w.wdt.reshape(MIX_PAD // 64, 64, ct, MIX_CHUNK_COLS).transpose(1, 2)
+    if C == BROADCAST_SMALL:
+        small, nat = small_k_order(), torch.arange(C)
+        return torch.cat([_mma_b_words(w.wf, small, nat).flatten(),
+                          _mma_b_words(w.wl, nat, small).flatten(),
+                          _to_cores(wdt).flatten()]).contiguous()
     order = reduce_k_order(C).to(w.wf.device)
     if C in BROADCAST_WIDE:
         wf, wl = (t[order][:, order].t() for t in (w.wf, w.wl))
         return torch.cat([_wide_items(wf, BROADCAST_ITEM_WF), _wide_items(wl, BROADCAST_ITEM_WL),
                           _to_cores(w.wdt.reshape(MIX_PAD // 64, 64, MIX_PAD)).flatten()
                           ]).contiguous()
-    ct = MIX_PAD // MIX_CHUNK_COLS
-    wdt = w.wdt.reshape(MIX_PAD // 64, 64, ct, MIX_CHUNK_COLS).transpose(1, 2)
     return torch.cat([_to_cores(w.wf[order].t()), _to_cores(w.wl[:, order].t()),
                       _to_cores(wdt).flatten()]).contiguous()
 
@@ -428,6 +452,14 @@ def unpack_broadcast(packed: torch.Tensor, channels: int
     C = channels
     if tuple(packed.shape) != (broadcast_packed_size(C),):
         raise ValueError(f"packed {tuple(packed.shape)} is not a broadcast block of C={C}")
+    ct = MIX_PAD // MIX_CHUNK_COLS
+    if C == BROADCAST_SMALL:
+        small, nat = small_k_order(), torch.arange(C)
+        words = packed[:2 * C * C].reshape(2, 2, 2, 32, 2)
+        wdt = (_from_cores(packed[2 * C * C:].reshape(MIX_PAD // 64, ct, -1), 64, MIX_CHUNK_COLS)
+               .transpose(1, 2).reshape(MIX_PAD, MIX_PAD))
+        return (_from_mma_b_words(words[0], C, C, small, nat), wdt.contiguous(),
+                _from_mma_b_words(words[1], C, C, nat, small))
     order = reduce_k_order(C).to(packed.device)
     wf = torch.empty((C, C), dtype=packed.dtype, device=packed.device)
     wl = torch.empty_like(wf)
@@ -440,7 +472,6 @@ def unpack_broadcast(packed: torch.Tensor, channels: int
         return wf, wdt.reshape(MIX_PAD, MIX_PAD).contiguous(), wl
     wf[order] = _from_cores(packed[:C * C], C, C).t()
     wl[:, order] = _from_cores(packed[C * C:2 * C * C], C, C).t()
-    ct = MIX_PAD // MIX_CHUNK_COLS
     wdt = (_from_cores(packed[2 * C * C:].reshape(MIX_PAD // 64, ct, -1), 64, MIX_CHUNK_COLS)
            .transpose(1, 2).reshape(MIX_PAD, MIX_PAD))
     return wf, wdt.contiguous(), wl
@@ -461,7 +492,7 @@ def _check_weights(x: torch.Tensor, weights: NamedTuple) -> None:
             continue
         if t.device != x.device:
             raise ValueError(f"weight {name} on {t.device}, x on {x.device}")
-        want = (torch.float32 if name in ("aff", "f_aff", "l_aff", "bd", "kernel_aff")
+        want = (torch.float32 if name in ("aff", "f_aff", "l_aff", "bd")
                 else torch.bfloat16)
         if t.dtype != want:
             raise TypeError(f"weight {name} must be {want}, got {t.dtype}")
@@ -498,14 +529,10 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
     n_blocks, layers = w.aff.shape[:2]
     C, cb = w.wr.shape[1:]
     inner = layers - 2
-    width = segment_kernel_width(C, cb)
-    kc, kcb = width if width is not None else (C, cb)
     shapes = {"aff": (n_blocks, layers, 2, C), "wr": (n_blocks, C, cb),
               "w9": (n_blocks, inner, 9 * cb, cb), "we": (n_blocks, cb, C)}
     if w.packed is not None:
-        shapes["packed"] = (n_blocks, _chunks_per_block(kc, kcb, inner), kcb * kcb)
-    if w.kernel_aff is not None:
-        shapes["kernel_aff"] = (n_blocks, layers, 2, kc)
+        shapes["packed"] = (n_blocks, _chunks_per_block(C, cb, inner), cb * cb)
     for name, want in shapes.items():
         if tuple(getattr(w, name).shape) != want:
             raise ValueError(f"weight {name} is {tuple(getattr(w, name).shape)}, want {want}")
@@ -515,32 +542,25 @@ def trunk_segment(x: torch.Tensor, w: SegmentWeights) -> torch.Tensor:
     _check_weights(x, w)
     if x.device.type == "cpu":
         return trunk_segment_reference(x, w)
-    if width is None or inner > MAX_INNER:
+    if segment_kernel_width(C, cb) is None or inner > MAX_INNER:
         raise ValueError(f"the segment kernel takes (channels, bottleneck) in "
-                         f"{SEGMENT_WIDTHS} (or within {SEGMENT_WIDTHS[0]}, zero-padded) "
-                         f"and at most {MAX_INNER} inner layers, not {(C, cb)} with {inner}")
+                         f"{SEGMENT_WIDTHS} and at most {MAX_INNER} inner layers, not "
+                         f"{(C, cb)} with {inner}")
     if w.packed is None:
         raise ValueError("the segment kernel reads the packed weights: "
                          "with_packed_segment(w)")
-    aff = w.aff
-    if width != (C, cb):
-        if w.kernel_aff is None:
-            raise ValueError(f"the segment kernel runs {(C, cb)} zero-padded to {width}: "
-                             f"with_packed_segment(w)")
-        aff = w.kernel_aff
-        x = F.pad(x, (0, kc - C))
     _check_launchable(x)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
-        return out[..., :C]
+        return out
     fn = _segment_kernel()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), aff.data_ptr(), w.packed.data_ptr(),
-                x.shape[0], n_blocks, inner, kc, kcb, _stream(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), w.aff.data_ptr(), w.packed.data_ptr(),
+                x.shape[0], n_blocks, inner, C, cb, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk segment kernel launch failed: cudaError {rc}")
     trunk_segment.launches += 1
-    return out if kc == C else out[..., :C].contiguous()
+    return out
 
 
 def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
@@ -548,14 +568,10 @@ def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     shape. One call launches one kernel, or three at BROADCAST_WIDE; it
     adds one to `.launches` either way."""
     C = w.wf.shape[0]
-    width = broadcast_kernel_width(C)
-    kc = width if width is not None else C
     shapes = {"f_aff": (2, C), "wf": (C, C), "wdt": (MIX_PAD, MIX_PAD),
               "bd": (NUM_LOCS,), "l_aff": (2, C), "wl": (C, C)}
     if w.packed is not None:
-        shapes["packed"] = (broadcast_packed_size(kc),)
-    if w.kernel_aff is not None:
-        shapes["kernel_aff"] = (2, 2, kc)
+        shapes["packed"] = (broadcast_packed_size(C),)
     for name, want in shapes.items():
         if tuple(getattr(w, name).shape) != want:
             raise ValueError(f"weight {name} is {tuple(getattr(w, name).shape)}, want {want}")
@@ -563,35 +579,28 @@ def trunk_broadcast(x: torch.Tensor, w: BroadcastWeights) -> torch.Tensor:
     _check_weights(x, w)
     if x.device.type == "cpu":
         return trunk_broadcast_reference(x, w)
-    if width is None:
-        raise ValueError(f"the broadcast kernel takes channels in {BROADCAST_WIDTHS} "
-                         f"(or up to {BROADCAST_WIDTHS[0]}, zero-padded), not {C}")
+    if broadcast_kernel_width(C) is None:
+        raise ValueError(f"the broadcast kernel takes channels in {BROADCAST_WIDTHS}, "
+                         f"not {C}")
     if w.packed is None:
         raise ValueError("the broadcast kernel reads the packed weights: "
                          "with_packed_broadcast(w)")
-    f_aff, l_aff = w.f_aff, w.l_aff
-    if width != C:
-        if w.kernel_aff is None:
-            raise ValueError(f"the broadcast kernel runs C={C} zero-padded to {width}: "
-                             f"with_packed_broadcast(w)")
-        f_aff, l_aff = w.kernel_aff[0], w.kernel_aff[1]
-        x = F.pad(x, (0, kc - C))
     _check_launchable(x)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
-        return out[..., :C]
+        return out
     fn = _broadcast_kernel()
     # The three kernels at BROADCAST_WIDE pass m through device memory.
-    m = (torch.empty((x.shape[0] * MIX_PAD * kc,), dtype=torch.bfloat16, device=x.device)
-         if kc in BROADCAST_WIDE else None)
+    m = (torch.empty((x.shape[0] * MIX_PAD * C,), dtype=torch.bfloat16, device=x.device)
+         if C in BROADCAST_WIDE else None)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), f_aff.data_ptr(), w.packed.data_ptr(),
-                w.bd.data_ptr(), l_aff.data_ptr(), None if m is None else m.data_ptr(),
-                x.shape[0], kc, _stream(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), w.f_aff.data_ptr(), w.packed.data_ptr(),
+                w.bd.data_ptr(), w.l_aff.data_ptr(), None if m is None else m.data_ptr(),
+                x.shape[0], C, _stream(x))
     if rc != 0:
         raise RuntimeError(f"trunk broadcast kernel launch failed: cudaError {rc}")
     trunk_broadcast.launches += 1
-    return out if kc == C else out[..., :C].contiguous()
+    return out
 
 
 trunk_segment.launches = 0

@@ -3,12 +3,14 @@
     python3 probe_trunk.py segment [--baseline PATH | --packed-baseline PATH]
     python3 probe_trunk.py broadcast [--baseline PATH]
     python3 probe_trunk.py wide --earlier-tree DIR
+    python3 probe_trunk.py tiny --earlier-tree DIR
     python3 probe_trunk.py ply
 
 segment: the segment kernel at the b12c128btl3 widths (C=128, Cb=64, a run
 of 3 blocks of 3 inner layers), the b8c64 widths (C=64, Cb=32, 3 blocks
-of 2) and the cluster widths of b12c256btl3 and b14c384btl3 ((256, 128)
-and (384, 192), 3 blocks of 3), seeded Gaussian inputs and weights, N in
+of 2), the cluster widths of b12c256btl3 and b14c384btl3 ((256, 128)
+and (384, 192), 3 blocks of 3) and tiny's (16, 8) (3 blocks of 1, the
+small kernel; no baseline takes it), seeded Gaussian inputs and weights, N in
 {512, 2880}, with the persistent grid's blocks: max |d| /
 max |ref| against the plain version, and device time per call (CUDA events,
 median of 5 runs of 10 calls). With --baseline, the segment kernel of that
@@ -25,8 +27,9 @@ phase (consumer warpgroup 0, warp 0; of rank 0 in a cluster) at every
 width, and for the cluster kernel the cycles spent waiting for weight
 items.
 
-broadcast: the broadcast kernel at the b12c128btl3 (C=128), b8c64 (C=64)
-and wide (C=256, 384: three kernels) widths, seeded Gaussian inputs and
+broadcast: the broadcast kernel at the b12c128btl3 (C=128), b8c64 (C=64),
+wide (C=256, 384: three kernels) and tiny (C=16: the small kernel, its
+phases per group of SMALL_GROUP boards) widths, seeded Gaussian inputs and
 weights, N in {512, 2880}, with the persistent grid's blocks: max
 |d| / max |ref| against the plain version and device time per call (CUDA
 events, median of 5 runs of 10 calls; at the wide widths also each of the
@@ -56,6 +59,16 @@ calls), in WIDE_ROUNDS rounds of the three in turns (earlier, this,
 library; then library, this, earlier; ...), every reading printed with the
 ratios this / earlier and this / library of each round. Both trees' outputs
 are held against the plain version at N = 512 first.
+
+tiny: tiny's kernels (ops.trunk SEGMENT_SMALL, BROADCAST_SMALL): the
+segment at (16, 8) with 3 blocks of one 3x3 layer (tiny's first segment)
+and the broadcast block at C = 16, against the route an earlier tree of the
+repo (DIR) took at that width, through that tree's own ops/trunk.py
+wrappers and kernels (at cb45cc3: the (64, 32) / 64 kernels zero-padded,
+the wrapper's pad and slice included), and against their library products,
+on the same seeded inputs and weights, N in {512, 2880}: both trees held
+against the plain version at every N first, then WIDE_ROUNDS rounds in
+turns as for wide, with the bound and this tree's share of it.
 
 ply: chip_smoke.py's self-play step (the bench mix, b12c128btl3 bf16 with
 seeded weights, B=256 fresh games) with the fused trunk and with
@@ -98,10 +111,13 @@ from p3achygo_tpu_torch.selfplay.loop import (
     selfplay_step_tiered,
 )
 
-WIDTHS = ((128, 64, 3), (64, 32, 2), (256, 128, 3), (384, 192, 3))  # (C, Cb, inner), 3 blocks
-BROADCAST_WIDTHS = (128, 64, 256, 384)
+WIDTHS = ((128, 64, 3), (64, 32, 2), (256, 128, 3), (384, 192, 3),
+          (16, 8, 1))  # (C, Cb, inner), 3 blocks
+BROADCAST_WIDTHS = (128, 64, 256, 384, 16)
 N_TIMED = (512, 2880)
 PHASES = ("block-0 reduce", "3x3 products", "3x3 epilogues", "expand (+ next reduce)")
+SMALL_PHASES = ("x wait + block-0 reduce", "layer barriers", "3x3 layers before the last",
+                "last 3x3 + expand + next reduce")
 CLUSTER_PHASES = ("reduce + store + push", "3x3 products", "3x3 exchange + store + push",
                   "expand + barrier")
 BROADCAST_PHASES = ("conv_first", "wait for m free", "barrier after conv_first",
@@ -261,13 +277,14 @@ def probe_segment(baseline: str | None, smi: str, packed_baseline: str | None = 
                 _, rel = chip_smoke.rel_err(kernel(), ops.trunk_segment_reference(x, w))
                 gflop = chip_smoke.segment_work(w, N)[0] / 1e9
                 row = f"C={C} Cb={cb} 3x{inner} N={N} ({gflop:.1f} GFLOP): max rel {rel:.3e}"
-                if packed_base is not None:
+                small = (C, cb) == ops.SEGMENT_SMALL  # no earlier source takes it
+                if packed_base is not None and not small:
                     base_args = (w.aff.data_ptr(), w.packed.data_ptr(), N, 3, inner, C, cb)
                     old = lambda: call(packed_base, x, out, base_args)
                     t = [event_ms(old), event_ms(kernel), event_ms(kernel), event_ms(old)]
                     row += (f"; packed baseline {t[0]:.4f}/{t[3]:.4f} ms, kernel {t[1]:.4f}/"
                             f"{t[2]:.4f} ms ({gflop / min(t[1], t[2]):.1f} TFLOP/s)")
-                elif base is not None:
+                elif base is not None and not small:
                     old = lambda: call(base, x, out, (w.aff.data_ptr(), w.wr.data_ptr(),
                                                       w.w9.data_ptr(), w.we.data_ptr(),
                                                       N, 3, inner, C, cb))
@@ -283,9 +300,12 @@ def probe_segment(baseline: str | None, smi: str, packed_baseline: str | None = 
                 per = phase_cycles(prof_lib, "p3_trunk_segment_phase_cycles", prof_fn, x, out,
                                    args, 6)
                 cluster = (C, cb) in ops.SEGMENT_CLUSTER
-                line = phase_line(CLUSTER_PHASES if cluster else PHASES, per[:4])
+                names = SMALL_PHASES if small else CLUSTER_PHASES if cluster else PHASES
+                line = phase_line(names, per[:4])
                 if cluster:
                     line += f"; of them waiting for weight items {per[4]:.0f}"
+                if small:
+                    line += f"; output stores {per[4]:.0f}"
                 log(f"segment phases C={C} N={N}, clock cycles per board-block: {line} [{smi}]")
 
 
@@ -307,7 +327,7 @@ def probe_broadcast(baseline: str | None, smi: str) -> None:
                 _, rel = chip_smoke.rel_err(kernel(), ops.trunk_broadcast_reference(x, w))
                 gflop = chip_smoke.broadcast_work(w, N)[0] / 1e9
                 row = f"C={C} N={N} ({gflop:.1f} GFLOP): max rel {rel:.3e}"
-                if base is not None:
+                if base is not None and C != ops.BROADCAST_SMALL:
                     old = lambda: call(base, x, out, (w.f_aff.data_ptr(), w.wf.data_ptr(),
                                                       wdt368.data_ptr(), w.bd.data_ptr(),
                                                       w.l_aff.data_ptr(), w.wl.data_ptr(),
@@ -331,7 +351,9 @@ def probe_broadcast(baseline: str | None, smi: str) -> None:
                 if not wide:
                     per = phase_cycles(prof_lib, "p3_trunk_broadcast_phase_cycles", prof_fn, x,
                                        out, args, 6)
-                    log(f"broadcast phases C={C} N={N}, clock cycles per board: "
+                    unit = (f"group of {ops.SMALL_GROUP} boards" if C == ops.BROADCAST_SMALL
+                            else "board")
+                    log(f"broadcast phases C={C} N={N}, clock cycles per {unit}: "
                         f"{phase_line(BROADCAST_PHASES, per)} [{smi}]")
                     continue
                 cyc = wide_cycles(prof_lib, prof_fn, x, out, args)
@@ -357,10 +379,11 @@ def earlier_kernels(tree: str, tmp: str):
                 kernel_fn(bc.result(), "p3_trunk_broadcast", 6, 2))
 
 
-def turns(fns: dict, smi: str, what: str) -> None:
+def turns(fns: dict, smi: str, what: str) -> dict:
     """WIDE_ROUNDS rounds of chip_smoke.device_timing (10 calls) of each fn
     in `fns` ({"earlier", "this", "library"}), in turns, the order reversed
-    every other round; logs every reading and each round's ratios."""
+    every other round; logs every reading and each round's ratios, and
+    returns the readings ({name: [ms]})."""
     names = list(fns)
     got = {k: [] for k in names}
     for i in range(WIDE_ROUNDS):
@@ -376,6 +399,7 @@ def turns(fns: dict, smi: str, what: str) -> None:
         + f"; this/earlier {span(ratio('this', 'earlier'))}; this/library "
           f"{span(ratio('this', 'library'))} (device ms per call, device_timing, "
           f"{WIDE_ROUNDS} rounds in turns) [{smi}]")
+    return got
 
 
 def probe_wide(tree: str, smi: str) -> None:
@@ -421,6 +445,56 @@ def probe_wide(tree: str, smi: str) -> None:
                     log(f"wide: {what}: max rel vs plain, earlier {rel[0]:.3e}, this "
                         f"{rel[1]:.3e}")
                 turns(fns, smi, what)
+
+
+def earlier_wrappers(tree: str, tmp: str):
+    """The earlier tree's ops/trunk.py as a module whose wrappers launch
+    that tree's kernels, built from its sources (segment: 4 pointers, the
+    broadcast 7: the interface of cb45cc3 and later)."""
+    spec = importlib.util.spec_from_file_location(
+        "earlier_trunk", os.path.join(tree, "p3achygo_tpu_torch", "ops", "trunk.py"))
+    old_ops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old_ops)
+    csrc = os.path.join(tree, "p3achygo_tpu_torch", "csrc")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        seg = pool.submit(build, os.path.join(csrc, old_ops.SEGMENT_SOURCE), tmp)
+        bc = pool.submit(build, os.path.join(csrc, old_ops.SOURCE), tmp)
+        seg_fn = kernel_fn(seg.result(), "p3_trunk_segment", 4, 5)
+        bc_fn = kernel_fn(bc.result(), "p3_trunk_broadcast", 7, 2)
+    old_ops._segment_kernel = lambda: seg_fn
+    old_ops._broadcast_kernel = lambda: bc_fn
+    return old_ops
+
+
+def probe_tiny(tree: str, smi: str) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    C, cb = ops.SEGMENT_SMALL
+    with tempfile.TemporaryDirectory() as tmp:
+        old_ops = earlier_wrappers(tree, tmp)
+        seg = seeded_segment(C, cb, 1, gen)
+        bc = seeded_broadcast(ops.BROADCAST_SMALL, gen)
+        cases = (
+            ("segment", seg, ops.trunk_segment, ops.trunk_segment_reference,
+             old_ops.trunk_segment, old_ops.with_packed_segment(old_ops.SegmentWeights(*seg[:4])),
+             chip_smoke.segment_library_products, chip_smoke.segment_work),
+            ("broadcast", bc, ops.trunk_broadcast, ops.trunk_broadcast_reference,
+             old_ops.trunk_broadcast,
+             old_ops.with_packed_broadcast(old_ops.BroadcastWeights(*bc[:6])),
+             chip_smoke.broadcast_library_products, chip_smoke.broadcast_work))
+        for name, w, kern, plain, old_kern, old_w, library, work in cases:
+            for N in N_TIMED:
+                x = torch.randn(N, 361, C, generator=gen, device="cuda").bfloat16()
+                what = f"tiny {name} N={N}"
+                want = plain(x, w)
+                rel = (chip_smoke.rel_err(old_kern(x, old_w), want)[1],
+                       chip_smoke.rel_err(kern(x, w), want)[1])
+                log(f"tiny: {what}: max rel vs plain, earlier {rel[0]:.3e}, this {rel[1]:.3e}")
+                got = turns({"earlier": lambda: old_kern(x, old_w), "this": lambda: kern(x, w),
+                             "library": library(w, x)}, smi, what)
+                b_ms, b_by = chip_smoke.bound_ms(*work(w, N))
+                log(f"tiny: {what}: bound {b_ms:.4f} ms ({b_by}); this "
+                    f"{100 * b_ms / max(got['this']):.1f}-{100 * b_ms / min(got['this']):.1f}% "
+                    f"of it [{smi}]")
 
 
 def ply_run(eval_fn, seed: int):
@@ -481,7 +555,7 @@ def probe_ply(smi: str) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("segment", "broadcast", "wide", "ply"))
+    parser.add_argument("what", choices=("segment", "broadcast", "wide", "tiny", "ply"))
     parser.add_argument("--baseline",
                         help="an earlier kernel source: for segment, one with the wr/w9/we "
                              "C interface; for broadcast, one with the wf/wdt/wl C interface")
@@ -489,10 +563,10 @@ def main() -> int:
                         help="for segment: an earlier segment source with this kernel's C "
                              "interface (the packed weight stream)")
     parser.add_argument("--earlier-tree",
-                        help="for wide: the root of an earlier tree of this repo")
+                        help="for wide and tiny: the root of an earlier tree of this repo")
     args = parser.parse_args()
-    if args.what == "wide" and not args.earlier_tree:
-        parser.error("wide needs --earlier-tree")
+    if args.what in ("wide", "tiny") and not args.earlier_tree:
+        parser.error(f"{args.what} needs --earlier-tree")
     if not torch.cuda.is_available():
         raise SystemExit("probe_trunk: needs an NVIDIA card (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -504,6 +578,8 @@ def main() -> int:
         probe_broadcast(args.baseline, smi)
     elif args.what == "wide":
         probe_wide(args.earlier_tree, smi)
+    elif args.what == "tiny":
+        probe_tiny(args.earlier_tree, smi)
     else:
         probe_ply(smi)
     return 0

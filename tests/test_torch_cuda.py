@@ -15,8 +15,8 @@ import torch
 
 from chip_smoke import (EPILOGUE_MODES, KERNEL_TOL, SERVE_Q_CALIB_BF16_RTOL, SERVE_Q_CALIB_RTOL,
                         SERVE_Q_NATIVE_TOL, SERVE_Q_SITES, SERVE_Q_WIDTHS, calibration_boards,
-                        check_conv_i8, conv_i8_case, epilogue_case, random_boards, rel_err,
-                        seeded_model)
+                        check_conv_i8, conv_i8_case, cuda_kernel_counts, epilogue_case,
+                        random_boards, rel_err, seeded_model)
 from p3achygo_tpu_torch.data.pipeline import prepare_batch
 from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import from_stones, legal_mask_batch, map_state
@@ -39,6 +39,7 @@ from p3achygo_tpu_torch.selfplay.fork import ForkEvaluator, _Position
 from p3achygo_tpu_torch.selfplay.loop import final_scores, make_aux, make_game_buffer, reset_finished
 from p3achygo_tpu_torch.train.optimizer import sgd_nesterov
 from p3achygo_tpu_torch.train.step import create_train_state, make_train_step
+from probe_trunk import seeded_broadcast, seeded_segment
 
 pytestmark = pytest.mark.cuda
 
@@ -97,8 +98,8 @@ def test_callers_on_card_agree_with_cpu(boards):
 
 # Every width the trunk kernels take: (64, 32) / 64 and (128, 64) / 128 a
 # board a block; (256, 128) and (384, 192) a board over a cluster, 256 and
-# 384 a broadcast block as three kernels; tiny (16, 8) / 16 through the
-# smallest kernels zero-padded.
+# 384 a broadcast block as three kernels; tiny's (16, 8) / 16 on kernels of
+# their own (a board a small block; eight boards a mix).
 TRUNK_NAMES = ["b8c64", "b12c128btl3", "b12c256btl3", "b14c384btl3", "tiny"]
 CLUSTER_NAMES = ["b12c256btl3", "b14c384btl3"]
 
@@ -303,12 +304,75 @@ def test_trunk_rejects_non_contiguous(trunks, device):
         tk.trunk_broadcast(x, bc)
 
 
+# tiny's own kernels (ops.trunk SEGMENT_SMALL, BROADCAST_SMALL) on seeded
+# weights (probe_trunk.seeded_segment / seeded_broadcast): every N of the
+# main path's shapes, the segment with 1 to MAX_INNER inner layers, and the
+# broadcast block's ragged last group of SMALL_GROUP boards.
+SMALL_N = [0, 1, 2, 5, 13, 133, 512, 2880]
+RAGGED_N = [tk.SMALL_GROUP * k + d for k in (1, 3, 17) for d in (-1, 1)]
+
+
+def _small_case(kern, plain, w, x):
+    """kern against plain on x: one launch (none at N = 0), the input's
+    shape and type, every board within KERNEL_TOL (the first 133 board by
+    board, then the whole)."""
+    before = kern.launches
+    got, want = kern(x, w), plain(x, w)
+    torch.cuda.synchronize()
+    assert kern.launches == before + (x.shape[0] > 0)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    if x.shape[0] == 0:
+        return
+    assert bool(torch.isfinite(got.float()).all())
+    for b in range(min(x.shape[0], 133)):
+        assert rel_err(got[b], want[b])[1] <= KERNEL_TOL, (kern.__name__, b)
+    assert rel_err(got, want)[1] <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("inner", [1, 2, 3])
+@pytest.mark.parametrize("N", SMALL_N)
+def test_small_segment_equals_plain(device, inner, N):
+    gen = torch.Generator(device=device).manual_seed(40 + inner)
+    w = seeded_segment(*tk.SEGMENT_SMALL, inner, gen)
+    x = torch.randn((N, 361, 16), generator=gen, device=device).to(torch.bfloat16)
+    _small_case(tk.trunk_segment, tk.trunk_segment_reference, w, x)
+
+
+@pytest.mark.parametrize("N", SMALL_N + RAGGED_N)
+def test_small_broadcast_equals_plain(device, N):
+    gen = torch.Generator(device=device).manual_seed(50)
+    w = seeded_broadcast(tk.BROADCAST_SMALL, gen)
+    x = torch.randn((N, 361, 16), generator=gen, device=device).to(torch.bfloat16)
+    _small_case(tk.trunk_broadcast, tk.trunk_broadcast_reference, w, x)
+
+
+def test_small_kernels_are_deterministic(device):
+    """No atomics: two calls on the same input give identical bits."""
+    gen = torch.Generator(device=device).manual_seed(60)
+    x = torch.randn((300, 361, 16), generator=gen, device=device).to(torch.bfloat16)
+    for kern, w in ((tk.trunk_segment, seeded_segment(*tk.SEGMENT_SMALL, 2, gen)),
+                    (tk.trunk_broadcast, seeded_broadcast(tk.BROADCAST_SMALL, gen))):
+        first, second = kern(x, w), kern(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16)), kern.__name__
+
+
+def test_tiny_trunk_launches_only_its_kernels(trunks, device):
+    """tiny's fused trunk on a bf16 input runs one kernel a wrapper call and
+    no other kernel (no pad or slice): its plan's two segment kernels and
+    one broadcast kernel."""
+    fn = trunks["tiny"]
+    x = torch.randn((64, 19, 19, 16), device=device).to(torch.bfloat16)
+    got = cuda_kernel_counts(lambda: fn(x), 5)
+    assert got == {"trunk_segment_small_kernel<16,8>": 2,
+                   "trunk_broadcast_small_kernel<16>": 1}, got
+
+
 def test_trunk_unsupported_width_raises(device):
     """C = 512 (Cb = 256) is a btl width no trunk kernel takes: building
     the fused trunk on the card raises, naming it, and the wrappers given
     its weights raise; nothing is launched and nothing falls back to the
-    plain version. (tiny, which this test held before the kernels took it
-    zero-padded, is in TRUNK_NAMES.)"""
+    plain version."""
     cfg = ModelConfig(blocks=2, broadcast_interval=2, inner_bottleneck_layers=1,
                       channels=512, bottleneck_channels=256, head_channels=8, c_val=8)
     m = build_model(cfg, torch.float32, device)

@@ -17,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from p3achygo_tpu.mcts import gumbel as jg
 from p3achygo_tpu.models import build_model as jax_build
@@ -191,8 +190,7 @@ def test_plain_trunk_matches_pallas_interpret_wide(width, version):
         jfn = jtk.build_trunk_fn(jcfg, v, n_tile=2, interpret=True)
         tfn = build_trunk_fn(tcfg, tm)
         assert [s.kernel for s in tfn.segments] == [ops.trunk_segment, ops.trunk_broadcast]
-        assert all(s.weights.packed is not None and s.weights.kernel_aff is None
-                   for s in tfn.segments)
+        assert all(s.weights.packed is not None for s in tfn.segments)
     else:
         jfn = jtk2.build_trunk_fn_v2(jcfg, v, interpret=True)
         tfn = build_trunk_fn_v2(tcfg, tm)
@@ -201,46 +199,6 @@ def test_plain_trunk_matches_pallas_interpret_wide(width, version):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     rel = _rel(got.float().numpy(), want)
     assert rel < TRUNK_TOL[version], rel
-
-
-def test_padded_plain_versions_equal_unpadded():
-    """tiny (C = 16, Cb = 8) runs on the card as the smallest kernels,
-    (64, 32) and 64, zero-padded: its packed stream is the padded weights'
-    and the padded affines are a = b = 0. Through the plain versions the
-    padded block equals the unpadded one to a bf16 unit (the float32 sums
-    gain +0 terms and may be taken in another order) and its padded
-    channels stay exactly 0."""
-    _, _, tm = _bridged("tiny")
-    fn = build_trunk_fn(get_config("tiny"), tm)
-    x = torch.from_numpy(_trunk_input(3, 16, seed=6)).reshape(3, 361, 16).bfloat16()
-    for seg in fn.segments:
-        w = seg.weights
-        if seg.kernel is ops.trunk_segment:
-            C, cb = w.wr.shape[1:]
-            kc, kcb = ops.segment_kernel_width(C, cb)
-            assert (kc, kcb) == (64, 32)
-            padded = ops.pad_segment(w, kc, kcb)
-            assert torch.equal(w.kernel_aff, padded.aff)
-            assert not bool(padded.aff[..., C:].any())
-            inner = w.aff.shape[1] - 2
-            for got, want in zip(ops.unpack_segment(w.packed, kc, inner),
-                                 (padded.wr, padded.w9, padded.we)):
-                assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-        else:
-            C = w.wf.shape[0]
-            kc = ops.broadcast_kernel_width(C)
-            assert kc == 64
-            padded = ops.pad_broadcast(w, kc)
-            assert torch.equal(w.kernel_aff, torch.stack([padded.f_aff, padded.l_aff]))
-            for got, want in zip(ops.unpack_broadcast(w.packed, kc),
-                                 (padded.wf, padded.wdt, padded.wl)):
-                assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-        want = seg.reference(x, w)
-        got = seg.reference(F.pad(x, (0, kc - C)), padded)
-        assert not bool(got[..., C:].any())
-        rel = _rel(got[..., :C].float().numpy(), want.float().numpy())
-        assert rel <= 2.0 ** -8, rel
-        x = want
 
 
 def test_kernel_width_check_names_the_width():

@@ -8,7 +8,10 @@ its tiles and its neighbours' pushes bring it every position it does not
 own. For the broadcast kernels (csrc/trunk_broadcast.cu) the packed
 weights sit where the descriptors read, and at C = 256 and 384 conv_first's
 stores of m meet the mix's descriptor and the channel orders of the three
-kernels agree. All checks are exact."""
+kernels agree. At tiny's widths (the small kernels) the packed words are
+each lane's mma.sync B fragments, the 16-row tiles cover the board once
+with every tap in the grid, and conv_first's stores of a group's m meet the
+mix's descriptor. All checks are exact."""
 import numpy as np
 import pytest
 import torch
@@ -63,7 +66,11 @@ def test_packed_weights_unpack_to_the_originals(C, cb, inner, nb):
                        ops.trunk_segment_reference(x, w))
 
 
-@pytest.mark.parametrize("C,cb", ops.SEGMENT_WIDTHS)
+# The widths whose segment kernel reads its weights by wgmma descriptor.
+DESCRIPTOR_WIDTHS = [w for w in ops.SEGMENT_WIDTHS if w != ops.SEGMENT_SMALL]
+
+
+@pytest.mark.parametrize("C,cb", DESCRIPTOR_WIDTHS)
 def test_packed_chunks_sit_where_the_descriptor_reads(C, cb):
     """Chunk order per block: the reduce by K, one chunk per 3x3 tap, the
     expand by N (the reduce's K and the expand's N in reduce_k_order); each
@@ -140,12 +147,11 @@ def test_tap_addresses_stay_in_the_haloed_buffer():
         (a + 1) * 21 + b + 1 for a in range(19) for b in range(19))
 
 
-@pytest.mark.parametrize("name,own_width", [("b8c64", True), ("tiny", False)])
-def test_trunk_weights_carry_the_packed_stream(name, own_width):
-    """build_trunk_fn packs each segment once: at its own width where a
-    kernel takes it, zero-padded to the smallest kernel width below it
-    (tiny), with the padded affines; on the CPU the wrapper still runs the
-    plain version."""
+@pytest.mark.parametrize("name", ["b8c64", "tiny"])
+def test_trunk_weights_carry_the_packed_stream(name):
+    """build_trunk_fn packs each segment once, at its own width (tiny's
+    (16, 8) too: its kernel is its own); on the CPU the wrapper still runs
+    the plain version."""
     cfg = get_config(name)
     model = build_model(cfg, device="cpu")
     init_params(model, torch.Generator().manual_seed(0))
@@ -154,13 +160,8 @@ def test_trunk_weights_carry_the_packed_stream(name, own_width):
     assert segs
     for w in segs:
         assert w.packed is not None
-        assert (w.kernel_aff is None) == own_width
-        if own_width:
-            assert torch.equal(w.packed, ops.pack_segment(w))
-        else:
-            padded = ops.pad_segment(w, *ops.SEGMENT_WIDTHS[0])
-            assert torch.equal(w.packed, ops.pack_segment(padded))
-            assert torch.equal(w.kernel_aff, padded.aff)
+        assert tuple(w.wr.shape[1:]) == (cfg.channels, cfg.bottleneck_channels)
+        assert torch.equal(w.packed, ops.pack_segment(w))
         x = torch.zeros((1, 361, cfg.channels), dtype=torch.bfloat16)
         assert torch.equal(ops.trunk_segment(x, w), ops.trunk_segment_reference(x, w))
 
@@ -186,6 +187,22 @@ def _bc_weights(C, seed):
         torch.stack([0.7 + 0.6 * torch.from_numpy(rng.random(C, dtype=np.float32)),
                      0.1 * t(C)]).contiguous(),
         (t(C, C) / C ** 0.5).bfloat16())
+
+
+def _b_from_words(words):
+    """The [K, N] B operand that mma.sync reads from the lanes' fragment
+    words [N/8 n-tiles, K/8 k-groups, 32 lanes, 2 halves], by the PTX ISA's
+    layout: lane l (g = l // 4, t = l % 4) holds (k 8 kg + 2t + e, n 8 nt + g)
+    in half e of its word of k-group kg, n-tile nt."""
+    nt, kg = words.shape[:2]
+    b = torch.full((8 * kg, 8 * nt), -12345, dtype=words.dtype)
+    for n in range(nt):
+        for k in range(kg):
+            for lane in range(32):
+                for e in range(2):
+                    b[8 * k + 2 * (lane % 4) + e, 8 * n + lane // 4] = words[n, k, lane, e]
+    assert not bool((b == -12345).any())
+    return b
 
 
 def _desc_read(img, start, lbo, sbo, rows):
@@ -227,12 +244,20 @@ def test_broadcast_packed_chunks_sit_where_the_descriptor_reads(C):
     BROADCAST_ITEM_WF or _WL = (n, 64); wdt_tile_desc: LBO 128, SBO 48 * 128
     within a 64-row tile): B^T [n][k] of Wf and of Wl with K and N in
     reduce_k_order, item (n tile, K chunk) at (nt * C/64 + kc) * n * 64, and
-    WdT's tile t at t * 24576."""
+    WdT's tile t at t * 24576. At C = 16 (the small kernel): Wf and Wl as mma
+    B fragment words, WdT's stream as at C = 64, 128."""
     w = _bc_weights(C, seed=C + 1)
     img = ops.pack_broadcast(w).view(torch.int16)
-    order = ops.reduce_k_order(C)
+    order = ops.reduce_k_order(C) if C % 32 == 0 else None
     wf, wl, wdt = (t.view(torch.int16) for t in (w.wf, w.wl, w.wdt))
-    if C in ops.BROADCAST_WIDE:
+    if C == ops.BROADCAST_SMALL:
+        # Wf and Wl as the lanes' mma B fragment words (no descriptor):
+        # Wf's K in small_k_order, Wl's N; then WdT's stream as below.
+        small, nat = ops.small_k_order(), torch.arange(C)
+        assert torch.equal(_b_from_words(img[:C * C].reshape(2, 2, 32, 2)), wf[small][:, nat])
+        assert torch.equal(_b_from_words(img[C * C:2 * C * C].reshape(2, 2, 32, 2)),
+                           wl[nat][:, small])
+    elif C in ops.BROADCAST_WIDE:
         for mat, base, (n_item, k_item) in ((wf, 0, ops.BROADCAST_ITEM_WF),
                                             (wl, C * C, ops.BROADCAST_ITEM_WL)):
             for nt in range(C // n_item):
@@ -249,12 +274,13 @@ def test_broadcast_packed_chunks_sit_where_the_descriptor_reads(C):
                 assert torch.equal(_desc_read(tile, s * 256, 128, 48 * 128, 64),
                                    wdt[64 * t:64 * t + 64, 16 * s:16 * s + 16])
         return
-    for ks in range(C // 16):
-        k = torch.arange(16 * ks, 16 * ks + 16)
-        assert torch.equal(_desc_read(img, ks * 256, 128, C // 8 * 128, C),
-                           wf[order[k]].t())
-        assert torch.equal(_desc_read(img[C * C:], ks * 256, 128, C // 8 * 128, C),
-                           wl[k][:, order].t())
+    else:
+        for ks in range(C // 16):
+            k = torch.arange(16 * ks, 16 * ks + 16)
+            assert torch.equal(_desc_read(img, ks * 256, 128, C // 8 * 128, C),
+                               wf[order[k]].t())
+            assert torch.equal(_desc_read(img[C * C:], ks * 256, 128, C // 8 * 128, C),
+                               wl[k][:, order].t())
     stream = img[2 * C * C:]
     per_tile = ops.MIX_PAD // ops.MIX_CHUNK_COLS
     for t in range(6):
@@ -299,13 +325,10 @@ def test_broadcast_m_stores_meet_the_mix_descriptor(C):
                            m[16 * s:16 * s + 16].t())
 
 
-@pytest.mark.parametrize("name,own_width", [("b8c64", True), ("b12c128btl3", True),
-                                            ("tiny", False)])
-def test_broadcast_weights_carry_the_packed_stream(name, own_width):
-    """build_trunk_fn packs each broadcast block once: at its own width
-    where a kernel takes it, zero-padded to the smallest kernel width below
-    it (tiny), with the padded affines; on the CPU the wrapper still runs
-    the plain version."""
+@pytest.mark.parametrize("name", ["b8c64", "b12c128btl3", "tiny"])
+def test_broadcast_weights_carry_the_packed_stream(name):
+    """build_trunk_fn packs each broadcast block once, at its own width
+    (tiny's 16 too); on the CPU the wrapper still runs the plain version."""
     cfg = get_config(name)
     model = build_model(cfg, device="cpu")
     init_params(model, torch.Generator().manual_seed(0))
@@ -314,14 +337,8 @@ def test_broadcast_weights_carry_the_packed_stream(name, own_width):
     assert bcs
     for w in bcs:
         assert w.wdt.shape == (ops.MIX_PAD, ops.MIX_PAD) == (384, 384)
-        assert w.packed is not None
-        assert (w.kernel_aff is None) == own_width
-        if own_width:
-            assert torch.equal(w.packed, ops.pack_broadcast(w))
-        else:
-            padded = ops.pad_broadcast(w, ops.BROADCAST_WIDTHS[0])
-            assert torch.equal(w.packed, ops.pack_broadcast(padded))
-            assert torch.equal(w.kernel_aff, torch.stack([padded.f_aff, padded.l_aff]))
+        assert w.packed is not None and w.wf.shape == (cfg.channels, cfg.channels)
+        assert torch.equal(w.packed, ops.pack_broadcast(w))
         x = torch.zeros((1, 361, cfg.channels), dtype=torch.bfloat16)
         assert torch.equal(ops.trunk_broadcast(x, w), ops.trunk_broadcast_reference(x, w))
 
@@ -487,3 +504,112 @@ def test_wide_broadcast_channel_orders_agree(C):
         item = img[nt * (C // k_item) * n_item * k_item:]
         got = _desc_read(item, 0, 128, 1024, n_item)
         assert torch.equal(got, wf[order[:16]][:, order[nt * n_item:(nt + 1) * n_item]].t())
+
+
+# ---- the small kernels (tiny: (16, 8), C = 16) -----------------------------
+
+def test_small_k_order_matches_the_lanes_loads():
+    """Lane t of a quad loads channels 4t .. 4t + 3 of a row as two bf16
+    pairs: logical k (2t, 2t + 1) and (2t + 8, 2t + 9) of the m16n8k16 A
+    fragment. A 16-channel output's n-tile j puts columns 2t, 2t + 1 in the
+    same lane: channels 4t + 2j, 4t + 2j + 1, so the lane's four outputs
+    are the four channels it loaded."""
+    order = ops.small_k_order().tolist()
+    assert sorted(order) == list(range(16))
+    for t in range(4):
+        loaded = list(range(4 * t, 4 * t + 4))
+        assert [order[k] for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)] == loaded
+        assert [order[8 * j + 2 * t + e] for j in (0, 1) for e in (0, 1)] == loaded
+
+
+@pytest.mark.parametrize("inner,nb", [(0, 1), (1, 3), (2, 2), (3, 1)])
+def test_small_packed_words_are_the_mma_fragments(inner, nb):
+    """At (16, 8) each block's 4 + 9 inner 64-element groups are B fragment
+    words (`_b_from_words`): the reduce's two k-groups (Wr with K in
+    small_k_order), per 3x3 layer one k-group a tap (W9's rows of tap o),
+    the expand's two n-tiles (We with N in small_k_order)."""
+    C, cb = ops.SEGMENT_SMALL
+    w = _weights(C, cb, inner, nb, seed=20 + inner)
+    packed = ops.pack_segment(w).view(torch.int16)
+    assert packed.shape == (nb, 4 + 9 * inner, 64)
+    small = ops.small_k_order()
+    for blk in range(nb):
+        words = packed[blk].reshape(-1, 32, 2)
+        assert torch.equal(_b_from_words(words[None, :2]), w.wr[blk].view(torch.int16)[small])
+        for j in range(inner):
+            assert torch.equal(_b_from_words(words[None, 2 + 9 * j:11 + 9 * j]),
+                               w.w9[blk, j].view(torch.int16))
+        assert torch.equal(_b_from_words(words[2 + 9 * inner:, None]),
+                           w.we[blk].view(torch.int16)[:, small])
+
+
+def _small_tiles():
+    """{warp: [its M tiles]} of the small segment kernel: warp w owns tiles
+    w, w + SMALL_WARPS, ... of the 24 16-row tiles."""
+    tiles = 384 // ops.SMALL_TILE_ROWS
+    return {w: list(range(w, tiles, ops.SMALL_WARPS)) for w in range(ops.SMALL_WARPS)}
+
+
+def test_small_tiles_cover_every_position_once():
+    """Each warp's tiles hold rows 16 tile + 0 .. 15; over the block every
+    position 0 .. 360 is one lane row of one tile, the 23 pad rows are the
+    tail (tile 22's last 7, tile 23 whole, which holds no position)."""
+    rows = [16 * t + r for w, ts in _small_tiles().items() for t in ts for r in range(16)]
+    assert sorted(rows) == list(range(384))
+    live = [t for ts in _small_tiles().values() for t in ts if 16 * t < 361]
+    assert sorted(live) == list(range(23))
+
+
+def test_small_tap_addresses_stay_in_the_haloed_buffer():
+    """The small kernel's ldmatrix rows: lane l of a tile gives row
+    halo_row(min(16 tile + l % 16, 360)) shifted by tap 2k + l // 16 (an x4
+    load of tap pair k) or by tap 8 (an x2 load, lanes 0 .. 15): inside the
+    21x21 grid, the neighbour of the lane's position, and a halo row
+    exactly when that neighbour is off the board."""
+    for t in range(23):
+        for lane in range(32):
+            p = min(16 * t + lane % 16, 360)
+            i, j = p // 19, p % 19
+            taps = [2 * k + lane // 16 for k in range(4)] + ([8] if lane < 16 else [])
+            for o in taps:
+                di, dj = o // 3 - 1, o % 3 - 1
+                r = int(ops.halo_row(torch.tensor(p))) + ops.TAP_SHIFTS[o]
+                assert 0 <= r < ops.HALO_ROWS
+                assert r == (i + di + 1) * 21 + (j + dj + 1)
+                off = not (0 <= i + di <= 18 and 0 <= j + dj <= 18)
+                assert off == (r // 21 in (0, 20) or r % 21 in (0, 20))
+
+
+def test_small_broadcast_m_stores_meet_the_mix_descriptor():
+    """The small broadcast kernel's conv_first: warp w's unit k is board
+    k // 2 of the group, rows 16 s .. 16 s + 15, s = w + 12 (k % 2); its
+    mma accumulators (n-tile j, element e of pair h: row 16 s + l // 4 +
+    8 h, channel 8 j + 2 (l % 4) + e of lane l) stored by `stmatrix .trans`
+    at the kernel's lane addresses give an image of the group's m from which
+    the mix's descriptor (m_desc: LBO 128, SBO 48 * 128, N = 128 rows)
+    reads B^T [16 board + channel][position] for every k16 step, each
+    element written exactly once."""
+    G, C = ops.SMALL_GROUP, ops.BROADCAST_SMALL
+    m = torch.arange(G * 384 * C, dtype=torch.int32).reshape(G, 384, C)
+    img = torch.full((G * C * 384,), -1, dtype=torch.int32)
+    for w in range(12):
+        for k in range(2 * G):
+            b, s = k // 2, w + 12 * (k % 2)
+            addr = []  # the row address each lane gives
+            for lane in range(32):
+                mi = lane >> 3
+                addr.append(((2 * b + (mi >> 1)) * 48 + 2 * s + (mi & 1)) * 128
+                            + (lane & 7) * 16)
+            for reg in range(4):  # matrix reg: n-tile reg // 2, row half reg % 2
+                j, h = reg // 2, reg % 2
+                for lane in range(32):
+                    for e in range(2):
+                        row, col = 2 * (lane % 4) + e, lane // 4
+                        byte = addr[8 * reg + row] + col * 2
+                        assert img[byte // 2] == -1
+                        img[byte // 2] = m[b, 16 * s + lane // 4 + 8 * h, 8 * j + 2 * (lane % 4) + e]
+    assert bool((img >= 0).all())
+    bt = m.permute(0, 2, 1).reshape(G * C, 384)  # B^T [16 b + c][position]
+    for step in range(24):
+        assert torch.equal(_desc_read(img, step * 256, 128, 48 * 128, G * C),
+                           bt[:, 16 * step:16 * step + 16])
