@@ -29,7 +29,10 @@ working tree is private and updated in place.
 Control flow that JAX keeps on the device (`lax.while_loop`, `lax.cond`)
 is a Python loop or branch here, each test one host sync: one per descent
 level, one per early-stopping sweep, one per sweep with exact terminal
-scoring. `COUNTERS` counts them, with the MCGS hits and early stops.
+scoring. `COUNTERS` counts them, with the MCGS hits and early stops,
+and, while `tracing` is on, times them. The search's
+stages are `tracing` spans (`search.root`, `search.sweep`,
+`search.descent`, ...).
 
 Randomness: the Gumbel root noise (gumbel.py:850-851) and the tau-sampling
 Gumbel draw (gumbel.py:1579-1584) come from the `generator` argument, or
@@ -43,11 +46,13 @@ import collections
 import dataclasses
 import functools
 import math
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from p3achygo_tpu_torch import tracing
 from p3achygo_tpu_torch.constants import (
     BLACK,
     BOARD_LEN,
@@ -140,8 +145,9 @@ class SearchParams:
 
 class SearchCounters:
     """What searches did since the last `reset()`: search calls, host syncs
-    by cause (`syncs`), leaves scored exactly, and device-side sums (MCGS
-    hits, boards that stopped a round early) read with one sync by
+    by cause (`syncs`), while `tracing` is on the host ns blocked in them
+    by cause (`sync_wait_ns`), leaves scored exactly, and device-side sums
+    (MCGS hits, boards that stopped a round early) read with one sync by
     `snapshot()`."""
 
     def __init__(self):
@@ -150,6 +156,7 @@ class SearchCounters:
     def reset(self) -> None:
         self.searches = 0
         self.syncs = collections.Counter()
+        self.sync_wait_ns = collections.Counter()
         self.exact_scored = 0
         self._sums = {}
 
@@ -170,8 +177,26 @@ COUNTERS = SearchCounters()
 
 def _sync(cond: torch.Tensor, cause: str) -> bool:
     """bool(cond), counted as one host sync of `cause`."""
+    return _synced(cause, bool, cond)
+
+
+def _synced(cause: str, fn, arg):
+    """fn(arg), a call that waits for the device, counted as one host sync
+    of `cause` and, while tracing is on, timed."""
     COUNTERS.syncs[cause] += 1
-    return bool(cond)
+    if not tracing.is_on():
+        return fn(arg)
+    t0 = time.perf_counter_ns()
+    out = fn(arg)
+    COUNTERS.sync_wait_ns[cause] += time.perf_counter_ns() - t0
+    return out
+
+
+def _eval(eval_fn: EvalFn, states: GoState, kind: str) -> EvalOutput:
+    """eval_fn(states) as a search calls it, spanned as `search.eval` with
+    the rows it is given."""
+    with tracing.span("search.eval", kind=kind, rows=states.stones.shape[0]):
+        return eval_fn(states)
 
 
 class GumbelResult(NamedTuple):
@@ -227,11 +252,15 @@ def make_eval_fn(model, symmetrize: bool = True, include_ladders: bool = False,
     if serve_q_scales is not None and q_supported(model.config):
         qnet = ServeQNet(model, want_optimistic)
         net = lambda planes, scalars: qnet(planes, scalars, serve_q_scales)
+        route = "serveq"
     elif serve_fold and serve_supported(model.config):
         net = ServeNet(model, want_optimistic)
+        route = "fold"
     else:
+        route = "plain"
         if use_fused_trunk and trunk_supported(model.config):
             trunk_fn = build_trunk_fn(model.config, model)
+            route = "fused"
         net = functools.partial(model, trunk_fn=trunk_fn)
     score_values = None
 
@@ -252,9 +281,11 @@ def make_eval_fn(model, symmetrize: bool = True, include_ladders: bool = False,
                 last_moves=apply_symmetry_action(states.last_moves, sym),
                 ko_point=torch.where(ko_on, ko_mapped.to(ko.dtype), ko),
             )
-        planes, scalars = batched_features(states, include_ladders,
-                                           planes_dtype=model.dtype)
-        out = net(planes, scalars)
+        with tracing.span("eval.features", rows=states.stones.shape[0]):
+            planes, scalars = batched_features(states, include_ladders,
+                                               planes_dtype=model.dtype)
+        with tracing.span("eval.forward", route=route):
+            out = net(planes, scalars)
         pi_logits = out.pi_logits
         if p_opt_weight > 0.0:
             w = float(p_opt_weight)
@@ -630,7 +661,8 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
                 gumbel_noise: Optional[torch.Tensor] = None,
                 sample_gumbel: Optional[torch.Tensor] = None,
                 bias_table=None):
-    """Sequential-halving Gumbel search on a batch of boards.
+    """Sequential-halving Gumbel search on a batch of boards, spanned as
+    `search.root`.
 
     `tau` [B] overrides params.tau per board (tau <= 0 plays the top
     candidate). With `init_tree` (a compacted subtree, see
@@ -643,6 +675,13 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
     (result, working_tree, bias_table). `gumbel_noise` / `sample_gumbel`
     ([B, 362], standard Gumbel) replace the draws from `generator`.
     """
+    with tracing.span("search.root", n=params.n, k=params.k, rows=states.stones.shape[0]):
+        return _search_root(states, eval_fn, params, generator, tau, init_tree,
+                            reuse_capacity, gumbel_noise, sample_gumbel, bias_table)
+
+
+def _search_root(states: GoState, eval_fn: EvalFn, params: SearchParams, generator,
+                 tau, init_tree, reuse_capacity, gumbel_noise, sample_gumbel, bias_table):
     COUNTERS.searches += 1
     B = states.stones.shape[0]
     dev = states.stones.device
@@ -668,7 +707,7 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
         reused = torch.zeros(B, dtype=torch.bool, device=dev)
 
     # --- root eval (EvaluateRoot only for new roots, gumbel.cc:275-278) ---
-    root_ev = eval_fn(states)
+    root_ev = _eval(eval_fn, states, "root")
     root_color = states.to_move
     zeros_b = torch.zeros(B, dtype=torch.long, device=dev)
     _init_nodes(tree, zeros_b, root_ev, root_color, root_ev.outcome_value,
@@ -768,186 +807,192 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
                    < torch.arange(L, device=dev)[:, None])[None]
 
         # --- descent (Search, gumbel.cc:674-727): table lookups only ---
-        tr = _sweep_transitions(tree, params.c_visit, params.c_scale, group)
-        path_nodes = torch.full((W, D), -1, dtype=torch.long, device=dev)
-        path_actions = None
-        if mcgs is None:
-            # Tree mode: level 0 follows the candidate edge; below it the
-            # whole (node, arrival rank) transition comes from the table.
-            child0 = tree.children[bw, 0, action0].long()
-            term0 = tree.is_terminal[bw, child0.clamp(0, N - 1)] & (child0 >= 0)
-            need0 = (child0 < 0) & valid0
-            cur = torch.where(valid0, torch.where(need0, torch.full_like(child0, _NEW_MARK),
-                                                  child0), torch.zeros_like(child0))
-            path_nodes[:, 0] = torch.where(valid0, cur, torch.full_like(cur, -1))
-            alloc_parent = torch.where(need0, 0, spare).long()
-            alloc_action = torch.where(need0, action0, torch.zeros_like(action0))
-            done = ~valid0 | need0 | term0
-            rank = lane % group  # replicas of a candidate are lane-contiguous
-            depth = valid0.long()
+        with tracing.span("search.descent") as descent:
+            tr = _sweep_transitions(tree, params.c_visit, params.c_scale, group)
+            path_nodes = torch.full((W, D), -1, dtype=torch.long, device=dev)
+            path_actions = None
+            levels = 0
+            if mcgs is None:
+                # Tree mode: level 0 follows the candidate edge; below it the
+                # whole (node, arrival rank) transition comes from the table.
+                child0 = tree.children[bw, 0, action0].long()
+                term0 = tree.is_terminal[bw, child0.clamp(0, N - 1)] & (child0 >= 0)
+                need0 = (child0 < 0) & valid0
+                cur = torch.where(valid0, torch.where(need0, torch.full_like(child0, _NEW_MARK),
+                                                      child0), torch.zeros_like(child0))
+                path_nodes[:, 0] = torch.where(valid0, cur, torch.full_like(cur, -1))
+                alloc_parent = torch.where(need0, 0, spare).long()
+                alloc_action = torch.where(need0, action0, torch.zeros_like(action0))
+                done = ~valid0 | need0 | term0
+                rank = lane % group  # replicas of a candidate are lane-contiguous
+                depth = valid0.long()
 
-            while not _sync(done.all(), "descent"):
-                active = ~done
-                node_c = cur.clamp(0, N - 1)
-                r = rank.clamp(0, group - 1)
-                child = tr.child[bw, node_c, r]
-                a = tr.action[bw, node_c, r]
-                term = tr.terminal[bw, node_c, r]
-                new_rank = tr.next_rank[bw, node_c, r]
-                need_alloc = (child < 0) & active
-                child_idx = torch.where(need_alloc, torch.full_like(child, _NEW_MARK), child)
-                alloc_parent = torch.where(need_alloc, node_c, alloc_parent)
-                alloc_action = torch.where(need_alloc, a, alloc_action)
-                stop = (need_alloc | term) & active
-                d_idx = depth.clamp(max=D - 1)
-                path_nodes[lane, d_idx] = torch.where(active, child_idx,
-                                                      path_nodes[lane, d_idx])
-                cur = torch.where(active, child_idx, cur)
-                rank = torch.where(active, new_rank, rank)
-                depth = depth + active.long()
-                done = done | stop | (depth >= D)
-        else:
-            # Graph mode: a transposed node can be shared across
-            # candidates, so arrival ranks are counted per level among the
-            # board's active lanes at the same node (ranks >= group take
-            # action 0, as in the JAX search), and the traversed actions
-            # are kept for the edge backup.
-            path_actions = torch.zeros((W, D), dtype=torch.long, device=dev)
-            cur = torch.zeros(W, dtype=torch.long, device=dev)
-            depth = torch.zeros(W, dtype=torch.long, device=dev)
-            done = ~valid0
-            alloc_parent = torch.full((W,), spare, dtype=torch.long, device=dev)
-            alloc_action = torch.zeros(W, dtype=torch.long, device=dev)
-            while not _sync(done.all(), "descent"):
-                active = ~done
-                node_c = cur.clamp(0, N - 1)
-                if group == 1:
-                    a_policy = tr.action[bw, node_c, 0]
-                else:
-                    nodeb = cur.reshape(B, L)
-                    actb = active.reshape(B, L)
-                    eq = ((nodeb[:, :, None] == nodeb[:, None, :])
-                          & actb[:, :, None] & actb[:, None, :])
-                    rank = (eq & lane_lt).sum(dim=2).reshape(-1)
-                    a_pick = tr.action[bw, node_c, rank.clamp(0, group - 1)]
-                    a_policy = torch.where(rank < group, a_pick, torch.zeros_like(a_pick))
-                a = torch.where(depth == 0, action0, a_policy)
-                child = tree.children[bw, node_c, a].long()
-                need_alloc = (child < 0) & active
-                child_idx = torch.where(need_alloc, torch.full_like(child, _NEW_MARK), child)
-                alloc_parent = torch.where(need_alloc, node_c, alloc_parent)
-                alloc_action = torch.where(need_alloc, a, alloc_action)
-                known_terminal = (child >= 0) & tree.is_terminal[bw, child_idx.clamp(0, N - 1)]
-                stop = (need_alloc | known_terminal) & active
-                d_idx = depth.clamp(max=D - 1)
-                path_nodes[lane, d_idx] = torch.where(active, child_idx,
-                                                      path_nodes[lane, d_idx])
-                path_actions[lane, d_idx] = torch.where(active, a, path_actions[lane, d_idx])
-                cur = torch.where(active, child_idx, cur)
-                depth = depth + active.long()
-                done = done | stop | (depth >= D)
+                while not _sync(done.all(), "descent"):
+                    levels += 1
+                    active = ~done
+                    node_c = cur.clamp(0, N - 1)
+                    r = rank.clamp(0, group - 1)
+                    child = tr.child[bw, node_c, r]
+                    a = tr.action[bw, node_c, r]
+                    term = tr.terminal[bw, node_c, r]
+                    new_rank = tr.next_rank[bw, node_c, r]
+                    need_alloc = (child < 0) & active
+                    child_idx = torch.where(need_alloc, torch.full_like(child, _NEW_MARK), child)
+                    alloc_parent = torch.where(need_alloc, node_c, alloc_parent)
+                    alloc_action = torch.where(need_alloc, a, alloc_action)
+                    stop = (need_alloc | term) & active
+                    d_idx = depth.clamp(max=D - 1)
+                    path_nodes[lane, d_idx] = torch.where(active, child_idx,
+                                                          path_nodes[lane, d_idx])
+                    cur = torch.where(active, child_idx, cur)
+                    rank = torch.where(active, new_rank, rank)
+                    depth = depth + active.long()
+                    done = done | stop | (depth >= D)
+            else:
+                # Graph mode: a transposed node can be shared across
+                # candidates, so arrival ranks are counted per level among the
+                # board's active lanes at the same node (ranks >= group take
+                # action 0, as in the JAX search), and the traversed actions
+                # are kept for the edge backup.
+                path_actions = torch.zeros((W, D), dtype=torch.long, device=dev)
+                cur = torch.zeros(W, dtype=torch.long, device=dev)
+                depth = torch.zeros(W, dtype=torch.long, device=dev)
+                done = ~valid0
+                alloc_parent = torch.full((W,), spare, dtype=torch.long, device=dev)
+                alloc_action = torch.zeros(W, dtype=torch.long, device=dev)
+                while not _sync(done.all(), "descent"):
+                    levels += 1
+                    active = ~done
+                    node_c = cur.clamp(0, N - 1)
+                    if group == 1:
+                        a_policy = tr.action[bw, node_c, 0]
+                    else:
+                        nodeb = cur.reshape(B, L)
+                        actb = active.reshape(B, L)
+                        eq = ((nodeb[:, :, None] == nodeb[:, None, :])
+                              & actb[:, :, None] & actb[:, None, :])
+                        rank = (eq & lane_lt).sum(dim=2).reshape(-1)
+                        a_pick = tr.action[bw, node_c, rank.clamp(0, group - 1)]
+                        a_policy = torch.where(rank < group, a_pick, torch.zeros_like(a_pick))
+                    a = torch.where(depth == 0, action0, a_policy)
+                    child = tree.children[bw, node_c, a].long()
+                    need_alloc = (child < 0) & active
+                    child_idx = torch.where(need_alloc, torch.full_like(child, _NEW_MARK), child)
+                    alloc_parent = torch.where(need_alloc, node_c, alloc_parent)
+                    alloc_action = torch.where(need_alloc, a, alloc_action)
+                    known_terminal = (child >= 0) & tree.is_terminal[bw, child_idx.clamp(0, N - 1)]
+                    stop = (need_alloc | known_terminal) & active
+                    d_idx = depth.clamp(max=D - 1)
+                    path_nodes[lane, d_idx] = torch.where(active, child_idx,
+                                                          path_nodes[lane, d_idx])
+                    path_actions[lane, d_idx] = torch.where(active, a, path_actions[lane, d_idx])
+                    cur = torch.where(active, child_idx, cur)
+                    depth = depth + active.long()
+                    done = done | stop | (depth >= D)
+            descent.set(levels=levels)
 
         # --- leaf board: the alloc parent's stored position + one step ---
-        want = (cur == _NEW_MARK) & valid0
-        par = torch.where(want, alloc_parent, torch.zeros_like(alloc_parent))
-        zi32 = torch.zeros(W, dtype=torch.int32, device=dev)
-        par_state = GoState(
-            stones=tree.s_stones[bw, par],
-            chain_id=tree.s_chain[bw, par].to(torch.int32),
-            hash=tree.s_hash[bw, par],
-            history=torch.zeros((W, 0, 2), dtype=torch.int64, device=dev),
-            history_len=zi32,
-            last_moves=tree.s_last5[bw, par].to(torch.int32),
-            to_move=tree.color[bw, par],
-            ko_point=tree.s_ko[bw, par].to(torch.int32),
-            consecutive_passes=tree.s_cpass[bw, par].to(torch.int32),
-            passes=zi32, move_count=zi32,
-            komi=states.komi.repeat_interleave(L),
-            num_b_prisoners=zi32, num_w_prisoners=zi32,
-            pass_alive=states.pass_alive.repeat_interleave(L, dim=0),
-            pa_move=zi32,
-        )
-        leaf_action = torch.where(want, alloc_action,
-                                  torch.full_like(alloc_action, PASS_MOVE))
-        leaf_states, _ = step(par_state, leaf_action)
-        leaf_terminal = is_game_over(leaf_states) & want
-        leaf_new = want & ~leaf_terminal
-        leaf_legal = legal_mask_batch(leaf_states)
+        with tracing.span("search.leaf"):
+            want = (cur == _NEW_MARK) & valid0
+            par = torch.where(want, alloc_parent, torch.zeros_like(alloc_parent))
+            zi32 = torch.zeros(W, dtype=torch.int32, device=dev)
+            par_state = GoState(
+                stones=tree.s_stones[bw, par],
+                chain_id=tree.s_chain[bw, par].to(torch.int32),
+                hash=tree.s_hash[bw, par],
+                history=torch.zeros((W, 0, 2), dtype=torch.int64, device=dev),
+                history_len=zi32,
+                last_moves=tree.s_last5[bw, par].to(torch.int32),
+                to_move=tree.color[bw, par],
+                ko_point=tree.s_ko[bw, par].to(torch.int32),
+                consecutive_passes=tree.s_cpass[bw, par].to(torch.int32),
+                passes=zi32, move_count=zi32,
+                komi=states.komi.repeat_interleave(L),
+                num_b_prisoners=zi32, num_w_prisoners=zi32,
+                pass_alive=states.pass_alive.repeat_interleave(L, dim=0),
+                pa_move=zi32,
+            )
+            leaf_action = torch.where(want, alloc_action,
+                                      torch.full_like(alloc_action, PASS_MOVE))
+            leaf_states, _ = step(par_state, leaf_action)
+            leaf_terminal = is_game_over(leaf_states) & want
+            leaf_new = want & ~leaf_terminal
+            leaf_legal = legal_mask_batch(leaf_states)
 
-        # MCGS: lanes whose new position is in the table link to its node.
-        if mcgs is not None:
-            meta_q = mcgs_meta(leaf_states.to_move, leaf_terminal)
-            hit, hit_node, ins_slot, has_empty = mcgs_probe(
-                mcgs, L, leaf_states.hash[:, 0], leaf_states.hash[:, 1], meta_q)
-            hit = hit & want
-        else:
-            hit = torch.zeros_like(want)
-            hit_node = torch.zeros(W, dtype=torch.long, device=dev)
-        # Grouped replicas stopping at the same unexpanded (parent, action)
-        # share ONE node: the first such lane allocates, the rest adopt it.
-        if group > 1:
-            keyb = (alloc_parent * NUM_MOVES + alloc_action).reshape(B, L)
-            wantb = want.reshape(B, L)
-            eqk = ((keyb[:, :, None] == keyb[:, None, :])
-                   & wantb[:, :, None] & wantb[:, None, :])
-            leader_rank = (eqk & lane_lt).sum(dim=2).reshape(-1)
-            is_leader = want & (leader_rank == 0)
-        else:
-            is_leader = want
-        allocated = is_leader & ~hit
-        na = allocated.reshape(B, L).long()
-        arank = na.cumsum(dim=1) - na
-        new_idx = (tree.next_free.long()[:, None] + arank).reshape(-1)
-        leaf_sub = torch.where(hit, hit_node, new_idx)
-        if group > 1:
-            lead_idx = eqk.to(torch.uint8).argmax(dim=2)  # first matching lane
-            lead = lambda v: v.reshape(B, L).gather(1, lead_idx).reshape(-1)
-            leaf_sub = torch.where(want, lead(leaf_sub), leaf_sub)
-            hit = torch.where(want, lead(hit), hit)
-        if mcgs is not None:
-            COUNTERS.add("mcgs_hits", hit)
-        leaf_node = torch.where(want, leaf_sub, cur.clamp(0, N - 1))
-        path_nodes = torch.where(path_nodes == _NEW_MARK, leaf_sub[:, None],
-                                 path_nodes)
-        link = want | hit
-        wp = torch.where(link, alloc_parent, torch.full_like(alloc_parent, spare))
-        wa = torch.where(link, alloc_action, torch.zeros_like(alloc_action))
-        ln = torch.where(allocated, leaf_node, torch.full_like(leaf_node, spare))
+            # MCGS: lanes whose new position is in the table link to its node.
+            if mcgs is not None:
+                meta_q = mcgs_meta(leaf_states.to_move, leaf_terminal)
+                hit, hit_node, ins_slot, has_empty = mcgs_probe(
+                    mcgs, L, leaf_states.hash[:, 0], leaf_states.hash[:, 1], meta_q)
+                hit = hit & want
+            else:
+                hit = torch.zeros_like(want)
+                hit_node = torch.zeros(W, dtype=torch.long, device=dev)
+            # Grouped replicas stopping at the same unexpanded (parent, action)
+            # share ONE node: the first such lane allocates, the rest adopt it.
+            if group > 1:
+                keyb = (alloc_parent * NUM_MOVES + alloc_action).reshape(B, L)
+                wantb = want.reshape(B, L)
+                eqk = ((keyb[:, :, None] == keyb[:, None, :])
+                       & wantb[:, :, None] & wantb[:, None, :])
+                leader_rank = (eqk & lane_lt).sum(dim=2).reshape(-1)
+                is_leader = want & (leader_rank == 0)
+            else:
+                is_leader = want
+            allocated = is_leader & ~hit
+            na = allocated.reshape(B, L).long()
+            arank = na.cumsum(dim=1) - na
+            new_idx = (tree.next_free.long()[:, None] + arank).reshape(-1)
+            leaf_sub = torch.where(hit, hit_node, new_idx)
+            if group > 1:
+                lead_idx = eqk.to(torch.uint8).argmax(dim=2)  # first matching lane
+                lead = lambda v: v.reshape(B, L).gather(1, lead_idx).reshape(-1)
+                leaf_sub = torch.where(want, lead(leaf_sub), leaf_sub)
+                hit = torch.where(want, lead(hit), hit)
+            if mcgs is not None:
+                COUNTERS.add("mcgs_hits", hit)
+            leaf_node = torch.where(want, leaf_sub, cur.clamp(0, N - 1))
+            path_nodes = torch.where(path_nodes == _NEW_MARK, leaf_sub[:, None],
+                                     path_nodes)
+            link = want | hit
+            wp = torch.where(link, alloc_parent, torch.full_like(alloc_parent, spare))
+            wa = torch.where(link, alloc_action, torch.zeros_like(alloc_action))
+            ln = torch.where(allocated, leaf_node, torch.full_like(leaf_node, spare))
 
-        def put(arr, idx, new, mask):
-            old = arr[bw, idx]
-            m = mask.reshape(mask.shape + (1,) * (old.dim() - 1))
-            arr[bw, idx] = torch.where(m, new.to(arr.dtype), old)
+            def put(arr, idx, new, mask):
+                old = arr[bw, idx]
+                m = mask.reshape(mask.shape + (1,) * (old.dim() - 1))
+                arr[bw, idx] = torch.where(m, new.to(arr.dtype), old)
 
-        def put_last(arr, idx, new, mask):
-            # put() where lanes may share an index with different values
-            old = arr[bw, idx]
-            scatter_last(arr.view(-1), bw * arr.shape[1] + idx,
-                         torch.where(mask, new.to(arr.dtype), old))
+            def put_last(arr, idx, new, mask):
+                # put() where lanes may share an index with different values
+                old = arr[bw, idx]
+                scatter_last(arr.view(-1), bw * arr.shape[1] + idx,
+                             torch.where(mask, new.to(arr.dtype), old))
 
-        e_idx = wp * NUM_MOVES + wa
-        put_last(tree.children.view(B, N * NUM_MOVES), e_idx, leaf_node, link)
-        put(tree.parent, ln, alloc_parent, allocated)
-        put(tree.parent_action, ln, alloc_action, allocated)
-        put(tree.s_stones, ln, leaf_states.stones, allocated)
-        put(tree.s_chain, ln, leaf_states.chain_id, allocated)
-        put(tree.s_last5, ln, leaf_states.last_moves, allocated)
-        put(tree.s_ko, ln, leaf_states.ko_point, allocated)
-        put(tree.s_cpass, ln, leaf_states.consecutive_passes, allocated)
-        put(tree.s_hash, ln, leaf_states.hash, allocated)
-        put(tree.s_legal, ln, leaf_legal, allocated)
-        tree = tree._replace(next_free=tree.next_free
-                             + na.sum(dim=1).to(torch.int32))
-        if mcgs is not None:
-            mcgs_insert(mcgs, L, ins_slot, leaf_states.hash[:, 0],
-                        leaf_states.hash[:, 1], meta_q, new_idx,
-                        allocated & has_empty)
+            e_idx = wp * NUM_MOVES + wa
+            put_last(tree.children.view(B, N * NUM_MOVES), e_idx, leaf_node, link)
+            put(tree.parent, ln, alloc_parent, allocated)
+            put(tree.parent_action, ln, alloc_action, allocated)
+            put(tree.s_stones, ln, leaf_states.stones, allocated)
+            put(tree.s_chain, ln, leaf_states.chain_id, allocated)
+            put(tree.s_last5, ln, leaf_states.last_moves, allocated)
+            put(tree.s_ko, ln, leaf_states.ko_point, allocated)
+            put(tree.s_cpass, ln, leaf_states.consecutive_passes, allocated)
+            put(tree.s_hash, ln, leaf_states.hash, allocated)
+            put(tree.s_legal, ln, leaf_legal, allocated)
+            tree = tree._replace(next_free=tree.next_free
+                                 + na.sum(dim=1).to(torch.int32))
+            if mcgs is not None:
+                mcgs_insert(mcgs, L, ins_slot, leaf_states.hash[:, 0],
+                            leaf_states.hash[:, 1], meta_q, new_idx,
+                            allocated & has_empty)
 
         # --- leaf evaluation: one [B * L] NN call; MCGS hits keep the
         # shared node's evaluation ---
         leaf_color = leaf_states.to_move
         root_sign = torch.where(leaf_color == root_color_w, 1.0, -1.0)
-        ev = eval_fn(leaf_states)
+        ev = _eval(eval_fn, leaf_states, "leaf")
         util = ev.outcome_value + _leaf_score_utility(
             params, ev.score_est, ev.score_var, root_sign * root_score_w)
         eval_active = leaf_new & valid0 & ~hit
@@ -970,44 +1015,45 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
         _init_nodes(tree, leaf_node, ev, leaf_color, util, eval_active, bw)
 
         # --- terminal evaluation (EvaluateTerminal, leaf_evaluator.cc:157-188)
-        t_lanes = leaf_terminal & valid0
-        if params.terminal_mode == "exact":
-            # Benson scoring of the terminal leaves only (the JAX search
-            # scores every lane under a lax.cond on any terminal; other
-            # lanes' scores are never read).
-            idx = torch.nonzero(t_lanes).squeeze(1)
-            COUNTERS.syncs["exact_terminal"] += 1
-            run_terminal = idx.numel() > 0
+        with tracing.span("search.terminal"):
+            t_lanes = leaf_terminal & valid0
+            if params.terminal_mode == "exact":
+                # Benson scoring of the terminal leaves only (the JAX search
+                # scores every lane under a lax.cond on any terminal; other
+                # lanes' scores are never read).
+                idx = _synced("exact_terminal", torch.nonzero, t_lanes).squeeze(1)
+                run_terminal = idx.numel() > 0
+                if run_terminal:
+                    COUNTERS.exact_scored += idx.numel()
+                    sbs, sws, _ = score_board(map_state(lambda x: x[idx], leaf_states))
+                    bs = torch.zeros(W, device=dev).index_copy(0, idx, sbs)
+                    ws = torch.zeros(W, device=dev).index_copy(0, idx, sws)
+            else:
+                run_terminal = True
+                bs, ws = _cheap_scores(leaf_states)
             if run_terminal:
-                COUNTERS.exact_scored += idx.numel()
-                sbs, sws, _ = score_board(map_state(lambda x: x[idx], leaf_states))
-                bs = torch.zeros(W, device=dev).index_copy(0, idx, sbs)
-                ws = torch.zeros(W, device=dev).index_copy(0, idx, sws)
-        else:
-            run_terminal = True
-            bs, ws = _cheap_scores(leaf_states)
-        if run_terminal:
-            player = torch.where(leaf_color == BLACK, bs, ws)
-            oppv = torch.where(leaf_color == BLACK, ws, bs)
-            final_score = player - oppv
-            emp_out = torch.where(player > oppv, 1.0, -1.0)
-            # Terminal utility uses stddev 0 (leaf_evaluator.cc:177-180).
-            emp_q = emp_out + _leaf_score_utility(
-                params, final_score, torch.zeros_like(final_score),
-                root_sign * root_score_w)
-            t_active = t_lanes & ~tree.is_terminal[bw, leaf_node]
-            lt = torch.where(t_active, leaf_node, torch.full_like(leaf_node, spare))
-            put(tree.init_util, lt, emp_q, t_active)
-            put(tree.init_outcome, lt, emp_out, t_active)
-            put(tree.init_score, lt, final_score, t_active)
-            put(tree.color, lt, leaf_color, t_active)
-            tree.is_terminal[bw, lt] = tree.is_terminal[bw, lt] | t_active
-            tree.evaluated[bw, lt] = tree.evaluated[bw, lt] | t_active
+                player = torch.where(leaf_color == BLACK, bs, ws)
+                oppv = torch.where(leaf_color == BLACK, ws, bs)
+                final_score = player - oppv
+                emp_out = torch.where(player > oppv, 1.0, -1.0)
+                # Terminal utility uses stddev 0 (leaf_evaluator.cc:177-180).
+                emp_q = emp_out + _leaf_score_utility(
+                    params, final_score, torch.zeros_like(final_score),
+                    root_sign * root_score_w)
+                t_active = t_lanes & ~tree.is_terminal[bw, leaf_node]
+                lt = torch.where(t_active, leaf_node, torch.full_like(leaf_node, spare))
+                put(tree.init_util, lt, emp_q, t_active)
+                put(tree.init_outcome, lt, emp_out, t_active)
+                put(tree.init_score, lt, final_score, t_active)
+                put(tree.color, lt, leaf_color, t_active)
+                tree.is_terminal[bw, lt] = tree.is_terminal[bw, lt] | t_active
+                tree.evaluated[bw, lt] = tree.evaluated[bw, lt] | t_active
 
         # --- backprop (Backward, gumbel.cc:738-761); under MCGS a node
         # can have several parents, so edges follow the traversed path ---
-        _backup(tree, bw, path_nodes, leaf_node, valid0,
-                path_actions if mcgs is not None else None)
+        with tracing.span("search.backup"):
+            _backup(tree, bw, path_nodes, leaf_node, valid0,
+                    path_actions if mcgs is not None else None)
         return tree
 
     def rerank(tree: Tree, cand_actions, cand_valid, k_r: int):
@@ -1047,7 +1093,8 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
             full, rem = divmod(v_r, g)
             for g_i, reps in [(g, full)] + ([(rem, 1)] if rem else []):
                 for _ in range(reps):
-                    tree = one_sweep(tree, k_r, cand_actions, cand_valid, g_i, mcgs=mcgs)
+                    with tracing.span("search.sweep", k_r=k_r, group=g_i):
+                        tree = one_sweep(tree, k_r, cand_actions, cand_valid, g_i, mcgs=mcgs)
             visits_spent = visits_spent + v_r * live_k.sum(dim=1, dtype=torch.int32)
         else:
             # (budget, check interval, first check), gumbel.cc:397-409; i
@@ -1063,20 +1110,26 @@ def search_root(states: GoState, eval_fn: EvalFn, params: SearchParams,
             dead = ~live_k.any(dim=1)
             stopped = torch.zeros(B, dtype=torch.bool, device=dev)
             i = prev = 0
-            while i < budget and not _sync((stopped | dead).all(), "early_stop"):
-                tree = one_sweep(tree, k_r, cand_actions, cand_valid, g,
-                                 stopped=stopped, mcgs=mcgs)
+            while i < budget:
+                with tracing.span("search.rerank"):
+                    if _sync((stopped | dead).all(), "early_stop"):
+                        break
+                with tracing.span("search.sweep", k_r=k_r, group=g):
+                    tree = one_sweep(tree, k_r, cand_actions, cand_valid, g,
+                                     stopped=stopped, mcgs=mcgs)
                 visits_spent = visits_spent + g * (live_k & ~stopped[:, None]).sum(
                     dim=1, dtype=torch.int32)
                 i += g
                 if i >= first_check and i // c > prev // c:
-                    stop_now = _can_stop_early(tree, cand_actions, cand_valid, k_r,
-                                               base_score, ztab, params)
-                    if i < budget:
-                        COUNTERS.add("early_stops", stop_now & ~stopped & ~dead)
-                    stopped = stopped | stop_now
+                    with tracing.span("search.rerank"):
+                        stop_now = _can_stop_early(tree, cand_actions, cand_valid, k_r,
+                                                   base_score, ztab, params)
+                        if i < budget:
+                            COUNTERS.add("early_stops", stop_now & ~stopped & ~dead)
+                        stopped = stopped | stop_now
                 prev = i
-        cand_actions, cand_valid = rerank(tree, cand_actions, cand_valid, k_r)
+        with tracing.span("search.rerank"):
+            cand_actions, cand_valid = rerank(tree, cand_actions, cand_valid, k_r)
 
     # --- final improved policy (ComputeRootImprovedPolicy, gumbel.cc:154-175)
     q0 = q_of_children(tree, zeros_b)

@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from p3achygo_tpu_torch import tracing
 from p3achygo_tpu_torch.constants import BLACK, NUM_MOVES, PASS_MOVE
 from p3achygo_tpu_torch.game.board import (
     GoState,
@@ -46,9 +47,11 @@ from p3achygo_tpu_torch.mcts.gumbel import (
     GumbelResult,
     _backup,
     _cheap_scores,
+    _eval,
     _init_nodes,
     _leaf_score_utility,
     _sync,
+    _synced,
     gumbel,
 )
 from p3achygo_tpu_torch.mcts.tree import (
@@ -168,7 +171,8 @@ def search_root_puct(states: GoState, eval_fn: EvalFn, p: PuctParams,
                      generator: Optional[torch.Generator] = None,
                      return_tree: bool = False,
                      sample_gumbel: Optional[torch.Tensor] = None):
-    """PUCT root search on a batch of boards -> GumbelResult.
+    """PUCT root search on a batch of boards -> GumbelResult, spanned as
+    `search.root` (n = visits, k = 0).
 
     `return_tree=True` also stores each new node's board state in the tree
     (the s_* fields, otherwise skipped because the descent replays moves on
@@ -176,6 +180,12 @@ def search_root_puct(states: GoState, eval_fn: EvalFn, p: PuctParams,
     Gumbel search (tree.compact_root -> gumbel.search_root(init_tree=...)),
     as the reference's visit study does (gumbel_visits_study.cc
     RunSeededGumbel)."""
+    with tracing.span("search.root", n=p.n, k=0, rows=states.stones.shape[0]):
+        return _search_root_puct(states, eval_fn, p, generator, return_tree, sample_gumbel)
+
+
+def _search_root_puct(states: GoState, eval_fn: EvalFn, p: PuctParams, generator,
+                      return_tree: bool, sample_gumbel):
     COUNTERS.searches += 1
     B = states.stones.shape[0]
     dev = states.stones.device
@@ -185,7 +195,7 @@ def search_root_puct(states: GoState, eval_fn: EvalFn, p: PuctParams,
     spare = max_nodes - 1
     zeros_b = torch.zeros(B, dtype=torch.long, device=dev)
 
-    root_ev = eval_fn(states)
+    root_ev = _eval(eval_fn, states, "root")
     root_color = states.to_move
     _init_nodes(tree, zeros_b, root_ev, root_color, root_ev.outcome_value,
                 torch.ones(B, dtype=torch.bool, device=dev), b)
@@ -274,7 +284,7 @@ def search_root_puct(states: GoState, eval_fn: EvalFn, p: PuctParams,
 
         leaf_color = leaf_states.to_move
         root_sign = torch.where(leaf_color == root_color, 1.0, -1.0)
-        ev = eval_fn(leaf_states)
+        ev = _eval(eval_fn, leaf_states, "leaf")
         util = ev.outcome_value + _leaf_score_utility(
             p, ev.score_est, ev.score_var, root_sign * root_score_est)
         _init_nodes(tree, leaf_node, ev, leaf_color, util, leaf_new & valid0, b)
@@ -283,8 +293,7 @@ def search_root_puct(states: GoState, eval_fn: EvalFn, p: PuctParams,
         t_lanes = leaf_terminal & valid0
         run_terminal = True
         if p.terminal_mode == "exact":
-            idx = torch.nonzero(t_lanes).squeeze(1)
-            COUNTERS.syncs["exact_terminal"] += 1
+            idx = _synced("exact_terminal", torch.nonzero, t_lanes).squeeze(1)
             run_terminal = idx.numel() > 0
             if run_terminal:
                 COUNTERS.exact_scored += idx.numel()

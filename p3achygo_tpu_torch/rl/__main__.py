@@ -16,6 +16,10 @@ deployment over a store bus (--store <dir|gs://...>):
 Every search option of a run configuration runs (early stopping, exact
 terminal scoring, the value-bias cache). --device picks the device the
 process runs on (the card unless the caller asks for the CPU).
+--trace-spans (combined loop) turns `p3achygo_tpu_torch.tracing` on and adds
+to each generation's line `spans`, by span name its count, total and self
+seconds and host syncs, and `sync_wait_s`, the seconds the searches' own
+syncs blocked, by cause.
 """
 from __future__ import annotations
 
@@ -40,10 +44,16 @@ def main(argv=None) -> None:
                     help="store bus path or gs:// url (actor/learner)")
     ap.add_argument("--worker-id", default="w0")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-spans", action="store_true",
+                    help="time the self-play ply by span (combined loop)")
     args = ap.parse_args(argv)
     if args.role != "both" and not args.store:
         ap.error("--role actor/learner requires --store")
+    if args.trace_spans and args.role != "both":
+        ap.error("--trace-spans reports on the combined loop (--role both)")
 
+    from p3achygo_tpu_torch import tracing
+    from p3achygo_tpu_torch.mcts.gumbel import COUNTERS
     from p3achygo_tpu_torch.rl.config import parse
     from p3achygo_tpu_torch.rl.loop import GenerationLoop
 
@@ -63,10 +73,20 @@ def main(argv=None) -> None:
         print(json.dumps({"resumed_at_gen": loop.gen}), flush=True)
     if args.sgf_dir:
         loop.sgf_dir = args.sgf_dir
+    if args.trace_spans:
+        tracing.enable()
     while loop.gen < gens:
         t0 = time.time()
         info = loop.run_generation()
         info["wall_s"] = round(time.time() - t0, 1)
+        if args.trace_spans:
+            info["spans"] = {name: {k: (round(v, 6) if isinstance(v, float) else v)
+                                    for k, v in d.items()}
+                             for name, d in tracing.summary().items()}
+            info["sync_wait_s"] = {cause: round(ns / 1e9, 6)
+                                   for cause, ns in COUNTERS.sync_wait_ns.items()}
+            tracing.reset()
+            COUNTERS.sync_wait_ns.clear()
         print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                           for k, v in info.items()}), flush=True)
 

@@ -22,7 +22,8 @@ the raw-policy Gumbels of `_choose_move` (loop.py:200; JAX's `categorical`
 is Gumbel-max) and the trainable-coin uniforms (loop.py:345, :499).
 
 The step updates `buf` in place and returns it; states, aux and trees are
-new tensors.
+new tensors. A step and a reset are each a ply of `tracing` spans
+(`selfplay.step` / `selfplay.reset` at the top).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from p3achygo_tpu_torch import tracing
 from p3achygo_tpu_torch.constants import MAX_GAME_LEN, NUM_LAST_MOVES, NUM_LOCS, NUM_MOVES, PASS_MOVE
 from p3achygo_tpu_torch.game.board import (
     GoState,
@@ -338,44 +340,49 @@ def selfplay_step(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     (states, buf, aux)."""
     B = states.stones.shape[0]
     dev = states.stones.device
-    if draws is None:
-        draws = draw_selfplay(B, generator, dev)
-    # Pre-search root stats from the reused tree, read before the search
-    # mutates the root (self_play_thread.cc:459-482).
-    if reuse_tree is not None:
-        pre = root_pre_stats(reuse_tree, params.c_visit, params.c_scale)
-    else:
-        pre = _zero_pre_stats(B, dev)
+    with tracing.ply("selfplay.step", B=B):
+        if draws is None:
+            draws = draw_selfplay(B, generator, dev)
+        # Pre-search root stats from the reused tree, read before the search
+        # mutates the root (self_play_thread.cc:459-482).
+        if reuse_tree is not None:
+            pre = root_pre_stats(reuse_tree, params.c_visit, params.c_scale)
+        else:
+            pre = _zero_pre_stats(B, dev)
 
-    tau = tau_schedule(states.move_count, cfg)
-    if reuse_tree is not None:
-        res, work_tree = search_root(states, eval_fn, params, tau=tau,
-                                     init_tree=reuse_tree,
-                                     reuse_capacity=reuse_capacity,
-                                     gumbel_noise=draws.noise,
-                                     sample_gumbel=draws.sample)
-    else:
-        res = search_root(states, eval_fn, params, tau=tau,
-                          gumbel_noise=draws.noise, sample_gumbel=draws.sample)
-        work_tree = None
+        tau = tau_schedule(states.move_count, cfg)
+        if reuse_tree is not None:
+            res, work_tree = search_root(states, eval_fn, params, tau=tau,
+                                         init_tree=reuse_tree,
+                                         reuse_capacity=reuse_capacity,
+                                         gumbel_noise=draws.noise,
+                                         sample_gumbel=draws.sample)
+        else:
+            res = search_root(states, eval_fn, params, tau=tau,
+                              gumbel_noise=draws.noise, sample_gumbel=draws.sample)
+            work_tree = None
 
-    move, sampling_raw, over = _choose_move(states, res, aux.raw_until, draws.raw)
-    keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
-        res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
-    coin = ~sampling_raw & (draws.train_u < keep_prob * sel_mult)
-    trainable = torch.where(aux.force_sel, ~sampling_raw,
-                            coin if selected_tier else torch.zeros_like(coin))
+        with tracing.span("selfplay.compact"):
+            move, sampling_raw, over = _choose_move(states, res, aux.raw_until, draws.raw)
+            next_tree = (compact_subtree(work_tree, move, reuse_capacity)
+                         if work_tree is not None else None)
+        with tracing.span("selfplay.record"):
+            keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
+                res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
+            coin = ~sampling_raw & (draws.train_u < keep_prob * sel_mult)
+            trainable = torch.where(aux.force_sel, ~sampling_raw,
+                                    coin if selected_tier else torch.zeros_like(coin))
 
-    nn_q_root = work_tree.init_util[:, 0] if work_tree is not None else pre.nn_q
-    nn_unc_root = (work_tree.init_err[:, 0] if work_tree is not None
-                   else pre.nn_uncertainty)
-    states, buf = _record_and_advance(states, buf, res, move, sampling_raw,
-                                      over, pre, nn_q_root, nn_unc_root,
-                                      trainable, keep_prob, sel_modifier, cfg)
-    aux = SelfplayAux(raw_until=aux.raw_until, down_bad_count=down_bad_count,
-                      force_sel=torch.zeros_like(aux.force_sel))
-    if work_tree is not None:
-        return states, buf, aux, compact_subtree(work_tree, move, reuse_capacity)
+            nn_q_root = work_tree.init_util[:, 0] if work_tree is not None else pre.nn_q
+            nn_unc_root = (work_tree.init_err[:, 0] if work_tree is not None
+                           else pre.nn_uncertainty)
+            states, buf = _record_and_advance(states, buf, res, move, sampling_raw,
+                                              over, pre, nn_q_root, nn_unc_root,
+                                              trainable, keep_prob, sel_modifier, cfg)
+        aux = SelfplayAux(raw_until=aux.raw_until, down_bad_count=down_bad_count,
+                          force_sel=torch.zeros_like(aux.force_sel))
+    if next_tree is not None:
+        return states, buf, aux, next_tree
     return states, buf, aux
 
 
@@ -416,92 +423,96 @@ def selfplay_step_tiered(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     appended."""
     B = states.stones.shape[0]
     dev = states.stones.device
-    lo, force_sel = (0, aux.force_sel) if shard is None else shard
-    B_all = force_sel.shape[0]
-    G = tier_groups(B_all, cfg)
-    Bg = B_all // G
-    b_sel_g = tier_sizes(B_all, cfg)[0] // G
-    if draws is None:
-        draws = draw_step(B_all, cfg, generator, dev)
-    # force_sel boards sort first within their group; group-local ranks.
-    keys = torch.where(force_sel, draws.perm_u - 2.0, draws.perm_u).reshape(G, Bg)
-    perm_g = torch.argsort(keys, dim=1, stable=True)
-    inv_g = torch.argsort(perm_g, dim=1, stable=True)
-    base = torch.arange(G, device=dev)[:, None] * Bg
-    flat = lambda idx_g: (idx_g + base).reshape(-1)  # group-local -> board
-    tiers = [(flat(perm_g[:, :b_sel_g]), params_sel, draws.sel_noise,
-              draws.sel_sample, draws.sel_raw),
-             (flat(perm_g[:, b_sel_g:]), params_fast, draws.fast_noise,
-              draws.fast_sample, draws.fast_raw)]
-    if shard is not None:
-        # This rank's boards of each tier, with their rows of the draws.
-        mine = lambda idx: (idx >= lo) & (idx < lo + B)
-        tiers = [(idx[mine(idx)] - lo, p, *(d[mine(idx)] for d in ds))
-                 for idx, p, *ds in tiers]
-    tau = tau_schedule(states.move_count, cfg)
+    with tracing.ply("selfplay.step", B=B):
+        lo, force_sel = (0, aux.force_sel) if shard is None else shard
+        B_all = force_sel.shape[0]
+        G = tier_groups(B_all, cfg)
+        Bg = B_all // G
+        b_sel_g = tier_sizes(B_all, cfg)[0] // G
+        if draws is None:
+            draws = draw_step(B_all, cfg, generator, dev)
+        # force_sel boards sort first within their group; group-local ranks.
+        keys = torch.where(force_sel, draws.perm_u - 2.0, draws.perm_u).reshape(G, Bg)
+        perm_g = torch.argsort(keys, dim=1, stable=True)
+        inv_g = torch.argsort(perm_g, dim=1, stable=True)
+        base = torch.arange(G, device=dev)[:, None] * Bg
+        flat = lambda idx_g: (idx_g + base).reshape(-1)  # group-local -> board
+        tiers = [(flat(perm_g[:, :b_sel_g]), params_sel, draws.sel_noise,
+                  draws.sel_sample, draws.sel_raw),
+                 (flat(perm_g[:, b_sel_g:]), params_fast, draws.fast_noise,
+                  draws.fast_sample, draws.fast_raw)]
+        if shard is not None:
+            # This rank's boards of each tier, with their rows of the draws.
+            mine = lambda idx: (idx >= lo) & (idx < lo + B)
+            tiers = [(idx[mine(idx)] - lo, p, *(d[mine(idx)] for d in ds))
+                     for idx, p, *ds in tiers]
+        tau = tau_schedule(states.move_count, cfg)
 
-    if reuse_tree is not None:
-        pre = root_pre_stats(reuse_tree, params_sel.c_visit, params_sel.c_scale)
-    else:
-        pre = _zero_pre_stats(B, dev)
-
-    def run_tier(idx, params, noise, sample, raw):
-        take = lambda x: x[idx]
-        st = map_state(take, states)
-        use_bias = bias_table is not None and params.bias_lambda > 0
-        bt = map_state(take, bias_table) if use_bias else None
         if reuse_tree is not None:
-            out = search_root(st, eval_fn, params, tau=take(tau),
-                              init_tree=map_state(take, reuse_tree),
-                              reuse_capacity=reuse_capacity,
-                              gumbel_noise=noise, sample_gumbel=sample,
-                              bias_table=bt)
-            res, work, bt = out if use_bias else (*out, None)
+            pre = root_pre_stats(reuse_tree, params_sel.c_visit, params_sel.c_scale)
         else:
-            out = search_root(st, eval_fn, params, tau=take(tau),
-                              gumbel_noise=noise, sample_gumbel=sample,
-                              bias_table=bt)
-            res, bt = out if use_bias else (out, None)
-            work = None
-        move, sampling_raw, over = _choose_move(st, res, take(aux.raw_until), raw)
-        if work is not None:
-            ntree = compact_subtree(work, move, reuse_capacity)
-            nn_q, nn_unc = work.init_util[:, 0], work.init_err[:, 0]
-        else:
-            ntree = None
-            nn_q, nn_unc = take(pre.nn_q), take(pre.nn_uncertainty)
-        return (res, move, sampling_raw, over, nn_q, nn_unc), ntree, bt
+            pre = _zero_pre_stats(B, dev)
 
-    # A shard may hold no board of a tier.
-    tiers = [t for t in tiers if t[0].numel() > 0]
-    outs = [run_tier(*t) for t in tiers]
+        def run_tier(idx, params, noise, sample, raw):
+            with tracing.span("selfplay.tier", n=params.n, k=params.k, rows=idx.shape[0]):
+                take = lambda x: x[idx]
+                st = map_state(take, states)
+                use_bias = bias_table is not None and params.bias_lambda > 0
+                bt = map_state(take, bias_table) if use_bias else None
+                if reuse_tree is not None:
+                    out = search_root(st, eval_fn, params, tau=take(tau),
+                                      init_tree=map_state(take, reuse_tree),
+                                      reuse_capacity=reuse_capacity,
+                                      gumbel_noise=noise, sample_gumbel=sample,
+                                      bias_table=bt)
+                    res, work, bt = out if use_bias else (*out, None)
+                else:
+                    out = search_root(st, eval_fn, params, tau=take(tau),
+                                      gumbel_noise=noise, sample_gumbel=sample,
+                                      bias_table=bt)
+                    res, bt = out if use_bias else (out, None)
+                    work = None
+                with tracing.span("selfplay.compact"):
+                    move, sampling_raw, over = _choose_move(st, res, take(aux.raw_until), raw)
+                    if work is not None:
+                        ntree = compact_subtree(work, move, reuse_capacity)
+                        nn_q, nn_unc = work.init_util[:, 0], work.init_err[:, 0]
+                    else:
+                        ntree = None
+                        nn_q, nn_unc = take(pre.nn_q), take(pre.nn_uncertainty)
+                return (res, move, sampling_raw, over, nn_q, nn_unc), ntree, bt
 
-    def unperm(*parts):
-        """Tier rows back to board order."""
-        merged = parts[0].new_empty((B,) + parts[0].shape[1:])
-        for (idx, *_), part in zip(tiers, parts):
-            merged[idx] = part
-        return merged
+        # A shard may hold no board of a tier.
+        tiers = [t for t in tiers if t[0].numel() > 0]
+        outs = [run_tier(*t) for t in tiers]
 
-    res = map_state(unperm, *(o[0][0] for o in outs))
-    move, sampling_raw, over, nn_q_root, nn_unc_root = (
-        unperm(*parts) for parts in zip(*(o[0][1:] for o in outs)))
-    next_tree = (map_state(unperm, *(o[1] for o in outs))
-                 if reuse_tree is not None else None)
-    next_bias = (map_state(unperm, *(o[2] for o in outs))
-                 if outs[0][2] is not None else None)
+        def unperm(*parts):
+            """Tier rows back to board order."""
+            merged = parts[0].new_empty((B,) + parts[0].shape[1:])
+            for (idx, *_), part in zip(tiers, parts):
+                merged[idx] = part
+            return merged
 
-    is_sel = (inv_g < b_sel_g).reshape(-1)[lo:lo + B]
-    keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
-        res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
-    trainable = torch.where(
-        aux.force_sel, ~sampling_raw,
-        is_sel & ~sampling_raw & (draws.train_u[lo:lo + B] < keep_prob * sel_mult))
-    states, buf = _record_and_advance(states, buf, res, move, sampling_raw,
-                                      over, pre, nn_q_root, nn_unc_root,
-                                      trainable, keep_prob, sel_modifier, cfg)
-    aux = SelfplayAux(raw_until=aux.raw_until, down_bad_count=down_bad_count,
-                      force_sel=torch.zeros_like(aux.force_sel))
+        res = map_state(unperm, *(o[0][0] for o in outs))
+        move, sampling_raw, over, nn_q_root, nn_unc_root = (
+            unperm(*parts) for parts in zip(*(o[0][1:] for o in outs)))
+        next_tree = (map_state(unperm, *(o[1] for o in outs))
+                     if reuse_tree is not None else None)
+        next_bias = (map_state(unperm, *(o[2] for o in outs))
+                     if outs[0][2] is not None else None)
+
+        is_sel = (inv_g < b_sel_g).reshape(-1)[lo:lo + B]
+        with tracing.span("selfplay.record"):
+            keep_prob, sel_modifier, sel_mult, down_bad_count = _selection_state(
+                res, pre, aux, sampling_raw, cfg, calib, sel_mult_base)
+            trainable = torch.where(
+                aux.force_sel, ~sampling_raw,
+                is_sel & ~sampling_raw & (draws.train_u[lo:lo + B] < keep_prob * sel_mult))
+            states, buf = _record_and_advance(states, buf, res, move, sampling_raw,
+                                              over, pre, nn_q_root, nn_unc_root,
+                                              trainable, keep_prob, sel_modifier, cfg)
+        aux = SelfplayAux(raw_until=aux.raw_until, down_bad_count=down_bad_count,
+                          force_sel=torch.zeros_like(aux.force_sel))
     out = (states, buf, aux) + ((next_tree,) if next_tree is not None else ()) \
         + ((next_bias,) if next_bias is not None else ())
     return out
@@ -547,33 +558,34 @@ def reset_finished(states: GoState, buf: GameBuffer, aux: SelfplayAux,
     the reset table when `bias_table` is."""
     B = states.stones.shape[0]
     dev = states.stones.device
-    repl = new_state(B, komi, device=dev, history=states.history.shape[1])
-    if init_states is not None:
-        repl = select_state(done & use_init, init_states, repl)
-    states = select_state(done, repl, states)
-    for arr in buf:
-        arr[done] = 0
-    max_raw = torch.round(float(max_raw_policy_moves)
-                          * 0.5 ** (states.move_count.float() / 40.0)).to(torch.int32)
-    if uniform is None:
-        uniform = torch.rand(B, generator=generator, device=dev)
-    new_raw = torch.floor(uniform * (max_raw + 1).float()).to(torch.int32)
-    if no_raw is not None:
-        new_raw = torch.where(no_raw, torch.zeros_like(new_raw), new_raw)
-    new_force = aux.force_sel
-    if force_sel is not None:
-        new_force = torch.where(done, force_sel, aux.force_sel)
-    aux = SelfplayAux(
-        raw_until=torch.where(done, states.move_count + new_raw, aux.raw_until),
-        down_bad_count=torch.where(done, torch.zeros_like(aux.down_bad_count),
-                                   aux.down_bad_count),
-        force_sel=new_force,
-    )
-    out = (states, buf, aux)
-    if reuse_tree is not None:
-        empty = make_tree(B, reuse_tree.n.shape[1], dev)
-        out += (select_state(done, empty, reuse_tree),)
-    if bias_table is not None:
-        empty_b = make_bias_table(B, bias_table.key0.shape[1], dev)
-        out += (select_state(done, empty_b, bias_table),)
+    with tracing.ply("selfplay.reset", B=B):
+        repl = new_state(B, komi, device=dev, history=states.history.shape[1])
+        if init_states is not None:
+            repl = select_state(done & use_init, init_states, repl)
+        states = select_state(done, repl, states)
+        for arr in buf:
+            arr[done] = 0
+        max_raw = torch.round(float(max_raw_policy_moves)
+                              * 0.5 ** (states.move_count.float() / 40.0)).to(torch.int32)
+        if uniform is None:
+            uniform = torch.rand(B, generator=generator, device=dev)
+        new_raw = torch.floor(uniform * (max_raw + 1).float()).to(torch.int32)
+        if no_raw is not None:
+            new_raw = torch.where(no_raw, torch.zeros_like(new_raw), new_raw)
+        new_force = aux.force_sel
+        if force_sel is not None:
+            new_force = torch.where(done, force_sel, aux.force_sel)
+        aux = SelfplayAux(
+            raw_until=torch.where(done, states.move_count + new_raw, aux.raw_until),
+            down_bad_count=torch.where(done, torch.zeros_like(aux.down_bad_count),
+                                       aux.down_bad_count),
+            force_sel=new_force,
+        )
+        out = (states, buf, aux)
+        if reuse_tree is not None:
+            empty = make_tree(B, reuse_tree.n.shape[1], dev)
+            out += (select_state(done, empty, reuse_tree),)
+        if bias_table is not None:
+            empty_b = make_bias_table(B, bias_table.key0.shape[1], dev)
+            out += (select_state(done, empty_b, bias_table),)
     return out
