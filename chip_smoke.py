@@ -10,8 +10,9 @@ fallback):
              the TF32 switches (both off).
   1 build    compiles the liberty kernel (csrc/liberties.cu), the broadcast
              kernel (csrc/trunk_broadcast.cu), the segment kernel
-             (csrc/trunk_segment.cu) and the int8 conv kernel
-             (csrc/conv_i8.cu) with one nvcc each, started together;
+             (csrc/trunk_segment.cu), the int8 conv kernel
+             (csrc/conv_i8.cu) and the pre-activation kernel
+             (csrc/preact.cu) with one nvcc each, started together;
              prints each build's seconds, ptxas' register/spill lines and
              each trunk kernel's count of HGMMA (wgmma), HMMA (mma.sync)
              and all SASS instructions from `cuobjdump -sass`: every width
@@ -35,13 +36,28 @@ fallback):
              forward against the plain forward, in float32 (max |d| of the
              policy logits < 1e-3) and in bf16 (top-1 agreement, max |d| of
              the value printed); every output finite.
+  3b preact  the pre-activation kernel (ops/preact.py): every call the bf16
+             plain forward and ServeNet of phase 3's model make at N in
+             {1, 7, 512, 2880} on the boards of phase 2 (channels_last
+             ConvBlock inputs at C = 128 and 64, NCHW after each broadcast
+             mix) against the eager ops on the same input, 0 differing
+             bits, one call a ConvBlock and a broadcast mix; then bf16
+             channels_last at C in {64, 128, 384}, N in {512, 2880}, and
+             NCHW at C = 128, N = 2880: the kernel's and the eager chain's
+             device ms, the byte bound (x read once, y written once) and
+             the share of it.
   4 selfplay selfplay_step_tiered + finished_mask + reset_finished at the
              bench mix (25% n=128/k=8, 75% n=32/k=5, visit_group 4, tree
              reuse 64, b12c128btl3 bf16, serve_fold) on B=256 fresh games
              for 10 plies; checks every played move was legal and passed
              the superko guard, pi_improved is finite and sums to 1, and
-             the liberty kernel was launched by this phase. Prints plies/s
-             and moves/s (informative, not a benchmark).
+             the liberty and pre-activation kernels were launched by this
+             phase; one more ply under the profiler, in which each preact
+             call ran one kernel. Prints plies/s and moves/s (informative,
+             not a benchmark).
+  4b plain   the same loop on make_eval_fn(model), the plain eager forward
+             the generation loop serves through: the same checks, and the
+             preact launches a ply of both routes.
   5 trunk    the fused-trunk kernels, b12c128btl3 and b8c64 with seeded
              random weights and perturbed BN, at N in {1, 7, 64, 512, 2880}
              (2880: the widest leaf batch at B=256), on the stem
@@ -65,7 +81,8 @@ fallback):
   6 fused    the phase-4 loop with make_eval_fn(use_fused_trunk=True) in
              place of serve_fold, for 6 plies with one reset; the same
              checks, and all three kernels (segment, broadcast, liberty)
-             must have been launched by this phase. Then one more ply under
+             must have been launched by this phase, and no preact kernel
+             (the fused trunk replaces every call site). Then one more ply under
              the profiler: its CUDA kernel records by name, each wrapper's
              calls in it and the kernels a call launches (the kernels line's
              `kernels_profiled_ply`, as for phase 15's self-play).
@@ -99,8 +116,8 @@ fallback):
              one .stats file and a calibration, a non-empty reuse buffer, at
              least one fork job flushed, every SGF parsing back into the
              moves its board played, the eval's wins + losses = its games,
-             the liberty kernel launched; then a second loop on the same
-             directory resumes bitwise (gen, golden, train state, optimizer,
+             the liberty and pre-activation kernels launched; then a second
+             loop on the same directory resumes bitwise (gen, golden, train state, optimizer,
              generators, replay). Prints the wall time of each part.
 
   9 search   the search extras, about a minute and a half:
@@ -356,10 +373,10 @@ from p3achygo_tpu_torch.mcts import gumbel as search
 from p3achygo_tpu_torch.mcts.bias import bias_probe, local_pattern_keys, make_bias_table
 from p3achygo_tpu_torch.mcts.gumbel import SearchParams, make_eval_fn, visit_budget
 from p3achygo_tpu_torch.mcts.tree import make_tree
-from p3achygo_tpu_torch.models.blocks import BatchNorm
+from p3achygo_tpu_torch.models.blocks import BatchNorm, Broadcast, ConvBlock
 from p3achygo_tpu_torch.models.config import get_config
 from p3achygo_tpu_torch.models.losses import LossCoeffs, compute_losses
-from p3achygo_tpu_torch.models.model import ModelOutputs, build_model, init_params
+from p3achygo_tpu_torch.models.model import ModelOutputs, block_name, build_model, init_params
 from p3achygo_tpu_torch.models.transformer import MultiHeadDotProductAttention
 from p3achygo_tpu_torch.nn.serve import ServeNet
 from p3achygo_tpu_torch.nn.serve_q import ServeQNet, calibrate
@@ -368,6 +385,7 @@ from p3achygo_tpu_torch.nn.trunk_kernel2 import build_trunk_fn_v2
 from p3achygo_tpu_torch.ops import conv_i8 as conv_ops
 from p3achygo_tpu_torch.ops import cuda_build
 from p3achygo_tpu_torch.ops import liberties as lib_ops
+from p3achygo_tpu_torch.ops import preact as preact_ops
 from p3achygo_tpu_torch.ops import trunk as trunk_ops
 from p3achygo_tpu_torch.ops.liberties import (
     point_liberties_batch,
@@ -419,7 +437,17 @@ TRUNK_TIMED = (512, 2880)
 # version is itself that far from a float64-summed reference (PERF.md).
 KERNEL_TOL = 2e-2
 TRUNK_TOL = 4e-2
-KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broadcast)
+KERNELS = (point_liberties_batch, trunk_ops.trunk_segment, trunk_ops.trunk_broadcast,
+           preact_ops.preact)
+# The kernels of the fused route; it replaces the whole trunk, so the
+# pre-activation kernel (the plain and folded trunks') is not among them.
+FUSED_KERNELS = ("point_liberties_batch", "trunk_segment", "trunk_broadcast")
+# Phase 3b: the pre-activation kernel on the main path's activations (the
+# plain and folded b12c128btl3 forwards in bf16) at these batches, and timed
+# against the eager ops at these widths and batches.
+PREACT_BATCHES = (1, 7, 512, 2880)
+PREACT_TIMED_C = (64, 128, 384)
+PREACT_TIMED_N = (512, 2880)
 # Phase 15: the fused trunk at the widths whose kernels split a board over a
 # thread-block cluster (segment (256, 128) and (384, 192), broadcast 256 and
 # 384), full depth, and tiny (16, 8) / 16 on its own kernels. The plain
@@ -811,6 +839,107 @@ def phase_forward(device, boards, gen):
     return model, (planes, scalars, plain)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def phase_preact(device, boards, model, gen):
+    """Phase 3b: the pre-activation kernel. (a) Every call the bf16 plain
+    forward and ServeNet make at N in PREACT_BATCHES, on these boards'
+    features, is held against the eager ops on the same input: 0 differing
+    bits. Both layouts (channels_last ConvBlock inputs, NCHW after each
+    broadcast mix) and both trunk widths must be among them, one call a
+    ConvBlock and a broadcast mix a forward. (b) bf16 channels_last at C in
+    PREACT_TIMED_C, N in PREACT_TIMED_N, and NCHW at C = 128, N = 2880:
+    the kernel's and the eager chain's device ms, the byte bound and the
+    share. Returns (calls checked, rows)."""
+    kernel = preact_ops.preact
+    seen, differ = {}, []
+
+    def checked(x, a=None, b=None):
+        y = kernel(x, a, b)
+        key = (int(x.shape[1]), "nchw" if x.is_contiguous() else "nhwc")
+        seen[key] = seen.get(key, 0) + 1
+        n = int((_bits(y) != _bits(preact_ops.preact_reference(x, a, b))).sum())
+        if n:
+            differ.append((tuple(x.shape), key[1], n))
+        return y
+
+    cfg = model.config
+    per_forward = sum(isinstance(mod, (ConvBlock, Broadcast))
+                      for i in range(cfg.blocks)
+                      for mod in getattr(model, block_name(cfg, i)).modules())
+    net = ServeNet(model)
+    # The kernel's wrapper counts into the module's `preact`, the spy here.
+    checked.launches, checked.plain_calls = kernel.launches, kernel.plain_calls
+    preact_ops.preact = checked
+    try:
+        for N in PREACT_BATCHES:
+            sub = type(boards)(*[t[:N] for t in boards])
+            planes, scalars = batched_features(sub, planes_dtype=model.dtype)
+            model(planes, scalars)
+            net(planes, scalars)
+        torch.cuda.synchronize()
+    finally:
+        preact_ops.preact = kernel
+        kernel.launches, kernel.plain_calls = checked.launches, checked.plain_calls
+    calls = sum(seen.values())
+    log(f"phase 3b: {calls} preact calls of the bf16 plain and ServeNet forwards at N in "
+        f"{PREACT_BATCHES} against the eager ops, by (C, layout) {seen}: "
+        f"{len(differ)} with differing bits {differ[:4]}")
+    if differ:
+        raise AssertionError(f"preact kernel != eager ops on the forward's activations: {differ}")
+    if calls != 2 * per_forward * len(PREACT_BATCHES):
+        raise AssertionError(f"phase 3b: {calls} preact calls, want {per_forward} a forward")
+    widths = {cfg.channels, cfg.bottleneck_channels}
+    if {k[1] for k in seen} != {"nchw", "nhwc"} or {k[0] for k in seen} != widths:
+        raise AssertionError(f"phase 3b: the forwards ran the kernel at {sorted(seen)}; want "
+                             f"both layouts at C in {widths}")
+
+    rows = {}
+    cases = [(C, N, "nhwc") for C in PREACT_TIMED_C for N in PREACT_TIMED_N]
+    for C, N, layout in cases + [(128, max(PREACT_TIMED_N), "nchw")]:
+        x = (4.0 * torch.randn(N, C, 19, 19, generator=gen, device=device)).bfloat16()
+        if layout == "nhwc":
+            x = x.contiguous(memory_format=torch.channels_last)
+        a = 0.5 + torch.rand(C, generator=gen, device=device)
+        b = torch.rand(C, generator=gen, device=device) - 0.5
+        if not torch.equal(_bits(kernel(x, a, b)), _bits(preact_ops.preact_reference(x, a, b))):
+            raise AssertionError(f"preact kernel != eager ops at C={C}, N={N}, {layout}")
+        b_ms, b_by = bound_ms(0, 2 * x.numel() * x.element_size())
+        ms, how = device_ms_at_least(lambda: kernel(x, a, b), b_ms, calls=50)
+        plain = device_ms(lambda: preact_ops.preact_reference(x, a, b), 10)
+        rows[f"C={C} N={N} {layout}"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms, "x_eager": plain / ms, "timing": how}
+        log(f"phase 3b: preact C={C} N={N} {layout}: kernel {ms:.4f} ms ({how}), eager chain "
+            f"{plain:.4f} ms, x{plain / ms:.2f}; bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}%")
+    return calls, rows
+
+
+def check_fused_launches(launches, what):
+    """The fused route launched its three kernels and no pre-activation
+    kernel (its trunk_fn replaces the whole trunk)."""
+    for k in FUSED_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched by {what}")
+    if launches["preact"] != 0:
+        raise AssertionError(f"{what} launched the preact kernel {launches['preact']} times")
+
+
+def check_preact_ply(launches, profiled, what):
+    """The plain and folded routes launched the pre-activation kernel, and
+    in the profiled ply one kernel a wrapper call (a record CUPTI dropped
+    reads one low)."""
+    calls = profiled["wrapper_calls"]["preact"]
+    records = sum(n for k, n in profiled["kernel_records"].items()
+                  if k.startswith(KERNEL_PREFIX["preact"]))
+    if launches["preact"] <= 0 or not (calls > 0 and calls - 1 <= records <= calls):
+        raise AssertionError(f"{what}: preact launches {launches['preact']}; in the profiled "
+                             f"ply {calls} calls ran {records} kernels")
+
+
 def check_finite(out, fields, what):
     for f in fields:
         if not bool(torch.isfinite(getattr(out, f)).all()):
@@ -1184,12 +1313,12 @@ def cuda_kernel_counts(fn, calls: int = 10, attempts: int = 10) -> dict:
 
 def kernel_records(prof) -> dict:
     """{kernel<widths>: launches} of the port's own kernels (trunk_*,
-    point_liberties) in a profile, from its CUDA kernel records."""
+    point_liberties, preact) in a profile, from its CUDA kernel records."""
     out = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
-        m = re.search(r"((?:trunk|point)_\w*?kernel)(<[\d, ]+>)?", e.key)
+        m = re.search(r"((?:trunk|point|preact)_\w*?kernel)(<[\d, ]+>)?", e.key)
         if m:
             name = m.group(1) + (m.group(2) or "").replace(" ", "")
             out[name] = out.get(name, 0) + e.count
@@ -1198,7 +1327,7 @@ def kernel_records(prof) -> dict:
 
 # The prefix of the CUDA kernel names each wrapper of KERNELS launches.
 KERNEL_PREFIX = {"point_liberties_batch": "point_liberties_", "trunk_segment": "trunk_segment_",
-                 "trunk_broadcast": "trunk_broadcast_"}
+                 "trunk_broadcast": "trunk_broadcast_", "preact": "preact_"}
 
 
 def phase_selfplay(device, model, gen, eval_fn, plies, phase, kernels=KERNELS,
@@ -1354,9 +1483,7 @@ def phase_wide_trunk(device, boards, gen):
         launches, plies_s, moves_s, profiled = phase_selfplay(
             device, model, gen, make_eval_fn(model, use_fused_trunk=True), WIDE_PLIES,
             f"15 {name}", reset_every=WIDE_RESET_EVERY, profiled_ply=True)
-        for k, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"{k} was not launched by phase 15's {name} self-play")
+        check_fused_launches(launches, f"phase 15's {name} self-play")
         C, cb = model.config.channels, model.config.bottleneck_channels
         wide_kernels = [f"trunk_segment_cluster_kernel<{C},{cb}>"] + [
             f"trunk_broadcast_{part}_kernel<{C}>" for part in ("first", "mix", "last")]
@@ -1412,6 +1539,7 @@ def phase_wide_trunk(device, boards, gen):
     launches, plies_s, _, profiled = phase_selfplay(
         device, model, gen, make_eval_fn(model, use_fused_trunk=True), TINY_PLIES,
         f"15 {TINY_CONFIG}", profiled_ply=True)
+    check_fused_launches(launches, f"phase 15's {TINY_CONFIG} self-play")
     # The profiled ply ran tiny's kernels and no other trunk kernel, one a
     # wrapper call (a dropped profiler record reads one low).
     records = {k: n for k, n in profiled["kernel_records"].items()
@@ -3517,7 +3645,8 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    sources = (lib_ops.SOURCE, trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE, conv_ops.SOURCE)
+    sources = (lib_ops.SOURCE, trunk_ops.SOURCE, trunk_ops.SEGMENT_SOURCE, conv_ops.SOURCE,
+               preact_ops.SOURCE)
     t0 = time.perf_counter()
     cuda_build.build_libraries(sources)
     log(f"phase 1: built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s "
@@ -3543,21 +3672,36 @@ def main() -> int:
         if short:
             raise AssertionError(f"{src}: kernels without their tensor-core instructions "
                                  f"{short}: {counts}")
-    for line in cuda_build.build_log(conv_ops.SOURCE).splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log(f"phase 1: {line.strip()}")
+    for src in (conv_ops.SOURCE, preact_ops.SOURCE):
+        for line in cuda_build.build_log(src).splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"phase 1: {line.strip()}")
     conv_sass = conv_i8_sass()
 
     gen = torch.Generator(device=device).manual_seed(0)
     boards, max_err, times = phase_kernel(device, gen)
     cpu_gen = torch.Generator().manual_seed(1)
     model, forward_batch = phase_forward(device, boards, cpu_gen)
-    launches, plies_s, moves_s, _ = phase_selfplay(
-        device, model, gen, make_eval_fn(model, serve_fold=True), PLIES, 4)
+    preact_calls, preact_rows = phase_preact(device, boards, model, gen)
+    launches, plies_s, moves_s, profiled = phase_selfplay(
+        device, model, gen, make_eval_fn(model, serve_fold=True), PLIES, 4,
+        profiled_ply=True)
     if launches["point_liberties_batch"] <= 0:
         raise AssertionError("the liberty kernel was not launched by phase 4")
+    check_preact_ply(launches, profiled, "phase 4")
     log(f"phase 4: {plies_s:.3f} plies/s, {moves_s:.1f} moves/s at B={BENCH_B} "
         f"(informative; {smi})")
+    plain_launches, _, _, plain_profiled = phase_selfplay(
+        device, model, gen, make_eval_fn(model), PLIES, "4b", profiled_ply=True)
+    check_preact_ply(plain_launches, plain_profiled, "phase 4b")
+    preact_ply = {route: {"launches_per_ply": n["preact"] / PLIES,
+                          "profiled_ply_calls": p["wrapper_calls"]["preact"],
+                          "profiled_ply_kernel_records": {
+                              k: v for k, v in p["kernel_records"].items()
+                              if k.startswith(KERNEL_PREFIX["preact"])}}
+                  for route, n, p in (("fold", launches, profiled),
+                                      ("plain", plain_launches, plain_profiled))}
+    log(f"phases 4, 4b: preact launches at B={BENCH_B}: {preact_ply}")
 
     trunk_err, trunk_times, kernel_rows, other_rows = phase_trunk(device, boards, model,
                                                                   forward_batch,
@@ -3565,9 +3709,7 @@ def main() -> int:
     fused_launches, f_plies_s, f_moves_s, fused_profiled = phase_selfplay(
         device, model, gen, make_eval_fn(model, use_fused_trunk=True), FUSED_PLIES, 6,
         profiled_ply=True)
-    for k, n in fused_launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched by the fused self-play path")
+    check_fused_launches(fused_launches, "the fused self-play path")
     log(f"phase 6: {f_plies_s:.3f} plies/s, {f_moves_s:.1f} moves/s at B={BENCH_B} "
         f"with the fused trunk (informative; {smi})")
 
@@ -3576,6 +3718,9 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as gen_root:
         gen_launches, gen_info = phase_gen(device, smi, gen_root)
+        gen_preact = preact_ops.preact.launches
+        if gen_preact <= 0:
+            raise AssertionError("the generation loop's plain eval launched no preact kernel")
         print(json.dumps({"gen": gen_info}), flush=True)
 
         search_launches, search_info = phase_search(device, smi)
@@ -3709,6 +3854,31 @@ def main() -> int:
                                         "share_of_bound")}
             for r in q_info["convs"] if r["n"] == max(SERVE_Q_TIMED)},
         "by_site": q_info["convs"],
+    })
+    preact_main = preact_rows[f"C=128 N={max(PREACT_TIMED_N)} nhwc"]
+    kernels.append({
+        "name": "preact",
+        "route": "cuda",
+        "source": f"p3achygo_tpu_torch/csrc/{preact_ops.SOURCE}",
+        "replaces": "not a TPU kernel: the eager BatchNorm affine + mish of "
+                    "p3achygo_tpu_torch/models/blocks.py ConvBlock and nn/serve.py "
+                    "(XLA fuses p3achygo_tpu/models/blocks.py:20's mish into its neighbours)",
+        "launches": launches["preact"],
+        "launches_from": "phase 4 (serve_fold self-play)",
+        "launches_phase4b": plain_launches["preact"],
+        "launches_phase8": gen_preact,
+        "by_route_at_bench_b": preact_ply,
+        "calls_checked_phase3b": preact_calls,
+        "max_abs_err": 0.0,
+        "ms": preact_main["ms"],
+        "plain_ms": preact_main["plain_ms"],
+        "bound_ms": preact_main["bound_ms"],
+        "bound_by": preact_main["bound_by"],
+        "library_ms": None,
+        "timed_shape": f"bf16 channels_last C=128, N={max(PREACT_TIMED_N)}, a and b float32",
+        "timing": "device time per call from profiler kernel records; plain_ms is the "
+                  "eager chain it replaces (preact_reference)",
+        "by_shape": preact_rows,
     })
     kernels[1]["trunk_b12c128btl3"] = trunk_by_n
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,19 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p3achygo_tpu_torch.ops.preact import mish, mish_affine
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
-
-
-def mish(x: torch.Tensor) -> torch.Tensor:
-    """mish(x) = x * tanh(softplus(x)) as one rational in u = e^x:
-    tanh(log(1 + u)) = (u^2 + 2u) / (u^2 + 2u + 2). The exponent input is
-    clamped at 20 (exact: mish(x) rounds to x there). The formula of the
-    JAX package's models/blocks.py:20, which the flax model and the folded
-    serving forward use. The fused trunk uses `mish_f32` instead."""
-    u = torch.exp(torch.clamp(x, max=20.0))
-    n = u * u + 2.0 * u
-    return x * n / (n + 2.0)
 
 
 def mish_f32(x: torch.Tensor) -> torch.Tensor:
@@ -129,7 +120,8 @@ class Dense(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Pre-activation conv: BN -> mish -> conv (model.py:287-296)."""
+    """Pre-activation conv: BN -> mish -> conv (model.py:287-296). At
+    inference BN's affine and mish are one `ops.preact.mish_affine` call."""
 
     def __init__(self, cin: int, features: int, kernel: int):
         super().__init__()
@@ -137,7 +129,9 @@ class ConvBlock(nn.Module):
         self.Conv_0 = Conv(cin, features, kernel)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.Conv_0(mish(self.BatchNorm_0(x, train)))
+        if train:
+            return self.Conv_0(mish(self.BatchNorm_0(x, train)))
+        return self.Conv_0(mish_affine(x, *self.BatchNorm_0.affine()))
 
 
 class ClassicResidualBlock(nn.Module):
@@ -201,9 +195,9 @@ class Broadcast(nn.Module):
         super().__init__()
         self.Dense_0 = Dense(positions, positions)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         n, c, h, w = x.shape
-        y = self.Dense_0(mish(x).reshape(n, c, h * w))
+        y = self.Dense_0((mish(x) if train else mish_affine(x)).reshape(n, c, h * w))
         return y.reshape(n, c, h, w)
 
 
@@ -217,7 +211,7 @@ class BroadcastResidualBlock(nn.Module):
         self.conv_last = ConvBlock(features, features, 1)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return x + self.conv_last(self.mix(self.conv_first(x, train)), train)
+        return x + self.conv_last(self.mix(self.conv_first(x, train), train), train)
 
 
 def global_pool(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@ the TRT-engine analogue of reference cc/nn/engine/trt_engine.cc:177-215).
   pre-activation chain `conv_i -> BN_{i+1} -> mish -> conv_{i+1}` it folds
   into the producer conv (weight scaled per output channel, bias b), so
   only `mish` stays between convolutions. A chain's head BN reads the
-  residual stream and stays an explicit affine.
+  residual stream and stays an explicit affine. Both run through
+  `ops/preact.py` (`mish_affine`, `conv_mish`): on the card one kernel for
+  the head's affine + mish and one for each in-chain bias + mish, with the
+  eager ops' bits.
 * Head pruning. Search reads pi, outcome, the score distribution and
   q6_err; the other heads are not computed and their `ModelOutputs` fields
   are None. With `want_optimistic` the optimistic policy head is kept too
@@ -32,6 +35,7 @@ from p3achygo_tpu_torch.models.model import (
     block_name,
     is_broadcast_block,
 )
+from p3achygo_tpu_torch.ops.preact import conv_mish, mish_affine
 
 _Conv = Tuple[torch.Tensor, Optional[torch.Tensor], int]  # weight, bias, pad
 _Chain = Tuple[torch.Tensor, torch.Tensor, List[_Conv]]  # head a, head b, convs
@@ -41,10 +45,6 @@ def serve_supported(config) -> bool:
     """Conv-family trunks only (classic/btl/nbt + broadcast); the
     transformer trunk serves through the plain forward (JAX serve.py:50)."""
     return not getattr(config, "is_transformer", False)
-
-
-def _channel(v: torch.Tensor) -> torch.Tensor:
-    return v[None, :, None, None]
 
 
 def fold_chain(cbs: Sequence[ConvBlock]) -> _Chain:
@@ -241,12 +241,11 @@ class ServeNet:
     @staticmethod
     def _run_chain(x: torch.Tensor, chain: _Chain) -> torch.Tensor:
         a0, b0, convs = chain
-        u = mish(x * _channel(a0) + _channel(b0))
-        for i, (w, bias, pad) in enumerate(convs):
-            u = F.conv2d(u, w, bias, padding=pad)
-            if i + 1 < len(convs):
-                u = mish(u)
-        return u
+        u = mish_affine(x, a0, b0)
+        for w, bias, pad in convs[:-1]:
+            u = conv_mish(u, w, bias, pad)
+        w, bias, pad = convs[-1]
+        return F.conv2d(u, w, bias, padding=pad)
 
     @torch.no_grad()
     def __call__(self, board_state: torch.Tensor, game_state: torch.Tensor
@@ -261,7 +260,7 @@ class ServeNet:
                 x = x + self._run_chain(x, p)
             elif kind == "broadcast":
                 first, mix, last = p
-                u = mish(self._run_chain(x, first))
+                u = mish_affine(self._run_chain(x, first))
                 n, c, h, w = u.shape
                 z = F.linear(u.reshape(n, c, h * w), *mix).reshape(n, c, h, w)
                 x = x + self._run_chain(z, last)

@@ -18,8 +18,10 @@ terminal scoring, the value-bias cache). --device picks the device the
 process runs on (the card unless the caller asks for the CPU).
 --trace-spans (combined loop) turns `p3achygo_tpu_torch.tracing` on and adds
 to each generation's line `spans`, by span name its count, total and self
-seconds and host syncs, and `sync_wait_s`, the seconds the searches' own
-syncs blocked, by cause.
+seconds and host syncs, `sync_wait_s`, the seconds the searches' own
+syncs blocked, by cause, and `preact`, the generation's launches of the
+pre-activation kernel and its CUDA calls that ran the eager ops
+(`ops.preact`).
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ def main(argv=None) -> None:
 
     from p3achygo_tpu_torch import tracing
     from p3achygo_tpu_torch.mcts.gumbel import COUNTERS
+    from p3achygo_tpu_torch.ops.preact import preact
     from p3achygo_tpu_torch.rl.config import parse
     from p3achygo_tpu_torch.rl.loop import GenerationLoop
 
@@ -77,6 +80,7 @@ def main(argv=None) -> None:
         tracing.enable()
     while loop.gen < gens:
         t0 = time.time()
+        preact_before = preact.launches, preact.plain_calls
         info = loop.run_generation()
         info["wall_s"] = round(time.time() - t0, 1)
         if args.trace_spans:
@@ -85,6 +89,8 @@ def main(argv=None) -> None:
                              for name, d in tracing.summary().items()}
             info["sync_wait_s"] = {cause: round(ns / 1e9, 6)
                                    for cause, ns in COUNTERS.sync_wait_ns.items()}
+            info["preact"] = {"launches": preact.launches - preact_before[0],
+                              "plain_calls": preact.plain_calls - preact_before[1]}
             tracing.reset()
             COUNTERS.sync_wait_ns.clear()
         print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)

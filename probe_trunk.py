@@ -5,6 +5,7 @@
     python3 probe_trunk.py wide --earlier-tree DIR
     python3 probe_trunk.py tiny --earlier-tree DIR
     python3 probe_trunk.py ply
+    python3 probe_trunk.py preact
 
 segment: the segment kernel at the b12c128btl3 widths (C=128, Cb=64, a run
 of 3 blocks of 3 inner layers), the b8c64 widths (C=64, Cb=32, 3 blocks
@@ -76,6 +77,19 @@ serve_fold, in turns (fused, serve_fold, fused, serve_fold): 3 warm plies,
 4 plies timed one by one (host clock around synchronised plies), 2 plies
 under the profiler: device busy ms/ply (summed kernel time), wall ms/ply,
 idle share, kernels/ply and device time by class of kernel.
+
+preact: the pre-activation kernel (ops/preact.py, csrc/preact.cu) against
+the eager ops it replaces (`preact_reference`), bf16 x at C in {64, 128,
+384} and N in {512, 2880}, channels_last as the trunk's activations lie,
+with float32 a and b as the plain model's BatchNorm passes them (and one
+contiguous NCHW line, the call after a broadcast mix): device ms per call
+in WIDE_ROUNDS rounds in turns (chip_smoke.device_timing over 10 calls),
+the byte bound (x read and y written once at 3.35 TB/s), the kernel's
+share of it and the eager chain's time over the kernel's. Then the
+b12c128btl3 bf16 forward at N = 2880 (the plain model and ServeNet),
+with the kernel and with the eager ops (`ops.preact.engages` held false),
+in turns: device ms per forward, kernels per forward and device ms by
+class of kernel.
 
 Every line names the card and its power limit. Needs a card; there is no
 CPU mode. Builds go to a temporary directory.
@@ -381,9 +395,9 @@ def earlier_kernels(tree: str, tmp: str):
 
 def turns(fns: dict, smi: str, what: str) -> dict:
     """WIDE_ROUNDS rounds of chip_smoke.device_timing (10 calls) of each fn
-    in `fns` ({"earlier", "this", "library"}), in turns, the order reversed
-    every other round; logs every reading and each round's ratios, and
-    returns the readings ({name: [ms]})."""
+    in `fns` (among them "this"), in turns, the order reversed every other
+    round; logs every reading and each round's ratios of "this" to the
+    others, and returns the readings ({name: [ms]})."""
     names = list(fns)
     got = {k: [] for k in names}
     for i in range(WIDE_ROUNDS):
@@ -396,9 +410,8 @@ def turns(fns: dict, smi: str, what: str) -> dict:
     span = lambda v: f"{min(v):.4f}-{max(v):.4f}"
     log(f"wide: {what}: " + "; ".join(f"{k} {'/'.join(f'{t:.4f}' for t in got[k])} ms"
                                       for k in names)
-        + f"; this/earlier {span(ratio('this', 'earlier'))}; this/library "
-          f"{span(ratio('this', 'library'))} (device ms per call, device_timing, "
-          f"{WIDE_ROUNDS} rounds in turns) [{smi}]")
+        + "".join(f"; this/{k} {span(ratio('this', k))}" for k in names if k != "this")
+        + f" (device ms per call, device_timing, {WIDE_ROUNDS} rounds in turns) [{smi}]")
     return got
 
 
@@ -553,9 +566,62 @@ def probe_ply(smi: str) -> None:
             log(f"  {mode} {cls}: {ms:.1f} ms/ply ({100 * ms / busy:.1f}%)")
 
 
+def probe_preact(smi: str) -> None:
+    from p3achygo_tpu_torch.features import batched_features
+    from p3achygo_tpu_torch.nn.serve import ServeNet
+    from p3achygo_tpu_torch.ops import preact as pa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(C, N, torch.channels_last) for C in (64, 128, 384) for N in N_TIMED]
+    for C, N, fmt in cases + [(128, 2880, torch.contiguous_format)]:
+        x = (4.0 * torch.randn(N, C, 19, 19, generator=gen, device=dev)).bfloat16()
+        x = x.contiguous(memory_format=fmt)
+        a = 0.5 + torch.rand(C, generator=gen, device=dev)
+        b = torch.rand(C, generator=gen, device=dev) - 0.5
+        if not torch.equal(pa.preact(x, a, b).view(torch.int16),
+                           pa.preact_reference(x, a, b).view(torch.int16)):
+            raise AssertionError(f"preact: kernel != eager ops at C={C}, N={N}")
+        bound = 2 * x.numel() * x.element_size() / 3.35e12 * 1e3
+        got = turns({"this": lambda: pa.preact(x, a, b),
+                     "eager": lambda: pa.preact_reference(x, a, b)}, smi,
+                    f"preact C={C} N={N} {'nhwc' if fmt is torch.channels_last else 'nchw'}")
+        k, e = statistics.median(got["this"]), statistics.median(got["eager"])
+        log(f"preact: C={C} N={N} {'channels_last' if fmt is torch.channels_last else 'NCHW'}: "
+            f"kernel {k:.4f} ms (median), eager chain {e:.4f} ms, x{e / k:.2f}; bound "
+            f"{bound:.4f} ms (bytes), share {100 * bound / k:.1f}% [{smi}]")
+    model = chip_smoke.seeded_model("b12c128btl3", dev, torch.Generator().manual_seed(1),
+                                    dtype=torch.bfloat16)
+    boards = chip_smoke.random_boards(2880, 150, dev, gen)
+    planes, scalars = batched_features(boards, planes_dtype=torch.bfloat16)
+    net = ServeNet(model)
+    forwards = {"plain": lambda: model(planes, scalars), "fold": lambda: net(planes, scalars)}
+    engages = pa.engages
+    for _ in range(2):
+        for route, fwd in forwards.items():
+            for mode in ("kernel", "eager"):
+                pa.engages = engages if mode == "kernel" else (lambda x: False)
+                try:
+                    ms, how = chip_smoke.device_timing(fwd, 5)
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        for _ in range(2):
+                            fwd()
+                        torch.cuda.synchronize()
+                finally:
+                    pa.engages = engages
+                by_class, kernels = chip_smoke.kernel_classes(prof, 2)
+                log(f"preact: b12c128btl3 N=2880 {route} forward, {mode}: {ms:.3f} device "
+                    f"ms ({how}), {kernels:.0f} kernels; " + ", ".join(
+                        f"{c} {v:.3f}" for c, v in sorted(by_class.items(),
+                                                         key=lambda kv: -kv[1]))
+                    + f" [{smi}]")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("segment", "broadcast", "wide", "tiny", "ply"))
+    parser.add_argument("what", choices=("segment", "broadcast", "wide", "tiny", "ply",
+                                         "preact"))
     parser.add_argument("--baseline",
                         help="an earlier kernel source: for segment, one with the wr/w9/we "
                              "C interface; for broadcast, one with the wf/wdt/wl C interface")
@@ -580,6 +646,8 @@ def main() -> int:
         probe_wide(args.earlier_tree, smi)
     elif args.what == "tiny":
         probe_tiny(args.earlier_tree, smi)
+    elif args.what == "preact":
+        probe_preact(smi)
     else:
         probe_ply(smi)
     return 0

@@ -22,15 +22,17 @@ from p3achygo_tpu_torch.features import batched_features
 from p3achygo_tpu_torch.game.board import from_stones, legal_mask_batch, map_state
 from p3achygo_tpu_torch.game.scoring import compute_pass_alive
 from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
-from p3achygo_tpu_torch.models.blocks import mish
+from p3achygo_tpu_torch.models.blocks import Broadcast, ConvBlock, mish
 from p3achygo_tpu_torch.models.config import ModelConfig
 from p3achygo_tpu_torch.models.losses import LossCoeffs
-from p3achygo_tpu_torch.models.model import build_model, init_params
+from p3achygo_tpu_torch.models.model import block_name, build_model, init_params
+from p3achygo_tpu_torch.nn.serve import ServeNet
 from p3achygo_tpu_torch.nn.serve_q import ServeQNet, calibrate
 from p3achygo_tpu_torch.nn.trunk_kernel import build_trunk_fn
 from p3achygo_tpu_torch.ops import conv_i8 as ci
 from p3achygo_tpu_torch.ops.cuda_build import load_library
 from p3achygo_tpu_torch.ops import liberties as tl
+from p3achygo_tpu_torch.ops import preact as pa
 from p3achygo_tpu_torch.ops import trunk as tk
 from p3achygo_tpu_torch.mcts.tree import make_tree
 from p3achygo_tpu_torch.rl.config import RunConfig
@@ -957,3 +959,150 @@ def test_serve_q_fused_graph_equals_plain_graph(device):
                        net.stream(planes, scalars, scales, fused=False))
     assert torch.equal(fused.pi_logits, plain.pi_logits)
     assert bool(torch.isfinite(fused.pi_logits).all())
+
+
+# ---- ops/preact.py: the pre-activation kernel against the eager ops ----
+
+PREACT_C = [16, 32, 64, 128, 192, 256, 384]
+PREACT_N = [1, 7, 512, 2880]
+PREACT_AB = ["none", "f32", "dtype", "b"]  # mish alone; BatchNorm's; ServeNet's head; a bias
+# Inputs besides uniform -40..40: the clamp at 20 and its neighbours, signed
+# zeros, subnormals of both dtypes, infinities (-inf gives mish's NaN), and
+# the far negative side, where x*n becomes tiny and then subnormal.
+PREACT_SPECIAL = [0.0, -0.0, 20.0, 19.9, 20.1, -20.0, 40.0, -40.0, 1e-39, -1e-39, 3e-40,
+                  -7e-41, 1e-38, float("inf"), float("-inf"), 1e-3, -1e-3, 88.0, -88.0,
+                  -60.0, -70.0, -85.0, -95.0, -110.0, -150.0]
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _preact_case(device, N, C, dtype, layout, ab, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed + 131 * C + N)
+    x = torch.rand(N, C, 19, 19, generator=gen, device=device) * 80.0 - 40.0
+    flat = x.view(-1)
+    special = torch.tensor(PREACT_SPECIAL, device=device)
+    idx = torch.arange(0, flat.numel(), 37, device=device)
+    flat[idx] = special[torch.arange(idx.numel(), device=device) % special.numel()]
+    x = x.to(dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    a = 0.25 + 1.5 * torch.rand(C, generator=gen, device=device)
+    b = torch.rand(C, generator=gen, device=device) - 0.5
+    a, b = {"none": (None, None), "f32": (a, b), "dtype": (a.to(dtype), b.to(dtype)),
+            "b": (None, b.to(dtype))}[ab]
+    return x, a, b
+
+
+@pytest.mark.parametrize("ab", PREACT_AB)
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("N", PREACT_N)
+@pytest.mark.parametrize("C", PREACT_C)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_preact_kernel_is_bit_equal_to_the_eager_ops(device, dtype, C, N, layout, ab):
+    x, a, b = _preact_case(device, N, C, dtype, layout, ab)
+    before = pa.preact.launches
+    got = pa.preact(x, a, b)
+    want = pa.preact_reference(x, a, b)
+    torch.cuda.synchronize()
+    assert pa.preact.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.stride() == want.stride()
+    differ = _bits(got) != _bits(want)
+    assert int(differ.sum()) == 0, (
+        f"{int(differ.sum())} values differ, e.g. x {x[differ][:4].tolist()}: kernel "
+        f"{got[differ][:4].tolist()}, eager {want[differ][:4].tolist()}")
+
+
+@pytest.mark.parametrize("ab", PREACT_AB)
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_preact_kernel_is_bit_equal_on_every_bf16_and_random_float32_bits(device, dtype,
+                                                                          layout, ab):
+    """x takes every bf16 bit pattern (NaNs included), or 2^22 random
+    float32 bit patterns, over [N, 16, 19, 19]."""
+    x, a, b = _preact_case(device, 727, 16, dtype, layout, ab, seed=2)
+    n = 1 << (16 if dtype == torch.bfloat16 else 22)
+    gen = torch.Generator(device=device).manual_seed(4)
+    bits = (torch.arange(n, device=device, dtype=torch.int32) if dtype == torch.bfloat16 else
+            torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen, device=device,
+                          dtype=torch.int64))
+    flat = torch.zeros(x.numel(), dtype=dtype, device=device)
+    flat[:n] = bits.to(_bits(flat).dtype).view(dtype)
+    x = flat.view(727, 16, 19, 19)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    got, want = pa.preact(x, a, b), pa.preact_reference(x, a, b)
+    differ = _bits(got) != _bits(want)
+    assert int(differ.sum()) == 0, (
+        f"{int(differ.sum())} values differ, e.g. x {_bits(x)[differ][:4].tolist()}: kernel "
+        f"{_bits(got)[differ][:4].tolist()}, eager {_bits(want)[differ][:4].tolist()}")
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_preact_kernel_is_deterministic_and_counts_launches(device, layout):
+    x, a, b = _preact_case(device, 512, 128, torch.bfloat16, layout, "f32", seed=1)
+    before = pa.preact.launches
+    first, second = pa.preact(x, a, b), pa.preact(x, a, b)
+    torch.cuda.synchronize()
+    assert pa.preact.launches == before + 2
+    assert torch.equal(_bits(first), _bits(second))
+    empty = pa.preact(x[:0], a, b)
+    assert empty.shape == (0, 128, 19, 19) and pa.preact.launches == before + 2
+
+
+def test_preact_rejects_what_the_kernel_cannot_run(device):
+    x, a, b = _preact_case(device, 7, 16, torch.bfloat16, "nchw", "f32")
+    with pytest.raises(TypeError):
+        pa.preact(x.half(), a, b)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        pa.preact(x.reshape(-1)[1:1 + 16 * 361].reshape(1, 16, 19, 19), a, b)
+    with pytest.raises(ValueError):
+        pa.preact(x, a.cpu(), b)
+    with torch.no_grad():
+        assert not pa.engages(x.half()) and pa.engages(x)
+        # Where the kernel engages, an activation it cannot take raises: the
+        # call sites never drop back to the eager ops on the card.
+        before = pa.preact.launches, pa.preact.plain_calls
+        with pytest.raises(ValueError):  # neither layout
+            pa.mish_affine(x.transpose(2, 3), a, b)
+        with pytest.raises(ValueError):  # C not a multiple of 8
+            pa.mish_affine(x[:, :12].contiguous(), a[:12], b[:12])
+        w = torch.zeros(12, 16, 1, 1, dtype=x.dtype, device=device)
+        with pytest.raises(ValueError):
+            pa.conv_mish(x, w, b[:12].to(x.dtype), 0)
+        assert (pa.preact.launches, pa.preact.plain_calls) == before
+    assert not pa.engages(x)  # a gradient would be recorded
+
+
+def _outputs_bits(out):
+    return {k: _bits(v) for k, v in out._asdict().items() if isinstance(v, torch.Tensor)}
+
+
+@pytest.mark.parametrize("B", [1, 7, 1024])
+@pytest.mark.parametrize("name", ["b12c128btl3", "b14c384btl3"])
+def test_forwards_with_the_preact_kernel_equal_the_eager_ops(device, boards, monkeypatch,
+                                                             name, B):
+    """The plain model and ServeNet in bf16, with the kernel and with the
+    dispatch held to the eager ops (the route before the kernel: ServeNet's
+    convolutions add their bias themselves), are bit-equal on the same
+    boards, and the kernel runs once a ConvBlock and once a broadcast mix."""
+    m = seeded_model(name, device, torch.Generator().manual_seed(19), dtype=torch.bfloat16)
+    planes, scalars = batched_features(map_state(lambda t: t[:B], boards),
+                                       planes_dtype=torch.bfloat16)
+    blocks_ = [getattr(m, block_name(m.config, i)) for i in range(m.config.blocks)]
+    per_forward = sum(isinstance(mod, (ConvBlock, Broadcast))
+                      for blk in blocks_ for mod in blk.modules())
+    net = ServeNet(m)
+    runs = {}
+    for mode in ("kernel", "eager"):
+        if mode == "eager":
+            monkeypatch.setattr(pa, "engages", lambda x: False)
+        before = pa.preact.launches
+        runs[mode] = (_outputs_bits(m(planes, scalars)), _outputs_bits(net(planes, scalars)))
+        torch.cuda.synchronize()
+        assert pa.preact.launches - before == (2 * per_forward if mode == "kernel" else 0)
+    for got, want in zip(runs["kernel"], runs["eager"]):
+        assert got.keys() == want.keys()
+        for k in got:
+            assert torch.equal(got[k], want[k]), k

@@ -269,6 +269,7 @@ def test_generation_loop_prints_its_spans(tmp_path, capsys):
         assert set(d) == {"count", "total_s", "self_s", "syncs"}
     assert spans["search.descent"]["count"] == spans["search.backup"]["count"]
     assert set(line["sync_wait_s"]) >= {"descent"}
+    assert line["preact"] == {"launches": 0, "plain_calls": 0}  # the CPU runs no kernel
     assert tracing.spans() == [] and dict(tg.COUNTERS.sync_wait_ns) == {}
 
 
