@@ -1,14 +1,18 @@
 """Readings of the correctness check on several seeds in one process: the
-program as a cell runs it, or its lower-precision control.
+program as a cell runs it, or a lower-precision control.
 
-    python3 portbench/control.py --workload <name> --seeds 1,2,3 --seconds 5 [--route serveq]
+    python3 portbench/control.py --workload <name> --seeds 1,2,3 --seconds 5 [--route e4m3]
 
-The control is the program's own int8 serving path (the "serveq" route:
-`nn/serve_q.py`, calibrated on 256 of the cell's start positions) in place
-of the cell's bf16 route, at the cell's own size and load: the nearest
-precision below bf16 that the program has. Each seed's numbers print as one JSON line; the
-benchmark's own runs never run this. The limits in limits/<cell>.json sit
-between the sound runs' largest readings and the control's smallest.
+A control is a route of `cellrun.ROUTES` in place of the cell's bf16
+route, at the cell's own size and load: "serveq", the program's own int8
+serving path (`nn/serve_q.py`, calibrated on 256 of the cell's start
+positions), or "e4m3", the plain route with every product's weight and
+input rounded to float8 e4m3 by the harness, which every trunk type has.
+A route whose eval output equals the traffic route's bit for bit on 8 of
+the cell's start positions is no control: it is refused before any
+reading, naming the route. Each seed's numbers print as one JSON line;
+the benchmark's own runs never run this. The limits in limits/<cell>.json
+sit between the sound runs' largest readings and the control's smallest.
 """
 import argparse
 import json
@@ -18,6 +22,27 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+SAME_POSITIONS = 8
+
+
+def same_forward(cell: dict, route: str, seed: int, device) -> bool:
+    """Whether `route`'s eval output equals the traffic route's bit for bit
+    on the first `SAME_POSITIONS` of the cell's start positions, on the
+    cell's weights for `seed`."""
+    import torch
+
+    from p3achygo_tpu_torch.game.board import from_stones
+    from portbench.harness.cellrun import build_eval_fn, start_positions
+    from portbench.harness.weights import make_weights
+
+    tr = cell["traffic"]
+    params = make_weights(cell["config"], seed, device, cell["bench_dir"])
+    st, tm = start_positions(tr["batch"], tr["start_plies_max"], seed)
+    states = from_stones(torch.from_numpy(st[:SAME_POSITIONS]), tr["komi"],
+                         torch.from_numpy(tm[:SAME_POSITIONS]), device=device)
+    outs = [build_eval_fn(cell, params, r, seed, device)[1](states) for r in (route, tr["route"])]
+    return all(torch.equal(a, b) for a, b in zip(*outs) if a is not None)
 
 
 def readings(workload: str, seeds, seconds: float, route, device, cell=None,
@@ -47,13 +72,23 @@ def main() -> int:
     args = ap.parse_args()
     import torch
 
+    from portbench.harness.cells import load_cell
+
     if not torch.cuda.is_available():
         print("control: needs a CUDA card", file=sys.stderr)
         return 2
     log = lambda m: print(m, file=sys.stderr, flush=True)
     seeds = [int(s) for s in args.seeds.split(",")]
+    device = torch.device("cuda", 0)
+    cell = load_cell(args.workload)
+    if (args.route not in (None, cell["traffic"]["route"])
+            and same_forward(cell, args.route, seeds[0], device)):
+        log(f"control: route {args.route!r} gives the eval output of the cell's own route "
+            f"{cell['traffic']['route']!r} bit for bit on {SAME_POSITIONS} start positions: it "
+            f"is no control of {args.workload}")
+        return 4
     for seed, correct, nums, rate in readings(args.workload, seeds, args.seconds, args.route,
-                                              torch.device("cuda", 0), log=log):
+                                              device, cell=cell, log=log):
         print(json.dumps({"workload": args.workload, "seed": seed, "route": args.route,
                           "correct": correct, "numbers": nums, "moves_per_s": rate}), flush=True)
     return 0

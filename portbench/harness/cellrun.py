@@ -7,9 +7,9 @@ max_raw_policy_moves=0)`, the production harvest cadence. The eval
 function is `mcts.gumbel.make_eval_fn` on a bf16 `models.build_model`
 network with `symmetrize` on, through the traffic's route, one of
 `ROUTES`, and from the configuration file's `models.config.ModelConfig`
-fields. Weights come from `weights.make_weights`; start positions from
-the benchmark's own rules engine (`reference.rules.random_games`), handed
-over by `game.board.from_stones`.
+fields (`build_eval_fn`). Weights come from `weights.make_weights`; start
+positions from the benchmark's own rules engine
+(`reference.rules.random_games`), handed over by `game.board.from_stones`.
 
 Taps the harness puts around the program, without editing it:
 - `EvalTap` around the eval function: counts positions, keeps a sample of
@@ -43,14 +43,20 @@ from portbench.reference import rules
 from portbench.reference import search as ref_search
 
 # The eval function's keyword arguments of each forward route a traffic
-# file may name; "serveq" is the int8 path, calibrated on the cell's
-# start positions (`CellRun._calibrate`).
+# file may name. Two are controls (portbench/control.py), which no cell
+# runs: "serveq", the program's int8 path, calibrated on the cell's start
+# positions (`calibrate`), and "e4m3", the plain route with every
+# product's weight and input rounded to float8 e4m3 by the harness
+# (`round_products_e4m3`), the H100's next precision below bf16, which
+# every trunk type has.
 ROUTES = {
     "plain": {},
     "fused": {"use_fused_trunk": True},
     "fold": {"serve_fold": True},
     "serveq": {"serve_q_scales": None},
+    "e4m3": {},
 }
+E4M3_MAX = 448.0
 
 # What the correctness check samples: the boards whose games are replayed,
 # one leaf call in `leaf_call_every` (from an offset drawn from the seed),
@@ -68,6 +74,69 @@ def start_positions(B: int, max_plies: int, seed: int):
     lengths = np.round(np.arange(B) * max_plies / max(B - 1, 1)).astype(np.int64)
     stones, to_move, _ = rules.random_games(rng.permutation(lengths), rng)
     return stones, to_move
+
+
+def calibrate(model, tr: dict, seed: int, device):
+    """int8 scales of the program's own int8 serving path (the "serveq"
+    route) from 256 of this cell's start positions."""
+    from p3achygo_tpu_torch.features import batched_features
+    from p3achygo_tpu_torch.game.board import from_stones
+    from p3achygo_tpu_torch.nn.serve_q import calibrate as calibrate_q
+
+    st, tm = start_positions(256, tr["start_plies_max"], seed + 1)
+    states = from_stones(torch.from_numpy(st), tr["komi"], torch.from_numpy(tm), device=device)
+    planes, scalars = batched_features(states, planes_dtype=torch.bfloat16)
+    return calibrate_q(model, planes, scalars)
+
+
+def to_e4m3(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to float8 e4m3 on a per-tensor amax scale, then back to
+    t's dtype."""
+    f = t.float()
+    scale = f.abs().amax().clamp(min=torch.finfo(torch.float32).tiny) / E4M3_MAX
+    q = (f / scale).clamp(-E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
+    return (q.float() * scale).to(t.dtype)
+
+
+@torch.no_grad()
+def round_products_e4m3(model) -> None:
+    """The "e4m3" route: the weight of every product module of the model
+    (`Conv`, `Dense` and so `FlaxDense`, `Projection`) rounded in place by
+    `to_e4m3`, and its input by a forward pre-hook. The model holds its own
+    copy of the weights: the dict the reference reads is untouched."""
+    from p3achygo_tpu_torch.models.blocks import Conv, Dense
+    from p3achygo_tpu_torch.models.transformer import Projection
+
+    for mod in model.modules():
+        if isinstance(mod, (Conv, Dense, Projection)):
+            mod.weight.copy_(to_e4m3(mod.weight))
+            mod.register_forward_pre_hook(lambda _, args: (to_e4m3(args[0]),) + args[1:])
+
+
+def build_eval_fn(cell: dict, params: Dict[str, torch.Tensor], route: str, seed: int, device):
+    """(model, eval function) of the program for `cell` on `params`: a bf16
+    `models.build_model` network from the configuration file's
+    `models.config.ModelConfig` fields, through `route`. Where the
+    program's int8 path does not take the configuration (`q_supported`),
+    "serveq" gets no scales and `make_eval_fn` serves the plain forward, as
+    it would for any caller: control.py refuses such a route."""
+    from p3achygo_tpu_torch.mcts.gumbel import make_eval_fn
+    from p3achygo_tpu_torch.models.config import ModelConfig
+    from p3achygo_tpu_torch.models.model import build_model
+    from p3achygo_tpu_torch.nn.serve_q import q_supported
+
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; routes: {sorted(ROUTES)}")
+    cfg = cell["config"]
+    fields = {f.name: cfg[f.name] for f in dataclasses.fields(ModelConfig) if f.name in cfg}
+    model = build_model(ModelConfig(**fields), torch.bfloat16, device)
+    model.load_state_dict(params, strict=True)
+    kw = dict(ROUTES[route])
+    if "serve_q_scales" in kw and q_supported(model.config):
+        kw["serve_q_scales"] = calibrate(model, cell["traffic"], seed, device)
+    if route == "e4m3":
+        round_products_e4m3(model)
+    return model, make_eval_fn(model, symmetrize=True, **kw)
 
 
 class EvalTap:
@@ -242,17 +311,15 @@ class CellRun:
     """Builds the program for one cell and runs it. `device` is the card
     in a benchmark run; tests pass the CPU. `eval_wrap` / `step_wrap`, if
     given, wrap the program's eval function / step (the fault tests);
-    `route` replaces the traffic's route (the control's "serveq"), and
+    `route` replaces the traffic's route (a control's), and
     `check` entries replace those of `CHECK` (smaller samples in tests)."""
 
     def __init__(self, cell: dict, seed: int, device, trace: bool, log=print,
                  eval_wrap=None, step_wrap=None, route=None, check=None):
         from p3achygo_tpu_torch.game.board import from_stones
         from p3achygo_tpu_torch.mcts import gumbel
-        from p3achygo_tpu_torch.mcts.gumbel import SearchParams, make_eval_fn
+        from p3achygo_tpu_torch.mcts.gumbel import SearchParams
         from p3achygo_tpu_torch.mcts.tree import make_tree
-        from p3achygo_tpu_torch.models.config import ModelConfig
-        from p3achygo_tpu_torch.models.model import build_model
         from p3achygo_tpu_torch.selfplay import loop
 
         self.cell, self.seed, self.device, self.log = cell, seed, device, log
@@ -269,17 +336,8 @@ class CellRun:
             self._install_taps()
 
         t0 = time.perf_counter()
-        self.params = make_weights(cfg, seed, device)
-        fields = {f.name: cfg[f.name] for f in dataclasses.fields(ModelConfig) if f.name in cfg}
-        model = build_model(ModelConfig(**fields), torch.bfloat16, device)
-        model.load_state_dict(self.params, strict=True)
-        route = route or tr["route"]
-        if route not in ROUTES:
-            raise ValueError(f"unknown route {route!r}; routes: {sorted(ROUTES)}")
-        kw = dict(ROUTES[route])
-        if "serve_q_scales" in kw:
-            kw["serve_q_scales"] = self._calibrate(model)
-        fn = make_eval_fn(model, symmetrize=True, **kw)
+        self.params = make_weights(cfg, seed, device, cell["bench_dir"])
+        model, fn = build_eval_fn(cell, self.params, route or tr["route"], seed, device)
         if eval_wrap is not None:
             fn = eval_wrap(fn)
         chk = self.check
@@ -312,19 +370,6 @@ class CellRun:
         self.step_fn = loop.selfplay_step_tiered if step_wrap is None else step_wrap(
             loop.selfplay_step_tiered)
         self.plies_played = 0
-
-    def _calibrate(self, model):
-        """int8 scales of the program's own int8 serving path (the
-        "serveq" route) from 256 of this cell's start positions."""
-        from p3achygo_tpu_torch.features import batched_features
-        from p3achygo_tpu_torch.game.board import from_stones
-        from p3achygo_tpu_torch.nn.serve_q import calibrate
-
-        st, tm = start_positions(256, self.tr["start_plies_max"], self.seed + 1)
-        states = from_stones(torch.from_numpy(st), self.tr["komi"], torch.from_numpy(tm),
-                             device=self.device)
-        planes, scalars = batched_features(states, planes_dtype=torch.bfloat16)
-        return calibrate(model, planes, scalars)
 
     def _install_taps(self):
         from p3achygo_tpu_torch.nn import trunk_kernel

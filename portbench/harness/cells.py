@@ -8,8 +8,12 @@ under the benchmark's folder, found by its name alone:
 - `metrics/<metric>.py`: a reader of one per-layer metric, a function
   `read(rec)` that returns the number or None where it finds nothing;
 - `limits/<cell>.json`: the limit of each number the correctness check
-  compares in that cell.
-Adding a cell adds files and entries; no file here changes.
+  compares in that cell;
+- `reference/trunks/<trunk_block_type>.py`: the plain reference of the
+  configuration's trunk, its parameters and their draws, and its
+  operation count (the interface is in `reference/network.py`).
+Adding a cell adds files and entries, of any trunk type the program
+builds; no file here, and no file of the harness, changes.
 """
 from __future__ import annotations
 
@@ -59,14 +63,27 @@ def load_cell(name: str, root: str = ROOT) -> dict:
             "bench_dir": bench_dir}
 
 
+def _load(path: str, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str, bench_dir: str = BENCH_DIR) -> Callable:
     """`read` of metrics/<name>.py."""
     path = os.path.join(bench_dir, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("portbench_metric_" + name.replace(".", "_"),
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "portbench_metric_" + name.replace(".", "_")).read
+
+
+def trunk_module(config: dict, bench_dir: str = BENCH_DIR):
+    """reference/trunks/<trunk_block_type>.py of the configuration; "btl"
+    where it names none, as the program's `ModelConfig` defaults."""
+    kind = config.get("trunk_block_type", "btl")
+    path = os.path.join(bench_dir, "reference", "trunks", kind + ".py")
+    if not os.path.exists(path):
+        raise KeyError(f"no reference trunk for trunk_block_type {kind!r}: {path} is missing")
+    return _load(path, "portbench_trunk_" + kind)
 
 
 def read_metrics(cell: dict, rec) -> Dict[str, dict]:

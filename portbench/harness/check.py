@@ -29,6 +29,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from portbench.harness.cells import trunk_module
 from portbench.reference import rules
 from portbench.reference import search as ref_search
 from portbench.reference.network import Network, float32_exact
@@ -219,7 +220,8 @@ def judge(run, events, limits: Dict[str, float], device, log) -> Tuple[bool, int
     The numbers compared are those `limits` names; the others are logged."""
     float32_exact()
     tr = run.tr
-    net = Network(run.cell["config"], run.params, device)
+    cfg = run.cell["config"]
+    net = Network(cfg, run.params, device, trunk_module(cfg, run.cell["bench_dir"]))
     compared, bad, causes, roots = replay(events, run.start_stones[run.sampled],
                                           run.start_to_move[run.sampled], tr["max_game_len"])
     for c in causes:

@@ -7,7 +7,7 @@ from typing import Callable, Optional
 import torch
 
 from portbench.harness.cellrun import CellRun
-from portbench.harness.cells import read_metrics
+from portbench.harness.cells import BENCH_DIR, read_metrics
 from portbench.harness.check import judge
 from portbench.harness.trace import Profile
 
@@ -16,11 +16,14 @@ class Records:
     """What the per-layer readers read: the window's counts (`window`:
     seconds, plies, moves, positions, syncs), the profile of the profiled
     plies (`profile`, a `trace.Profile`, None in an untraced run), the
-    kernel entry points' call shapes in those plies (`calls`), and the
-    configuration (`config`)."""
+    kernel entry points' call shapes in those plies (`calls`), the
+    configuration (`config`) and the benchmark's folder its trunk module is
+    found in (`bench_dir`)."""
 
-    def __init__(self, window: dict, profile: Optional[Profile], calls: dict, config: dict):
+    def __init__(self, window: dict, profile: Optional[Profile], calls: dict, config: dict,
+                 bench_dir: str = BENCH_DIR):
         self.window, self.profile, self.calls, self.config = window, profile, calls, config
+        self.bench_dir = bench_dir
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start: float,
@@ -54,7 +57,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
             f"records, {profile.dropped_records()} launches without a device record, "
             f"{len(profile.ranges)} harness ranges, span {profile.span_s:.4f} s; idle by host "
             f"range {profile.idle_by_range()}; read in {time.perf_counter() - t0:.1f} s")
-        rec = Records(window, profile, calls, cell["config"])
+        rec = Records(window, profile, calls, cell["config"], cell["bench_dir"])
         metrics = read_metrics(cell, rec)
         dev["busy_s"] = profile.busy_s()
         dev["window_s"] = profile.span_s

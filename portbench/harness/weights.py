@@ -1,13 +1,16 @@
 """Seeded network weights, made on the device in a few large calls.
 
-Every parameter of `reference.network.parameter_shapes` comes from one
-normal and one uniform draw of a `torch.Generator` on the device seeded
-from the run's seed: kernels normal over the square root of their fan-in,
-Dense biases and the score head's per-bin term normal times 0.1, and the
-BatchNorm statistics perturbed so that no fold is an identity (scale in
-[0.7, 1.3), shift and mean in [-0.1, 0.1), variance in [0.5, 1.5)). The
-parameters are float32, the type the model stores and serves them in (it
-computes in bf16). The same dict goes to the program and to the reference.
+Every parameter of `reference.network.parameter_shapes` (the stem, the
+configuration's trunk, the heads) comes from one normal and one uniform
+draw of a `torch.Generator` on the device seeded from the run's seed, as
+its draw rule says (`reference/network.py`: the trunk module's
+`draw_rule` for the trunk, `network.draw_rule` for the rest): kernels
+normal over the square root of their fan-in, biases and the score head's
+per-bin term normal times 0.1, and norm statistics perturbed so that no
+norm is an identity (scale in [0.7, 1.3), shift and mean in [-0.1, 0.1),
+variance in [0.5, 1.5)). The parameters are float32, the type the model
+stores and serves them in (it computes in bf16). The same dict goes to the
+program and to the reference.
 """
 from __future__ import annotations
 
@@ -16,9 +19,12 @@ from typing import Dict
 
 import torch
 
-from portbench.reference.network import parameter_shapes
+from portbench.harness.cells import BENCH_DIR, trunk_module
+from portbench.reference import network
 
-BN_STATS = ("weight", "bias", "running_mean", "running_var")
+# A norm statistic from u uniform in [0, 1).
+STATS = {"weight": lambda u: 0.7 + 0.6 * u, "bias": lambda u: 0.2 * (u - 0.5),
+         "running_mean": lambda u: 0.2 * (u - 0.5), "running_var": lambda u: 0.5 + u}
 
 
 def torch_seed(seed: int) -> int:
@@ -26,30 +32,30 @@ def torch_seed(seed: int) -> int:
     return seed % (2 ** 63)
 
 
-def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    shapes = parameter_shapes(cfg)
-    bn_names = {n for n in shapes
-                if n.rsplit(".", 1)[-1] in BN_STATS and ("BatchNorm" in n or "batch_norm" in n)}
-    normal_names = [n for n in shapes if n not in bn_names]
-    n_normal = sum(math.prod(shapes[n]) for n in normal_names)
-    n_uniform = sum(math.prod(shapes[n]) for n in bn_names)
+def make_weights(cfg: dict, seed: int, device, bench_dir: str = BENCH_DIR
+                 ) -> Dict[str, torch.Tensor]:
+    trunk = trunk_module(cfg, bench_dir)
+    own = trunk.parameter_shapes(cfg)
+    rules = {name: (shape, (trunk.draw_rule if name in own else network.draw_rule)(name, shape))
+             for name, shape in network.parameter_shapes(cfg, trunk).items()}
+    size = {name: math.prod(shape) for name, (shape, _) in rules.items()}
+    n_uniform = sum(size[n] for n, (_, r) in rules.items() if r[0] == "stat")
     gen = torch.Generator(device=device).manual_seed(torch_seed(seed))
-    normal = torch.randn(n_normal, generator=gen, device=device)
+    normal = torch.randn(sum(size.values()) - n_uniform, generator=gen, device=device)
     uniform = torch.rand(n_uniform, generator=gen, device=device)
     out, i, j = {}, 0, 0
-    for name, shape in shapes.items():
-        size = math.prod(shape)
-        if name in bn_names:
-            u = uniform[j:j + size].reshape(shape)
-            j += size
-            stat = name.rsplit(".", 1)[-1]
-            out[name] = {"weight": 0.7 + 0.6 * u, "bias": 0.2 * (u - 0.5),
-                         "running_mean": 0.2 * (u - 0.5), "running_var": 0.5 + u}[stat]
+    for name, (shape, (kind, arg)) in rules.items():
+        n = size[name]
+        if kind == "stat":
+            out[name] = STATS[arg](uniform[j:j + n].reshape(shape))
+            j += n
             continue
-        z = normal[i:i + size].reshape(shape)
-        i += size
-        if len(shape) == 1 or name.endswith("score_pre_s"):
-            out[name] = 0.1 * z
+        z = normal[i:i + n].reshape(shape)
+        i += n
+        if kind == "scale":
+            out[name] = arg * z
+        elif kind == "fan_in":
+            out[name] = z / math.sqrt(arg)
         else:
-            out[name] = z / math.sqrt(math.prod(shape[1:]))
+            raise ValueError(f"{name}: unknown draw rule {(kind, arg)!r}")
     return out

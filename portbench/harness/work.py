@@ -6,13 +6,16 @@ of a call instead of the program's weight tensors, so that what a later
 change to the program packs or pads does not change the count. Each input
 byte is read once and each output byte written once; operations are those
 the layer's products need (2 per multiply-add). `model_flops` counts one
-position's forward: the stem, the trunk, and the head layers that produce
+position's forward: the stem, the trunk (`flops` of the configuration's
+trunk module, `reference/trunks/`), and the head layers that produce
 what search reads (policy logits and pass, outcome, q6 error, gamma, score
 distribution), whatever implements them.
 """
 from __future__ import annotations
 
 from typing import Tuple
+
+from portbench.harness.cells import BENCH_DIR, trunk_module
 
 POINTS = 361
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet, 700 W).
@@ -56,22 +59,19 @@ def liberty_bytes(n: int) -> float:
     return n * POINTS * (I8 + I32 + I32)
 
 
-def model_flops(cfg: dict) -> float:
-    """Operations of one position's forward (see the module docstring)."""
-    C, cb, hc, cv = (cfg["channels"], cfg["bottleneck_channels"], cfg["head_channels"],
-                     cfg["c_val"])
+def model_flops(cfg: dict, bench_dir: str = BENCH_DIR) -> float:
+    """Operations of one position's forward (see the module docstring): the
+    stem, the configuration's trunk (its module's `flops`) and the heads at
+    the trunk's `head_width`."""
+    C, hc, cv = cfg["channels"], cfg["head_channels"], cfg["c_val"]
     k = cfg["conv_size"] + 2
-    flops = 2 * POINTS * 15 * C * k * k + 2 * 8 * C
-    layers = cfg["inner_bottleneck_layers"] + 2
-    for i in range(cfg["blocks"]):
-        if i % cfg["broadcast_interval"] == cfg["broadcast_interval"] - 1:
-            flops += broadcast_work(1, C)[0]
-        else:
-            flops += segment_work(1, 1, layers, C, cb)[0]
+    trunk = trunk_module(cfg, bench_dir)
+    flops = 2 * POINTS * 15 * C * k * k + 2 * 8 * C + trunk.flops(cfg)
+    H = trunk.head_width(cfg)
     # Policy: conv_p, conv_g, the pooled bias, the move and pass logits.
-    flops += 2 * (2 * POINTS * C * hc) + 2 * 2 * hc * hc + 2 * POINTS * hc + 2 * 2 * hc
+    flops += 2 * (2 * POINTS * H * hc) + 2 * 2 * hc * hc + 2 * POINTS * hc + 2 * 2 * hc
     # Value: conv, outcome embedding and outputs, gamma, the score head over
     # its 800 bins.
-    flops += 2 * POINTS * C * hc + 2 * 2 * hc * cv + 2 * cv * 14
+    flops += 2 * POINTS * H * hc + 2 * 2 * hc * cv + 2 * cv * 14
     flops += 2 * 2 * hc * cv + 2 * cv + 2 * 2 * hc * cv + 800 * 2 * cv
     return float(flops)

@@ -1,14 +1,36 @@
-"""Plain float32 forward of a p3achygo bottleneck ("btl") network, and the
-evaluation that search reads from it, for judging the program.
+"""Plain float32 forward of a p3achygo network, and the evaluation that
+search reads from it, for judging the program.
 
 The architecture is p3achygo's (python/model.py of github.com/p3achyjr/
-p3achygo: P3achyGoModel, the bottleneck and broadcast residual blocks, the
-policy and value heads), written out layer by layer in plain torch, NCHW,
-float32, with TF32 off. Parameters are named as the published flax tree
-names them (`bottleneck_res_0.reduce.Conv_0.weight`, ...); `parameter_shapes`
-lists them. BatchNorm is pre-activation and reads running statistics with
-eps 1e-3; this module folds each into a per-channel scale and shift itself.
-mish is x * tanh(softplus(x)).
+p3achygo: P3achyGoModel, the policy and value heads), written out layer by
+layer in plain torch, NCHW, float32, with TF32 off. This module holds what
+every trunk shares: the stem, the heads, the features, the symmetry,
+`Evaluation` and `evaluate`. The trunk between the stem and the heads is
+a module of its own, `trunks/<trunk_block_type>.py`, found by the
+configuration's `trunk_block_type` (`harness.cells.trunk_module`), which
+gives:
+- `parameter_shapes(cfg)`: the trunk's parameters and statistics, in the
+  order and under the names of the program's `state_dict`;
+- `draw_rule(name, shape)`: how `harness.weights` draws each of them, one
+  of `("stat", s)`, a norm's statistic drawn uniform so that no norm is
+  the identity (`s` "weight": a scale in [0.7, 1.3); "bias" or
+  "running_mean" in [-0.1, 0.1); "running_var" in [0.5, 1.5)),
+  `("fan_in", f)`, a kernel drawn normal over sqrt(f), where f is the
+  product of the input axes (last for an [out, in, ...] kernel, first for
+  flax's [C, H, D] projection, all but the last for [H, D, C]), or
+  `("scale", s)`, normal times s (biases, embeddings); `draw_rule` below
+  is the rule of the stem, the heads and the conv trunks;
+- `forward(net, cfg, x)`: float32, the stem's NCHW output to the heads'
+  NCHW input, every product through `Network._conv` / `_dense` or a helper
+  that applies `net.round`;
+- `flops(cfg)`: the operations (2 per multiply-add) of one position's
+  trunk;
+- `head_width(cfg)`: the channels the heads read.
+Parameters are named as the published flax tree names them
+(`init_board_conv.weight`, `policy_head.conv_p.weight`, ...). BatchNorm is
+pre-activation and reads running statistics with eps 1e-3; this module
+folds each into a per-channel scale and shift itself. mish is
+x * tanh(softplus(x)).
 
 The evaluation applies the D4 symmetry the JAX package picks from the
 position's additive Zobrist hash (`hash[0] % 8`; the table from numpy's
@@ -23,6 +45,7 @@ Nothing here imports the program or JAX.
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Tuple
 
@@ -33,72 +56,86 @@ import torch.nn.functional as F
 from portbench.reference.rules import BLACK, BOARD, POINTS, batch_point_liberties
 
 BN_EPS = 1e-3
+BN_STATS = ("weight", "bias", "running_mean", "running_var")
 INPUT_PLANES = 15
 INPUT_SCALARS = 8
 SCORE_LOGITS = 800
 VALUE_BUCKETS = 51
 
-
-def is_broadcast(cfg: dict, i: int) -> bool:
-    return i % cfg["broadcast_interval"] == cfg["broadcast_interval"] - 1
+Shapes = "OrderedDict[str, Tuple[int, ...]]"
 
 
-def parameter_shapes(cfg: dict) -> "OrderedDict[str, Tuple[int, ...]]":
-    """Every parameter and BatchNorm statistic of the network, by name."""
-    C, cb, hc, cv = (cfg["channels"], cfg["bottleneck_channels"], cfg["head_channels"],
-                     cfg["c_val"])
-    k = cfg["conv_size"]
-    out: "OrderedDict[str, Tuple[int, ...]]" = OrderedDict()
+def bn_shapes(out, prefix: str, c: int) -> None:
+    for s in BN_STATS:
+        out[f"{prefix}.{s}"] = (c,)
 
-    def bn(prefix, c):
-        for s in ("weight", "bias", "running_mean", "running_var"):
-            out[f"{prefix}.{s}"] = (c,)
 
-    def conv_block(prefix, cin, cout, kk):
-        bn(f"{prefix}.BatchNorm_0", cin)
-        out[f"{prefix}.Conv_0.weight"] = (cout, cin, kk, kk)
+def conv_block_shapes(out, prefix: str, cin: int, cout: int, k: int) -> None:
+    """A pre-activation conv block: BatchNorm_0 over cin, then Conv_0."""
+    bn_shapes(out, f"{prefix}.BatchNorm_0", cin)
+    out[f"{prefix}.Conv_0.weight"] = (cout, cin, k, k)
 
-    def dense(prefix, cin, cout):
-        out[f"{prefix}.weight"] = (cout, cin)
-        out[f"{prefix}.bias"] = (cout,)
 
-    out["init_board_conv.weight"] = (C, INPUT_PLANES, k + 2, k + 2)
-    dense("init_game_layer", INPUT_SCALARS, C)
-    for i in range(cfg["blocks"]):
-        if is_broadcast(cfg, i):
-            p = f"broadcast_res_{i}"
-            conv_block(f"{p}.conv_first", C, C, 1)
-            dense(f"{p}.mix.Dense_0", POINTS, POINTS)
-            conv_block(f"{p}.conv_last", C, C, 1)
-        else:
-            p = f"bottleneck_res_{i}"
-            conv_block(f"{p}.reduce", C, cb, 1)
-            for j in range(cfg["inner_bottleneck_layers"]):
-                conv_block(f"{p}.inner_{j}", cb, cb, k)
-            conv_block(f"{p}.expand", cb, C, 1)
+def dense_shapes(out, prefix: str, cin: int, cout: int) -> None:
+    out[f"{prefix}.weight"] = (cout, cin)
+    out[f"{prefix}.bias"] = (cout,)
+
+
+def stem_shapes(cfg: dict) -> Shapes:
+    out: Shapes = OrderedDict()
+    out["init_board_conv.weight"] = (cfg["channels"], INPUT_PLANES, cfg["conv_size"] + 2,
+                                     cfg["conv_size"] + 2)
+    dense_shapes(out, "init_game_layer", INPUT_SCALARS, cfg["channels"])
+    return out
+
+
+def head_shapes(cfg: dict, C: int) -> Shapes:
+    """The policy and value heads over C channels."""
+    hc, cv = cfg["head_channels"], cfg["c_val"]
+    out: Shapes = OrderedDict()
     ph = "policy_head"
     out[f"{ph}.conv_p.weight"] = (hc, C, 1, 1)
     out[f"{ph}.conv_g.weight"] = (hc, C, 1, 1)
-    bn(f"{ph}.gpool.batch_norm_gpool", hc)
-    dense(f"{ph}.gpool.Dense_0", 2 * hc, hc)
+    bn_shapes(out, f"{ph}.gpool.batch_norm_gpool", hc)
+    dense_shapes(out, f"{ph}.gpool.Dense_0", 2 * hc, hc)
     out[f"{ph}.output_moves.weight"] = (2, hc, 1, 1)
-    dense(f"{ph}.output_pass", 2 * hc, 2)
+    dense_shapes(out, f"{ph}.output_pass", 2 * hc, 2)
     out[f"{ph}.soft_moves.weight"] = (1, hc, 1, 1)
-    dense(f"{ph}.soft_pass", 2 * hc, 1)
+    dense_shapes(out, f"{ph}.soft_pass", 2 * hc, 1)
     out[f"{ph}.optimistic_moves.weight"] = (1, hc, 1, 1)
-    dense(f"{ph}.optimistic_pass", 2 * hc, 1)
+    dense_shapes(out, f"{ph}.optimistic_pass", 2 * hc, 1)
     vh = "value_head"
     out[f"{vh}.score_pre_s"] = (1, cv)
     out[f"{vh}.conv.weight"] = (hc, C, 1, 1)
-    dense(f"{vh}.outcome_q_embed", 2 * hc, cv)
-    dense(f"{vh}.outcome_q_output", cv, 14)
-    dense(f"{vh}.outcome_mcts_dist", cv, VALUE_BUCKETS)
+    dense_shapes(out, f"{vh}.outcome_q_embed", 2 * hc, cv)
+    dense_shapes(out, f"{vh}.outcome_q_output", cv, 14)
+    dense_shapes(out, f"{vh}.outcome_mcts_dist", cv, VALUE_BUCKETS)
     out[f"{vh}.conv_ownership.weight"] = (1, hc, 1, 1)
-    dense(f"{vh}.gamma_pre", 2 * hc, cv)
-    dense(f"{vh}.gamma_output", cv, 1)
-    dense(f"{vh}.score_pre_v", 2 * hc, cv)
-    dense(f"{vh}.score_output", cv, 1)
+    dense_shapes(out, f"{vh}.gamma_pre", 2 * hc, cv)
+    dense_shapes(out, f"{vh}.gamma_output", cv, 1)
+    dense_shapes(out, f"{vh}.score_pre_v", 2 * hc, cv)
+    dense_shapes(out, f"{vh}.score_output", cv, 1)
     return out
+
+
+def parameter_shapes(cfg: dict, trunk) -> Shapes:
+    """Every parameter and statistic of the network, by name: the stem,
+    the trunk, the heads, in the program's `state_dict` order."""
+    return OrderedDict(**stem_shapes(cfg), **trunk.parameter_shapes(cfg),
+                       **head_shapes(cfg, trunk.head_width(cfg)))
+
+
+def draw_rule(name: str, shape: Tuple[int, ...]) -> tuple:
+    """The draw of a stem, head or conv-trunk parameter (see the module
+    docstring): BatchNorm statistics uniform, biases and the score head's
+    per-bin term normal times 0.1, kernels over their [out, in, ...]
+    fan-in."""
+    stat = name.rsplit(".", 1)[-1]
+    if stat in BN_STATS and ("BatchNorm" in name or "batch_norm" in name):
+        return ("stat", stat)
+    if len(shape) == 1 or name.endswith("score_pre_s"):
+        return ("scale", 0.1)
+    return ("fan_in", math.prod(shape[1:]))
 
 
 # --- symmetry and hash (the JAX package's conventions) ---
@@ -179,11 +216,13 @@ class Evaluation(NamedTuple):
 
 class Network:
     """The float32 forward over a dict of parameters (`parameter_shapes`),
-    copied to float32 on `device`. `round_fn`, when given, is applied to
-    every product's two inputs (the lower-precision control)."""
+    copied to float32 on `device`, with `trunk`, the configuration's trunk
+    module. `round_fn`, when given, is applied to every product's two
+    inputs (the lower-precision control)."""
 
-    def __init__(self, cfg: dict, params: Dict[str, torch.Tensor], device, round_fn=None):
-        self.cfg = cfg
+    def __init__(self, cfg: dict, params: Dict[str, torch.Tensor], device, trunk,
+                 round_fn=None):
+        self.cfg, self.trunk = cfg, trunk
         self.p = {k: v.detach().to(device=device, dtype=torch.float32)
                   for k, v in params.items()}
         self.round = round_fn or (lambda t: t)
@@ -216,19 +255,7 @@ class Network:
         cfg = self.cfg
         x = self._conv("init_board_conv.weight", planes)
         x = x + self._dense("init_game_layer", scalars)[:, :, None, None]
-        for i in range(cfg["blocks"]):
-            if is_broadcast(cfg, i):
-                p = f"broadcast_res_{i}"
-                y = self._conv_block(f"{p}.conv_first", x)
-                n, c = y.shape[:2]
-                y = self._dense(f"{p}.mix.Dense_0", mish(y).reshape(n, c, POINTS))
-                x = x + self._conv_block(f"{p}.conv_last", y.reshape(n, c, BOARD, BOARD))
-            else:
-                p = f"bottleneck_res_{i}"
-                y = self._conv_block(f"{p}.reduce", x)
-                for j in range(cfg["inner_bottleneck_layers"]):
-                    y = self._conv_block(f"{p}.inner_{j}", y)
-                x = x + self._conv_block(f"{p}.expand", y)
+        x = self.trunk.forward(self, cfg, x)
         n = x.shape[0]
         # Policy head.
         pp = self._conv("policy_head.conv_p.weight", x)

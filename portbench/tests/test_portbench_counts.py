@@ -1,12 +1,15 @@
 """Work counts and metric arithmetic on the CPU: the counts against hand
-sums at the two configurations' widths, kernel time per launch when the
+sums at the two configurations' widths, the seeded weights and operation
+counts of both configurations pinned, kernel time per launch when the
 profiler drops records, and shares reported as read."""
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 
 import pytest
+import torch
 
 from portbench.harness import work
 from portbench.harness.cells import metric_reader
@@ -51,6 +54,37 @@ def test_model_flops_by_hand():
     assert work.model_flops(config("b12c128btl3")) == want
     assert 0.95e9 < want < 1.1e9
     assert 10e9 < work.model_flops(config("b14c384btl3")) < 11.5e9
+
+
+# make_weights at seed 2**31 + 2020 on the CPU (sha256 over each name, shape
+# and float32 bytes in order) and model_flops, as the harness gave them
+# when the trunk was part of reference/network.py: moving the trunk into
+# its own module changed no bit.
+PINNED = {"b12c128btl3": (298, "35f98555b7a63aa30cd4c78c48ea862a1d54e7d38363de7d99e9928e9e745ad3",
+                          1039838272.0),
+          "b14c384btl3": (361, "f6c1993d972cef16466177be73bcc9ae022140a107e0da634e4ba3da067815bc",
+                          10657884960.0)}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_weights_and_operation_count_are_pinned(name):
+    from p3achygo_tpu_torch.models.config import get_config
+    from p3achygo_tpu_torch.models.model import P3achyGoModel
+
+    from portbench.harness.weights import make_weights
+
+    cfg = config(name)
+    params = make_weights(cfg, 2 ** 31 + 2020, torch.device("cpu"))
+    h = hashlib.sha256()
+    for k, t in params.items():
+        h.update(k.encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(t.contiguous().numpy().tobytes())
+    assert (len(params), h.hexdigest(), work.model_flops(cfg)) == PINNED[name]
+    # In the program's state_dict order, under its names and shapes.
+    want = P3achyGoModel(get_config(name)).state_dict()
+    assert [(k, tuple(t.shape)) for k, t in params.items()] == [
+        (k, tuple(t.shape)) for k, t in want.items()]
 
 
 def test_bound_takes_the_larger_side():

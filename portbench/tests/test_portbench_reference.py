@@ -20,11 +20,12 @@ from portbench.reference.network import (
     SYM_SCATTER,
     Network,
     features,
-    is_broadcast,
     mish,
     parameter_shapes,
     symmetry_index,
 )
+from portbench.reference.trunks import btl
+from portbench.reference.trunks.btl import is_broadcast
 
 REF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "reference")
 TINY = dict(blocks=6, conv_size=3, broadcast_interval=4, inner_bottleneck_layers=1,
@@ -137,10 +138,12 @@ def test_random_games_replay_in_the_one_board_engine():
 
 
 def test_reference_imports_nothing_of_the_program_or_jax():
-    for name in os.listdir(REF_DIR):
-        if not name.endswith(".py"):
-            continue
-        tree = ast.parse(open(os.path.join(REF_DIR, name)).read())
+    """Every file of the reference, its trunks included."""
+    paths = [os.path.join(base, f) for base, _, files in os.walk(REF_DIR) for f in files
+             if f.endswith(".py")]
+    assert os.path.join(REF_DIR, "trunks", "btl.py") in paths
+    for name in paths:
+        tree = ast.parse(open(name).read())
         for node in ast.walk(tree):
             mods = []
             if isinstance(node, ast.Import):
@@ -194,8 +197,8 @@ def layer_by_layer(cfg, p, planes, scalars):
 def test_network_against_an_unfolded_forward(cfg):
     torch.manual_seed(0)
     params = make_weights(cfg, 2 ** 31 + 5, torch.device("cpu"))
-    assert set(params) == set(parameter_shapes(cfg))
-    net = Network(cfg, params, torch.device("cpu"))
+    assert list(params) == list(parameter_shapes(cfg, btl))
+    net = Network(cfg, params, torch.device("cpu"), btl)
     planes = (torch.rand(6, 15, 19, 19) < 0.3).float()
     scalars = torch.rand(6, 8)
     got = net.forward(planes, scalars)["pi_logits"]
@@ -228,7 +231,7 @@ def test_evaluation_against_the_programs_float32_forward():
             last[b, -len(played):] = played
     states = states._replace(last_moves=torch.from_numpy(last).to(torch.int32))
     out = make_eval_fn(model, symmetrize=True)(states)
-    ref = Network(cfg, params, torch.device("cpu")).evaluate(
+    ref = Network(cfg, params, torch.device("cpu"), btl).evaluate(
         stones, to_move, last, np.full(16, 7.5, np.float32))
     torch.testing.assert_close(out.log_priors, ref.log_priors, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out.outcome_value, ref.value, rtol=1e-4, atol=1e-4)
