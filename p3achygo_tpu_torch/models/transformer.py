@@ -20,6 +20,10 @@ Every layer follows what flax 0.12 computes, not torch's defaults:
   exp(x - max), then divided by its sum; no dropout.
 - gelu: the tanh approximation (flax `nn.gelu`, approximate=True).
 
+The attention's core (q.k^T, the softmax and weights.v; not the four
+projections) runs inside the tracer's span `trunk.attention` (rows,
+tokens, heads, head_dim), one a block, a flag test when the tracer is off.
+
 The attention is plain PyTorch on purpose: the JAX package computes it
 with XLA einsums, not a Pallas kernel, and `scaled_dot_product_attention`
 rounds bf16 at other points.
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p3achygo_tpu_torch import tracing
 from p3achygo_tpu_torch.constants import BOARD_LEN
 from p3achygo_tpu_torch.models.blocks import Dense
 
@@ -116,9 +121,14 @@ class MultiHeadDotProductAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # [N, T, H, D] -> [N, H, T, D]
         q, k, v = (p(x).transpose(1, 2) for p in (self.query, self.key, self.value))
-        depth = torch.tensor(math.sqrt(q.shape[-1]), dtype=x.dtype, device=x.device)
-        weights = softmax(torch.matmul(q / depth, k.transpose(-1, -2)))
-        return self.out(torch.matmul(weights, v).transpose(1, 2))
+        n, heads, tokens, head_dim = q.shape
+        depth = torch.tensor(math.sqrt(head_dim), dtype=x.dtype, device=x.device)
+        # The core alone: what a fused attention kernel would replace.
+        with tracing.span("trunk.attention", rows=n, tokens=tokens, heads=heads,
+                          head_dim=head_dim):
+            weights = softmax(torch.matmul(q / depth, k.transpose(-1, -2)))
+            y = torch.matmul(weights, v)
+        return self.out(y.transpose(1, 2))
 
 
 class TransformerBlock(nn.Module):

@@ -4,7 +4,9 @@
 On the CPU, with a tiny btl network: the span tree of tiered plies and a
 reset, results bit-identical with the tracer on and off, nothing recorded
 off, the eval rows and the sync wait by cause, the ranges a torch
-profiler sees, the summary, and the generation loop's `--trace-spans` line.
+profiler sees, the summary, and the generation loop's `--trace-spans` line;
+with a small transformer: one `trunk.attention` span a block inside
+`eval.forward`, none off, the same outputs on and off.
 The tests marked `cuda` need a card (the clock a kernel launch shares with
 its span's range; the sync count of a planted `.item()` and a boolean-mask
 write whose values the mask sizes); this file imports no JAX:
@@ -13,6 +15,7 @@ write whose values the mask sizes); this file imports no JAX:
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import tempfile
@@ -40,6 +43,7 @@ PARENTS = {
     "search.eval": {"search.root", "search.sweep"},
     "eval.features": {"search.eval"},
     "eval.forward": {"search.eval"},
+    "trunk.attention": {"eval.forward"},
     "search.sweep": {"search.root"},
     "search.descent": {"search.sweep"},
     "search.leaf": {"search.sweep"},
@@ -252,6 +256,55 @@ def test_summary_counts_total_and_self_time(model):
     with pytest.raises(RuntimeError):
         with tracing.span("x"):
             tracing.reset()
+
+
+@pytest.fixture(scope="module")
+def transformer():
+    cfg = dataclasses.replace(get_config("b14d96h3_transformer"), blocks=2, channels=32,
+                              embed_dim=32, num_heads=2, head_channels=8, c_val=16)
+    m = build_model(cfg, device="cpu")
+    init_params(m, torch.Generator().manual_seed(13))
+    return m
+
+
+def transformer_eval(model, states):
+    """The eval function's outputs, as a list of tensors."""
+    return list(tg.make_eval_fn(model, symmetrize=True)(states)[:4])
+
+
+def test_attention_spans_one_a_block_inside_the_forward(transformer):
+    states = new_state(3, 7.5, device="cpu")
+    tracing.enable()
+    transformer_eval(transformer, states)
+    tracing.disable()
+    spans = tracing.spans()
+    attn = [s for s in spans if s.name == "trunk.attention"]
+    assert len(attn) == transformer.config.blocks == 2
+    for s in attn:
+        assert s.attrs == {"rows": 3, "tokens": 361, "heads": 2, "head_dim": 16}
+        parent = spans[s.parent]
+        assert parent.name in PARENTS[s.name] and parent.attrs == {"route": "plain"}
+        assert parent.start <= s.start <= s.end <= parent.end
+    assert attn[0].end <= attn[1].start
+
+
+def test_attention_spans_off_record_nothing_and_change_no_output(transformer):
+    gen = torch.Generator().manual_seed(3)
+    states = new_state(4, 7.5, device="cpu")
+    stones = torch.randint(-1, 2, states.stones.shape, generator=gen, dtype=torch.int8)
+    states = states._replace(stones=stones)
+    off = transformer_eval(transformer, states)
+    assert tracing.spans() == []
+    tracing.enable()
+    on = transformer_eval(transformer, states)
+    tracing.disable()
+    assert sum(s.name == "trunk.attention" for s in tracing.spans()) == 2
+    for a, b in zip(on, off):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    tracing.reset()
+    again = transformer_eval(transformer, states)
+    assert tracing.spans() == []
+    assert all(torch.equal(a, b) for a, b in zip(again, off))
 
 
 def test_generation_loop_prints_its_spans(tmp_path, capsys):
